@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of daam_tpu_torch on one NVIDIA GPU: build, kernel parity, the
-traced SD 2.1-base slice, timings.
+traced SD 2.1-base slice, the head-replay transplant, timings.
 
     python3 chip_smoke.py              # from the repository root
     python3 chip_smoke.py --profile    # also a torch.profiler table of one step
@@ -8,31 +8,46 @@ traced SD 2.1-base slice, timings.
 Phases, each of which raises (exit code != 0) when a check fails:
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a.
-2. Kernel parity at the main path's shapes, kernel against its plain
-   PyTorch version on the same inputs: ``flash_attention`` in both layouts
+2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
+   version on the same inputs: ``flash_attention`` in both layouts
    (head-major view and the (B, L, H·hd) projection output) in fp32 and bf16
    at Lk ∈ {4096, 1024, 77}; ``cross_attention_acc`` in both layouts and both
-   dtypes, called twice into the same accumulator.  TF32 is off for the fp32
-   checks.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5 (fp32 accumulator),
-   ≤ 2e-2 (bf16); Spearman ≥ 0.999.
+   dtypes, called twice into the same accumulator; ``cross_attention_probs``
+   in both layouts and both dtypes, with and without ``cond_only``, P in fp32
+   and bf16, at every shape of the save run (P compared on the rows it
+   writes).  TF32 is off for the fp32 checks.  Max abs error ≤ 1e-4 (fp32
+   outputs), ≤ 1e-5 (fp32 accumulator and fp32 P), ≤ 2e-2 (bf16);
+   Spearman ≥ 0.999.
 3. A small reference: the ``tiny`` preset in fp32, kernels against the plain
    path, same weights and latents: images within 1e-3, heat maps with
-   per-token Spearman ≥ 0.999.
-4. The slice at full width: ``v2-1-base`` (random weights from seed 0), bf16,
-   512², 10 traced DDIM steps through ``trace(pipe)``; the image must be
-   (512, 512, 3) and finite, the word map for "dog" (64, 64), finite, ≥ 0 and
-   not constant, and the launch counters, zeroed just before the run, must
-   read 15 × 10 (cross_attention_acc) and 32 × 10 (flash_attention).
-5. Seconds per step traced and untraced (host clock, synchronized per step,
-   warm runs in turns), and each kernel's time against its plain version at
-   every main-path shape (CUDA events after a warm-up).
+   per-token Spearman ≥ 0.999; then an fp32 save_heads → load_heads pair
+   under each, whose buffers agree within 1e-5 and images within 1e-3.
+4. The main path at full width: ``v2-1-base`` (random weights from seed 0),
+   bf16, 512², 10 traced DDIM steps through ``trace(pipe)``; the image must
+   be (512, 512, 3) and finite, the word map for "dog" (64, 64), finite,
+   ≥ 0 and not constant, and the launch counters, zeroed just before the
+   run, must read 15 × 10 (cross_attention_acc) and 32 × 10
+   (flash_attention).
+5. The transplant at full width, the same model: a ``save_heads`` run of the
+   prompt (counters: 16 × 10 cross_attention_probs, 16 × 10
+   flash_attention, no cross_attention_acc), whose bf16 buffer must hold 16
+   layers of (10, 2, H, h·w, 77), finite, rows summing to 1 within 1e-2; a
+   ``load_heads`` run of the same prompt (counters: 16 × 10
+   flash_attention, nothing else), whose per-token heat maps must match the
+   save run's at Spearman ≥ 0.999; and a ``load_heads`` run of a second
+   prompt, whose image must differ from a fresh run of that prompt.
+6. Seconds per step traced and untraced (host clock, synchronized per step,
+   warm runs in turns) and of the save and load runs, and each kernel's time
+   against its plain version at every shape of its path (CUDA events after a
+   warm-up).
 
 The line before the last is ``{"kernels": [...]}``: per kernel, its launches
-in the phase-4 run, the largest bf16 max-abs error of phase 2, and ``ms`` /
-``plain_ms``: the time of one UNet evaluation's worth of its launches (each
-main-path shape's time × its launches per evaluation).  The last line is
-``{"ok": true, "device": {...}}``.  The script needs a CUDA device and the
-daam_tpu_torch package beside it; it never imports JAX or PIL.
+in its path's run (phase 4, or the phase-5 save run for
+cross_attention_probs), the largest bf16 max-abs error of phase 2, and
+``ms`` / ``plain_ms``: the time of one UNet evaluation's worth of its
+launches (each shape's time × its launches per evaluation).  The last line
+is ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
+the daam_tpu_torch package beside it; it never imports JAX or PIL.
 """
 
 import argparse
@@ -42,8 +57,13 @@ import sys
 import time
 
 PROMPT = 'A dog runs across the field.'
+PROMPT2 = 'A cat sits on the red sofa.'
 STEPS = 10
 K1_PER_EVAL, K2_PER_EVAL = 15, 32
+# Per UNet evaluation of the save run: every attn2 (the mid block's too)
+# through cross_attention_probs, every attn1 through flash_attention.
+K5_PER_EVAL, K2_PER_EVAL_REPLAY = 16, 16
+N_LAYERS = 16
 # (B, H, Lq, Lk) of every launch of one UNet evaluation at 512², hd 64,
 # with its count per evaluation.
 K2_SHAPES = [((2, 5, 4096, 4096), 5), ((2, 10, 1024, 1024), 5),
@@ -52,6 +72,8 @@ K2_SHAPES = [((2, 5, 4096, 4096), 5), ((2, 10, 1024, 1024), 5),
              ((1, 20, 256, 77), 5), ((2, 20, 64, 77), 1)]
 K1_SHAPES = [((1, 5, 4096, 77), 5), ((1, 10, 1024, 77), 5),
              ((1, 20, 256, 77), 5)]
+K5_SHAPES = [((2, 5, 4096, 77), 5), ((2, 10, 1024, 77), 5),
+             ((2, 20, 256, 77), 5), ((2, 20, 64, 77), 1)]
 HD = 64
 
 
@@ -92,7 +114,8 @@ def parity(kernels, A):
     """Phase 2; returns the largest bf16 max-abs error per kernel."""
     import torch
 
-    worst = {'flash_attention': 0.0, 'cross_attention_acc': 0.0}
+    worst = {'flash_attention': 0.0, 'cross_attention_acc': 0.0,
+             'cross_attention_probs': 0.0}
     gen = torch.Generator(device='cuda').manual_seed(0)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for dtype in (torch.float32, torch.bfloat16):
@@ -130,6 +153,30 @@ def parity(kernels, A):
                 if dtype == torch.bfloat16:
                     worst['cross_attention_acc'] = max(
                         worst['cross_attention_acc'], err, acc_err)
+            for shape, _ in K5_SHAPES:
+                B = shape[0]
+                q, k, v = qkv(*shape, layout, dtype, gen)
+                for cond_only in (False, True):
+                    for pdt in (torch.float32, torch.bfloat16):
+                        o, p = kernels.cross_attention_probs(q, k, v, cond_only, pdt)
+                        r, rp = A.cross_attention_probs_plain(q, k, v, cond_only, pdt)
+                        torch.cuda.synchronize()
+                        rows = slice(B // 2, None) if cond_only else slice(None)
+                        p, rp = p[rows].float(), rp[rows].float()
+                        err = (o.float() - r.float()).abs().max().item()
+                        p_err = (p - rp).abs().max().item()
+                        rho = min(spearman(o, r), spearman(p, rp))
+                        print(f'parity cross_attention_probs {layout:10s} '
+                              f'{str(dtype):14s} B,H,Lq,Lk={shape} '
+                              f'cond_only={cond_only!s:5s} P {str(pdt):14s} '
+                              f'max_abs_err={err:.3e} p_max_abs_err={p_err:.3e} '
+                              f'spearman={rho:.6f}')
+                        p_tol = 1e-5 if pdt == torch.float32 else 2e-2
+                        check(err <= tol[dtype] and p_err <= p_tol and rho >= 0.999,
+                              'cross_attention_probs parity')
+                        if torch.bfloat16 in (dtype, pdt):
+                            worst['cross_attention_probs'] = max(
+                                worst['cross_attention_probs'], err, p_err)
     return worst
 
 
@@ -158,8 +205,31 @@ def tiny_reference(A, StableDiffusionPipeline, trace):
           f'heat-map min spearman={rho:.6f} max rel err={map_err:.3e}')
     check(im_err <= 1e-3 and rho >= 0.999, 'tiny kernel path vs plain path')
 
+    # fp32 save -> load of the same prompt, kernels against the plain path
+    pipe.heads_dtype = torch.float32
+    replay = {}
+    for mode in ('torch', 'auto'):
+        A.set_kernel_mode(mode)
+        try:
+            out_s, _, tc = timed_call(pipe, True, trace, steps=3, save_heads=True,
+                                      persist_heads=False, data_dir=f'tiny-{mode}')
+            out_l, _, _ = timed_call(pipe, True, trace, steps=3, load_heads=True,
+                                     data_dir=f'tiny-{mode}')
+            replay[mode] = (tc.replay_buffer(3), out_s.images[0], out_l.images[0])
+        finally:
+            A.set_kernel_mode('auto')
+    (buf_p, save_p, load_p), (buf_k, save_k, load_k) = replay['torch'], replay['auto']
+    buf_err = max((buf_k[n] - buf_p[n]).abs().max().item() for n in buf_p)
+    im_err = max(float(abs(save_k - save_p).max()), float(abs(load_k - load_p).max()))
+    print(f'tiny save/load (fp32 heads, kernels vs plain): {len(buf_k)} layers, '
+          f'buffer max_abs_err={buf_err:.3e}, image max_abs_err={im_err:.3e}, '
+          f'replayed vs saved image max_abs_err={float(abs(load_k - save_k).max()):.3e}')
+    check(sorted(buf_k) == sorted(buf_p) and buf_err <= 1e-5 and im_err <= 1e-3,
+          'tiny save/load kernel path vs plain path')
 
-def timed_call(pipe, traced: bool, trace, steps: int = STEPS):
+
+def timed_call(pipe, traced: bool, trace, steps: int = STEPS,
+               prompt: str = PROMPT, **trace_kwargs):
     """One pipeline call; returns (output, per-step seconds, tracer)."""
     import torch
 
@@ -169,15 +239,15 @@ def timed_call(pipe, traced: bool, trace, steps: int = STEPS):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    gen = torch.Generator(device='cuda').manual_seed(0)
+    gen = torch.Generator(device=pipe.device).manual_seed(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if traced:
-        with trace(pipe) as tc:
-            out = pipe(PROMPT, num_inference_steps=steps, generator=gen,
+        with trace(pipe, **trace_kwargs) as tc:
+            out = pipe(prompt, num_inference_steps=steps, generator=gen,
                        output_type='np', callback=on_step)
-            return out, [b - a for a, b in zip([t0] + marks, marks)], tc
-    out = pipe(PROMPT, num_inference_steps=steps, generator=gen,
+        return out, [b - a for a, b in zip([t0] + marks, marks)], tc
+    out = pipe(prompt, num_inference_steps=steps, generator=gen,
                output_type='np', callback=on_step)
     return out, [b - a for a, b in zip([t0] + marks, marks)], None
 
@@ -202,14 +272,18 @@ def kernel_times(kernels, A):
     import torch
 
     gen = torch.Generator(device='cuda').manual_seed(1)
-    totals = {'flash_attention': [0.0, 0.0], 'cross_attention_acc': [0.0, 0.0]}
+    totals = {name: [0.0, 0.0] for name in kernels.launches}
     for name, shapes in (('flash_attention', K2_SHAPES),
-                         ('cross_attention_acc', K1_SHAPES)):
+                         ('cross_attention_acc', K1_SHAPES),
+                         ('cross_attention_probs', K5_SHAPES)):
         for shape, per_eval in shapes:
             q, k, v = qkv(*shape, 'packed', torch.bfloat16, gen)
             if name == 'flash_attention':
                 kern = lambda: kernels.flash_attention(q, k, v)  # noqa: E731
                 plain = lambda: A.flash_attention_plain(q, k, v)  # noqa: E731
+            elif name == 'cross_attention_probs':  # the 'full' capture
+                kern = lambda: kernels.cross_attention_probs(q, k, v)  # noqa: E731
+                plain = lambda: A.cross_attention_probs_plain(q, k, v)  # noqa: E731
             else:
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
@@ -223,6 +297,66 @@ def kernel_times(kernels, A):
             print(f'time {name:20s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
                   f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms')
     return totals
+
+
+def transplant(pipe, trace, kernels):
+    """Phase 5: save_heads -> load_heads at full width; returns the save
+    run's launch counts."""
+    import numpy as np
+    import torch
+
+    def run(prompt, **trace_kwargs):
+        kernels.reset_launches()
+        out, steps, tc = timed_call(pipe, True, trace, prompt=prompt,
+                                    data_dir='smoke', **trace_kwargs)
+        launches = dict(kernels.launches)
+        print(f'{list(trace_kwargs)[0]} run {prompt!r}: launches {launches}, '
+              f'{sum(steps):.3f} s for {STEPS} steps')
+        return out.images[0], tc, launches
+
+    image_s, tc_s, save_launches = run(PROMPT, save_heads=True,
+                                       persist_heads=False)
+    check(save_launches == {'cross_attention_probs': K5_PER_EVAL * STEPS,
+                            'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
+                            'cross_attention_acc': 0},
+          f'save run launch counts {save_launches}')
+    buf = tc_s.replay_buffer(STEPS)
+    check(len(buf) == N_LAYERS, f'{len(buf)} layers in the replay buffer')
+    nbytes = 0
+    latent = pipe.config.image_size // pipe.vae_scale_factor
+    for name, arr in buf.items():
+        info = pipe._layout[name]
+        hw = (latent // info.downscale) ** 2
+        check(tuple(arr.shape) == (STEPS, 2, info.heads, hw, 77)
+              and arr.dtype == torch.bfloat16, f'{name}: {tuple(arr.shape)}')
+        a = arr.to(pipe.device).float()
+        row_err = (a.sum(-1) - 1).abs().max().item()
+        check(bool(torch.isfinite(a).all()) and row_err <= 1e-2,
+              f'{name}: finite rows summing to 1 (max err {row_err:.3e})')
+        nbytes += arr.numel() * arr.element_size()
+    print(f'replay buffer: {len(buf)} layers, {nbytes / STEPS / 1e6:.1f} MB of '
+          f'bf16 per step, rows sum to 1 within 1e-2')
+
+    image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
+    check(load_launches == {'cross_attention_probs': 0, 'cross_attention_acc': 0,
+                            'flash_attention': K2_PER_EVAL_REPLAY * STEPS},
+          f'load run launch counts {load_launches}')
+    map_s = tc_s.compute_global_heat_map().heat_maps
+    map_l = tc_l.compute_global_heat_map().heat_maps
+    rhos = [spearman(map_l[t], map_s[t]) for t in range(map_s.shape[0])]
+    print(f'load vs save run, same prompt: per-token heat-map spearman min '
+          f'{min(rhos):.6f} over {len(rhos)} tokens; image max_abs_err '
+          f'{float(abs(image_l - image_s).max()):.3e}')
+    check(min(rhos) >= 0.999, 'replayed heat maps match the saved run')
+
+    image_t, _, _ = run(PROMPT2, load_heads=True)
+    fresh, _, _ = timed_call(pipe, False, trace, prompt=PROMPT2)
+    diff = float(abs(image_t - fresh.images[0]).mean())
+    print(f'transplant into {PROMPT2!r} vs a fresh run of it: mean abs diff '
+          f'{diff:.4e}')
+    check(bool(np.isfinite(image_t).all()) and diff > 1e-3,
+          'the transplanted image differs from a fresh run')
+    return save_launches
 
 
 def profile_step(pipe, trace):
@@ -305,10 +439,15 @@ def main(argv=None):
           and bool((word >= 0).all()) and word.max().item() > word.min().item(),
           'word heat map')
     check(launches == {'cross_attention_acc': K1_PER_EVAL * STEPS,
-                       'flash_attention': K2_PER_EVAL * STEPS},
+                       'flash_attention': K2_PER_EVAL * STEPS,
+                       'cross_attention_probs': 0},
           f'launch counts {launches}')
 
-    # 5. timings: warm runs in turns, then the kernels alone
+    # 5. the transplant at full width
+    launches['cross_attention_probs'] = transplant(
+        pipe, trace, kernels)['cross_attention_probs']
+
+    # 6. timings: warm runs in turns, then the kernels alone
     per_step = {True: [], False: []}
     for traced in (False, True, False, True):
         _, steps, _ = timed_call(pipe, traced, trace)
@@ -324,19 +463,30 @@ def main(argv=None):
         A.set_kernel_mode('auto')
     print(f's/step traced, plain attention instead of the kernels: '
           f'{sum(steps[1:]) / len(steps[1:]):.5f}')
+    replay_steps = {'save_heads': [], 'load_heads': []}
+    for _ in range(2):
+        for flag in replay_steps:
+            _, steps, _ = timed_call(pipe, True, trace, data_dir='smoke',
+                                     persist_heads=False, **{flag: True})
+            replay_steps[flag] += steps[1:]
+    print('s/step v2-1-base 512^2 bf16, head replay: ' + ' '.join(
+        f'{flag}={sum(v) / len(v):.5f} (slowest step {max(v):.5f})'
+        for flag, v in replay_steps.items()))
     totals = kernel_times(kernels, A)
     if args.profile:
         profile_step(pipe, trace)
 
     route = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
-             'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517'}
+             'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
+             'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
     print(smi)
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda',
          'source': 'daam_tpu_torch/csrc/attention.cu', 'replaces': route[name],
          'launches': launches[name], 'max_abs_err': worst[name],
          'ms': totals[name][0], 'plain_ms': totals[name][1]}
-        for name in ('cross_attention_acc', 'flash_attention')]}))
+        for name in ('cross_attention_acc', 'flash_attention',
+                     'cross_attention_probs')]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -9,5 +9,5 @@ from .experiment import GenerationExperiment  # noqa: F401
 from .heatmap import GlobalHeatMap, RawHeatMapCollection, WordHeatMap  # noqa: F401
 from .pipeline.sd import PipelineOutput, StableDiffusionPipeline  # noqa: F401
 from .tokenization import default_tokenizer  # noqa: F401
-from .trace import DiffusionHeatMapHooker, trace  # noqa: F401
+from .trace import DiffusionHeatMapHooker, release_heads, trace  # noqa: F401
 from .utils import compute_token_merge_indices, set_seed  # noqa: F401

@@ -47,8 +47,24 @@
 //   as the Pallas kernel does.  On an H100 80GB HBM3 at a 700 W power limit
 //   it takes 0.073 ms at (1, 5, 4096, 77) in bf16, against 0.161 ms for the
 //   plain PyTorch version.
+// * cross_attention_probs replaces cross_attention_probs (:405; body
+//   _cross_attn_kernel :347), the 'full'/'cond' capture behind save_heads:
+//   O = PV and P itself written out as (B, H, Lq, Lk), in fp32 or bf16
+//   whatever the storage type of q.  It is memory bound on the P write:
+//   12.6 MB of fp32 P at (2, 5, 4096, 77) against ~0.2 GFLOP.  It keeps
+//   K1's skeleton (one thread per query, 64-query blocks, K and V staged
+//   once, two passes over the tokens), but one thread per query writing its
+//   own 77-element P row would stride 77 elements across the warp.  The
+//   block's 64 rows are one contiguous span of 64*Lk elements of P, so the
+//   normalized rows are staged in shared memory (row stride Lk, odd for
+//   Lk = 77, so the staging writes do not conflict) and the block writes
+//   the span out cooperatively, neighbouring threads on neighbouring
+//   addresses.  With cond_only (CFG layout [uncond; cond]) blocks of the
+//   first B/2 samples skip the P write and those rows stay unwritten.  As
+//   the Pallas body does (:369), P is rounded to the storage type of v
+//   before the PV product, while P itself is written from the fp32 value.
 //
-// Neither kernel synchronizes with the host or allocates memory; the
+// No kernel synchronizes with the host or allocates memory; the
 // Python wrapper (daam_tpu_torch/ops/kernels.py) checks shapes, strides and
 // types, allocates o, and raises on the error code each entry point returns.
 
@@ -271,6 +287,91 @@ cross_attention_acc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// cross_attention_probs
+// ---------------------------------------------------------------------------
+
+template <typename T, typename PT, int HD>
+__global__ void __launch_bounds__(CA_THREADS)
+cross_attention_probs_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             PT* __restrict__ p, int H, int Lq, int Lk,
+                             int skip_b, Strides qs, Strides ks, Strides vs,
+                             float scale) {
+  constexpr int C4 = HD / 4;
+  extern __shared__ float4 smem[];
+  float4* Ks = smem;                                   // [Lk][HD / 4]
+  float4* Vs = smem + Lk * C4;                         // [Lk][HD / 4]
+  float* Ps = reinterpret_cast<float*>(smem + 2 * Lk * C4);  // [64][Lk]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * CA_THREADS;
+  const int qi = q0 + tid;
+  const bool valid = qi < Lq;
+
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+  float* ksf = reinterpret_cast<float*>(Ks);
+  float* vsf = reinterpret_cast<float*>(Vs);
+  for (int e = tid; e < Lk * HD; e += CA_THREADS) {
+    const int row = e / HD;
+    const int col = e % HD;
+    ksf[e] = to_f(kb[row * ks.l + col]);
+    vsf[e] = to_f(vb[row * vs.l + col]);
+  }
+  __syncthreads();
+
+  if (valid) {
+    float4 qr[C4];
+    const T* qrow = q + b * qs.b + (long long)qi * qs.l + h * qs.h;
+#pragma unroll
+    for (int c = 0; c < C4; ++c) qr[c] = load4(qrow + 4 * c);
+
+    // Pass 1: running max and sum of exp over the tokens.
+    float m = -INFINITY;
+    float l = 0.f;
+    for (int t = 0; t < Lk; ++t) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < C4; ++c) s += dot4(qr[c], Ks[t * C4 + c]);
+      s *= scale;
+      const float m_new = fmaxf(m, s);
+      l = l * __expf(m - m_new) + __expf(s - m_new);
+      m = m_new;
+    }
+    const float inv_l = 1.f / l;
+
+    // Pass 2: normalized P into the staging row and, rounded to T, into P.V.
+    float4 oacc[C4];
+#pragma unroll
+    for (int c = 0; c < C4; ++c) oacc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* prow = Ps + tid * Lk;
+    for (int t = 0; t < Lk; ++t) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < C4; ++c) s += dot4(qr[c], Ks[t * C4 + c]);
+      const float pt = __expf(s * scale - m) * inv_l;
+      prow[t] = pt;
+      const float pv = to_f(from_f<T>(pt));
+#pragma unroll
+      for (int c = 0; c < C4; ++c) fma4(oacc[c], pv, Vs[t * C4 + c]);
+    }
+
+    T* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
+#pragma unroll
+    for (int c = 0; c < C4; ++c) store4(orow + 4 * c, oacc[c], 1.f);
+  }
+
+  if (b < skip_b) return;  // block-uniform: no thread waits at the barrier
+  __syncthreads();
+  // The block's rows q0 .. q0 + rows - 1 are one contiguous span of P.
+  const int n = min(CA_THREADS, Lq - q0) * Lk;
+  PT* span = p + (((long long)b * H + h) * Lq + q0) * Lk;
+  for (int e = tid; e < n; e += CA_THREADS) span[e] = from_f<PT>(Ps[e]);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -306,6 +407,41 @@ cudaError_t launch_cross_acc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T, typename PT, int HD>
+cudaError_t launch_cross_probs(const void* q, const void* k, const void* v,
+                               void* o, void* p, int B, int H, int Lq, int Lk,
+                               int skip_b, Strides qs, Strides ks, Strides vs,
+                               float scale, cudaStream_t stream) {
+  const size_t smem = (2 * (size_t)Lk * HD + (size_t)CA_THREADS * Lk) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        cross_attention_probs_kernel<T, PT, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid((Lq + CA_THREADS - 1) / CA_THREADS, H, B);
+  cross_attention_probs_kernel<T, PT, HD><<<grid, CA_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<PT*>(p), H,
+      Lq, Lk, skip_b, qs, ks, vs, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename PT>
+cudaError_t cross_probs_dispatch_hd(int hd, const void* q, const void* k,
+                                    const void* v, void* o, void* p, int B,
+                                    int H, int Lq, int Lk, int skip_b,
+                                    Strides qs, Strides ks, Strides vs,
+                                    float scale, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_cross_probs<T, PT, 16>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 32: return launch_cross_probs<T, PT, 32>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 64: return launch_cross_probs<T, PT, 64>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 128: return launch_cross_probs<T, PT, 128>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 #define DAAM_DISPATCH(LAUNCH, ...)                                         \
   switch (dtype * 1000 + hd) {                                             \
     case 16: return LAUNCH<float, 16>(__VA_ARGS__);                        \
@@ -333,6 +469,22 @@ cudaError_t cross_acc_dispatch(int dtype, int hd, const void* q, const void* k,
                                Strides vs, float scale, cudaStream_t stream) {
   DAAM_DISPATCH(launch_cross_acc, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs,
                 scale, stream)
+}
+
+cudaError_t cross_probs_dispatch(int dtype, int pdtype, int hd, const void* q,
+                                 const void* k, const void* v, void* o,
+                                 void* p, int B, int H, int Lq, int Lk,
+                                 int skip_b, Strides qs, Strides ks,
+                                 Strides vs, float scale,
+                                 cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  switch (dtype * 10 + pdtype) {
+    case 0: return cross_probs_dispatch_hd<float, float>(hd, q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 1: return cross_probs_dispatch_hd<float, bf16>(hd, q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 10: return cross_probs_dispatch_hd<bf16, float>(hd, q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 11: return cross_probs_dispatch_hd<bf16, bf16>(hd, q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -368,6 +520,24 @@ extern "C" int daam_cross_attention_acc(int device, int dtype, int hd,
                             Strides{qsb, qsl, qsh}, Strides{ksb, ksl, ksh},
                             Strides{vsb, vsl, vsh}, scale,
                             static_cast<cudaStream_t>(stream));
+}
+
+// pdtype: the type of P (0 = float32, 1 = bfloat16); skip_b: samples
+// b < skip_b get no P rows written (B/2 for cond_only, else 0).
+extern "C" int daam_cross_attention_probs(int device, int dtype, int hd,
+                                          const void* q, const void* k,
+                                          const void* v, void* o, void* p,
+                                          int pdtype, int skip_b, int B,
+                                          int H, int Lq, int Lk, int qsb,
+                                          int qsl, int qsh, int ksb, int ksl,
+                                          int ksh, int vsb, int vsl, int vsh,
+                                          float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return cross_probs_dispatch(dtype, pdtype, hd, q, k, v, o, p, B, H, Lq, Lk,
+                              skip_b, Strides{qsb, qsl, qsh},
+                              Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh},
+                              scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* daam_error_string(int err) {

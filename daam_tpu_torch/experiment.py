@@ -78,6 +78,11 @@ class GenerationExperiment:
         if heat_maps and tokenizer is not None:
             self.save_all_heat_maps(tokenizer)
 
+    def clear_checkpoint(self):
+        """Delete ``generation.pt`` (the ``--all-heads`` runs keep only the
+        PNGs, ``daam_tpu/experiment.py:287-289``)."""
+        (self.path / 'generation.pt').unlink(missing_ok=True)
+
     def save_heat_map(self, word: str, tokenizer: Any = None,
                       output_prefix: str = '', absolute: bool = False) -> Path:
         out = (self.path / self.subtype /

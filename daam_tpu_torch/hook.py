@@ -1,8 +1,9 @@
 """Object-hooking layer (API parity with reference ``daam/hook.py``).
 
 The part of ``daam_tpu/hook.py`` that tracing needs.  Tracing installs the
-trace on the pipeline object, which then runs its UNet with the ``'acc'``
-capture; the model's modules are never patched.  The hookers are how trace
+trace on the pipeline object, which then runs its UNet with the capture
+the trace asks for (``'acc'``, or ``'full'`` under ``save_heads``); the
+model's modules are never patched.  The hookers are how trace
 contexts attach to and detach from pipeline objects.
 
 ``UNetCrossAttentionLocator`` enumerates the UNet's cross-attention layers in

@@ -11,7 +11,11 @@ Counterpart of ``daam_tpu/models/unet.py``, grown from the torch modules that
   on a CUDA tensor that is the hand-written kernels of ``csrc/attention.cu``.
 * Tracing is an argument, as in ``daam_tpu``: with ``capture='acc'`` each
   cross-attention layer named in ``acc`` adds the conditional CFG half's Pᵀ
-  into its fp32 accumulator ``(B, H, 77, h·w)``, in place.
+  into its fp32 accumulator ``(B, H, 77, h·w)``, in place; with
+  ``capture='full'``/``'cond'`` every cross-attention layer, the mid
+  block's included, hands back its probabilities ``(B, H, h·w, 77)``; a
+  ``replay`` dict of such probabilities replaces the computed ones (the
+  ``load_heads`` transplant).
 
 Numerics copied from ``daam_tpu``: exact-erf GEGLU in fp32, GroupNorm eps
 1e-5 in resnets and 1e-6 in ``Transformer2DModel``, LayerNorm eps 1e-6 in the
@@ -84,7 +88,8 @@ class ResnetBlock2D(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention over flattened spatial tokens; ``is_cross``
-    selects the text cross-attention with the ``'acc'`` capture."""
+    selects the text cross-attention with the capture and replay contract
+    of :func:`~daam_tpu_torch.ops.attention.cross_attention`."""
 
     def __init__(self, dim: int, kdim: int, heads: int, is_cross: bool):
         super().__init__()
@@ -96,18 +101,26 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
     def forward(self, x, context=None, capture=False,
-                acc: Optional[torch.Tensor] = None):
+                acc: Optional[torch.Tensor] = None,
+                replay_probs: Optional[torch.Tensor] = None):
+        """Returns ``(out, probs)``; ``probs`` is None unless the capture
+        is ``'cond'``/``'full'``."""
         context = x if context is None else context
         # (B, L, H·hd) projections viewed as (B, L, H, hd): the kernels take
         # them through their strides and write (B, L, H·hd) for to_out.
         q = self.to_q(x).unflatten(-1, (self.heads, -1))
         k = self.to_k(context).unflatten(-1, (self.heads, -1))
         v = self.to_v(context).unflatten(-1, (self.heads, -1))
-        if self.is_cross:
-            out = cross_attention(q, k, v, capture=capture, acc=acc)
-        else:
+        probs = None
+        if not self.is_cross:
             out = flash_attention(q, k, v)
-        return self.to_out[0](out)
+        elif capture in ('cond', 'full', True):
+            out, probs = cross_attention(q, k, v, capture=capture,
+                                         replay_probs=replay_probs)
+        else:
+            out = cross_attention(q, k, v, capture=capture,
+                                  replay_probs=replay_probs, acc=acc)
+        return self.to_out[0](out), probs
 
 
 class FeedForward(nn.Module):
@@ -136,10 +149,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-6)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, capture=False, acc=None):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context, capture=capture, acc=acc)
-        return x + self.ff(self.norm3(x))
+    def forward(self, x, context, capture=False, acc=None, replay_probs=None):
+        x = x + self.attn1(self.norm1(x))[0]
+        h, probs = self.attn2(self.norm2(x), context, capture=capture, acc=acc,
+                              replay_probs=replay_probs)
+        x = x + h
+        return x + self.ff(self.norm3(x)), probs
 
 
 class Transformer2DModel(nn.Module):
@@ -162,7 +177,11 @@ class Transformer2DModel(nn.Module):
                          else nn.Conv2d(dim, dim, 1))
 
     def forward(self, x, context, capture=False,
-                acc: Optional[Dict[str, torch.Tensor]] = None):
+                acc: Optional[Dict[str, torch.Tensor]] = None,
+                replay: Optional[Dict[str, torch.Tensor]] = None,
+                probs_out: Optional[Dict[str, torch.Tensor]] = None):
+        """``probs_out`` receives each block's probabilities under
+        ``capture='cond'``/``'full'``."""
         B, C, H, W = x.shape
         residual = x
         h = self.norm(x)
@@ -172,10 +191,16 @@ class Transformer2DModel(nn.Module):
             h = self.proj_in(h).permute(0, 2, 3, 1).reshape(B, H * W, C)
         for name, blk in zip(self.layer_names, self.transformer_blocks):
             layer_acc = acc.get(name) if acc else None
-            # Layers outside the capture plan (no accumulator) run uncaptured,
-            # as daam_tpu's do (models/unet.py:266-271).
-            layer_capture = capture if layer_acc is not None else False
-            h = blk(h, context, capture=layer_capture, acc=layer_acc)
+            # Under 'acc', layers outside the capture plan (no accumulator)
+            # run uncaptured but still take their replay rows, as daam_tpu's
+            # do (models/unet.py:265-276).
+            layer_capture = capture
+            if capture == 'acc' and layer_acc is None:
+                layer_capture = False
+            h, probs = blk(h, context, capture=layer_capture, acc=layer_acc,
+                           replay_probs=replay.get(name) if replay else None)
+            if probs is not None and probs_out is not None:
+                probs_out[name] = probs
         if self.use_linear:
             h = self.proj_out(h).reshape(B, H, W, C).permute(0, 3, 1, 2)
         else:
@@ -273,12 +298,18 @@ class UNet2DConditionModel(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, capture=False,
-                acc: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                acc: Optional[Dict[str, torch.Tensor]] = None,
+                replay: Optional[Dict[str, torch.Tensor]] = None):
         """Denoise ``sample`` (B, C, h, w); returns the fp32 prediction.
 
-        With ``capture='acc'``, ``acc`` maps layer names to fp32
-        accumulators ``(B/2, H, 77, h·w)`` that are updated in place (the
-        batch is the CFG layout ``[uncond; cond]``).
+        The batch is the CFG layout ``[uncond; cond]``.  With
+        ``capture='acc'``, ``acc`` maps layer names to fp32 accumulators
+        ``(B/2, H, 77, h·w)`` that are updated in place.  With
+        ``capture='full'`` (or ``'cond'``) it returns ``(eps, probs)``:
+        ``probs`` maps every cross-attention layer's name to its
+        probabilities ``(B, H, h·w, 77)`` (fp32; bf16 and defined for the
+        conditional half only under ``'cond'``).  ``replay`` maps layer
+        names to such probabilities, which replace the computed ones.
         """
         cfg = self.config
         dtype = self.conv_in.weight.dtype
@@ -289,10 +320,12 @@ class UNet2DConditionModel(nn.Module):
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.expand(B, -1).to(dtype))
         context = encoder_hidden_states.to(dtype)
+        probs_out: Dict[str, torch.Tensor] = {}
 
         def attend(blk, i, h):
             if hasattr(blk, 'attentions'):
-                h = blk.attentions[i](h, context, capture=capture, acc=acc)
+                h = blk.attentions[i](h, context, capture=capture, acc=acc,
+                                      replay=replay, probs_out=probs_out)
             return h
 
         h = self.conv_in(sample.to(dtype))
@@ -318,4 +351,5 @@ class UNet2DConditionModel(nn.Module):
 
         h = F.silu(self.conv_norm_out(h))
         w = self.conv_out
-        return F.conv2d(h.float(), w.weight.float(), w.bias.float(), padding=1)
+        eps = F.conv2d(h.float(), w.weight.float(), w.bias.float(), padding=1)
+        return (eps, probs_out) if capture in ('cond', 'full', True) else eps

@@ -1,10 +1,10 @@
 """Attention ops of the traced UNet: kernel dispatch and the plain versions.
 
-PyTorch counterpart of ``daam_tpu/ops/attention.py`` for ``capture`` in
-``{False, 'acc'}``.  Every operand is a ``(B, L, H, hd)`` view: the
-``(B, L, H·hd)`` projection output unflattened, or a head-major
-``(B, H, L, hd)`` tensor transposed; both reach the kernels through their
-strides, with no copy.  Outputs come back as ``(B, Lq, H·hd)``.
+PyTorch counterpart of ``daam_tpu/ops/attention.py``.  Every operand is a
+``(B, L, H, hd)`` view: the ``(B, L, H·hd)`` projection output unflattened,
+or a head-major ``(B, H, L, hd)`` tensor transposed; both reach the kernels
+through their strides, with no copy.  Outputs come back as
+``(B, Lq, H·hd)``; probabilities as ``(B, H, Lq, Lk)``.
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
 hand-written kernel of :mod:`.kernels` (or raises).  ``set_kernel_mode``
@@ -18,8 +18,9 @@ import torch
 
 from . import kernels
 
-__all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention',
-           'flash_attention_plain', 'cross_attention_acc_plain',
+__all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
+           'cross_attention', 'flash_attention_plain',
+           'cross_attention_acc_plain', 'cross_attention_probs_plain',
            'set_kernel_mode', 'get_kernel_mode']
 
 _MODES = ('auto', 'torch', 'cuda')
@@ -71,6 +72,17 @@ def cross_attention_acc_plain(q: torch.Tensor, k: torch.Tensor,
     return _out(probs, v, q.dtype)
 
 
+def cross_attention_probs_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, cond_only: bool = False,
+                                probs_dtype: torch.dtype = torch.float32):
+    """Plain version of the ``cross_attention_probs`` kernel: ``(o, p)`` with
+    P in ``probs_dtype`` (``daam_tpu`` ``_jnp_attention``).  It writes every
+    row of P; under ``cond_only`` the kernel leaves the first B/2 samples'
+    rows unwritten, so only the conditional rows are defined."""
+    probs = _probs(q, k)
+    return _out(probs, v, q.dtype), probs.to(probs_dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ / √hd) v over (B, L, H, hd) views → (B, Lq, H·hd)."""
@@ -88,23 +100,60 @@ def cross_attention_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return cross_attention_acc_plain(q, k, v, acc)
 
 
-def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    capture=False,
-                    acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Text cross-attention with the ``'acc'`` capture.
+def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cond_only: bool = False,
+                          probs_dtype: torch.dtype = torch.float32):
+    """Attention output and the probabilities P (B, H, Lq, Lk), in one pass
+    — the ``'full'``/``'cond'`` capture."""
+    if _use_kernel(q):
+        return kernels.cross_attention_probs(q, k, v, cond_only, probs_dtype)
+    return cross_attention_probs_plain(q, k, v, cond_only, probs_dtype)
 
-    With ``capture='acc'`` the batch is the CFG layout ``[uncond; cond]``:
-    the unconditional half runs plain attention and the conditional half
-    adds its probabilities into ``acc`` (B/2, H, Lk, Lq), which is updated in
-    place (``daam_tpu`` returns the new accumulator instead).
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    capture=False, replay_probs: Optional[torch.Tensor] = None,
+                    acc: Optional[torch.Tensor] = None):
+    """Text cross-attention with the DAAM capture and the head replay.
+
+    ``capture`` ∈ {False, 'acc', 'cond', 'full', True} (``True`` means
+    ``'full'``), as in ``daam_tpu``; the batch is the CFG layout
+    ``[uncond; cond]``.
+
+    * ``'acc'``: the conditional half's Pᵀ is added into ``acc``
+      (B/2, H, Lk, Lq), in place (``daam_tpu`` returns the new accumulator
+      instead); returns the output.
+    * ``'full'``: returns ``(out, probs)`` with fp32 P for every row — the
+      ``save_heads`` capture.  ``'cond'``: bf16 P, defined only for the
+      conditional half.
+    * ``False``: returns the output.
+
+    ``replay_probs`` (B, H, Lq, Lk) replaces the computed probabilities
+    before the value product — the attention transplant of ``load_heads``
+    (reference ``daam/trace.py:281-282``).  It is computed in plain PyTorch,
+    outside any kernel, as ``daam_tpu`` computes it outside Pallas; under
+    ``'cond'``/``'full'`` the fp32 replayed P comes back as ``probs``.
     """
+    if capture is True:
+        capture = 'full'
+    if capture not in (False, 'acc', 'cond', 'full'):
+        raise ValueError(f'capture must be False, True, \'acc\', \'cond\' or '
+                         f'\'full\', got {capture!r}')
+    if capture == 'acc' and acc is None:
+        raise ValueError("capture='acc' requires the accumulator")
+    bc = q.shape[0] // 2
+    if replay_probs is not None:
+        probs = replay_probs.to(device=q.device, dtype=torch.float32)
+        out = _out(probs, v, q.dtype)
+        if capture == 'acc':
+            acc += probs[bc:].transpose(2, 3)
+            return out
+        return (out, probs) if capture else out
     if capture == 'acc':
-        if acc is None:
-            raise ValueError("capture='acc' requires the accumulator")
-        bc = q.shape[0] // 2
         out_u = flash_attention(q[:bc], k[:bc], v[:bc])
         out_c = cross_attention_acc(q[bc:], k[bc:], v[bc:], acc)
         return torch.cat([out_u, out_c], dim=0)
-    if capture is not False:
-        raise ValueError(f'capture={capture!r} is not supported yet')
+    if capture:
+        return cross_attention_probs(
+            q, k, v, cond_only=capture == 'cond',
+            probs_dtype=torch.bfloat16 if capture == 'cond' else torch.float32)
     return flash_attention(q, k, v)

@@ -11,7 +11,7 @@ Each launcher checks device, dtype, shape and strides, allocates its output
 with ``torch.empty``, launches on PyTorch's current stream without
 synchronizing, raises if the launch reported a CUDA error, and then adds one
 to its count in :data:`launches` (the proof that a run went through the
-kernel).  The plain PyTorch versions of the same two functions live in
+kernel).  The plain PyTorch versions of the same functions live in
 :mod:`daam_tpu_torch.ops.attention`.
 """
 
@@ -26,8 +26,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ['flash_attention', 'cross_attention_acc', 'launches',
-           'reset_launches', 'load_library', 'HEAD_DIMS']
+__all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
+           'launches', 'reset_launches', 'load_library', 'HEAD_DIMS']
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'daam_tpu_torch'
@@ -39,7 +39,8 @@ _INT_MAX = 2 ** 31 - 1
 _SMEM_MAX = 227 * 1024
 
 #: Kernel launches since the last :func:`reset_launches`, by launcher name.
-launches = {'flash_attention': 0, 'cross_attention_acc': 0}
+launches = {'flash_attention': 0, 'cross_attention_acc': 0,
+            'cross_attention_probs': 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.
@@ -94,6 +95,8 @@ def load_library() -> ctypes.CDLL:
     lib.daam_flash_attention.restype = i
     lib.daam_cross_attention_acc.argtypes = common + [ptr] + dims
     lib.daam_cross_attention_acc.restype = i
+    lib.daam_cross_attention_probs.argtypes = common + [ptr, i, i] + dims
+    lib.daam_cross_attention_probs.restype = i
     lib.daam_error_string.argtypes = [i]
     lib.daam_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -189,3 +192,32 @@ def cross_attention_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _raise_on(err, 'cross_attention_acc')
     launches['cross_attention_acc'] += 1
     return o
+
+
+def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          cond_only: bool = False,
+                          probs_dtype: torch.dtype = torch.float32):
+    """Cross-attention that also writes its probabilities out.
+
+    ``q``: (B, Lq, H, hd), ``k``/``v``: (B, Lk, H, hd) views as for
+    :func:`flash_attention`.  Returns ``(o, p)``: the output (B, Lq, H·hd)
+    and P (B, H, Lq, Lk) in ``probs_dtype`` (float32 or bfloat16).  With
+    ``cond_only`` (CFG layout ``[uncond; cond]``) the rows of the first B/2
+    samples of P are left unwritten.
+    """
+    B, Lq, Lk, H, hd = _check_qkv(q, k, v)
+    if probs_dtype not in _DTYPE_CODES:
+        raise ValueError(f'probs_dtype {probs_dtype} not supported')
+    if (2 * Lk * hd + 64 * Lk) * 4 > _SMEM_MAX:
+        raise ValueError(f'Lk={Lk} x hd={hd} does not fit in shared memory')
+    o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
+    p = torch.empty(B, H, Lq, Lk, dtype=probs_dtype, device=q.device)
+    strides, scale, stream = _args(q, k, v)
+    lib = load_library()
+    err = lib.daam_cross_attention_probs(
+        q.device.index, _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), p.data_ptr(), _DTYPE_CODES[probs_dtype],
+        B // 2 if cond_only else 0, B, H, Lq, Lk, *strides, scale, stream)
+    _raise_on(err, 'cross_attention_probs')
+    launches['cross_attention_probs'] += 1
+    return o, p

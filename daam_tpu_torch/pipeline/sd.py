@@ -1,16 +1,24 @@
 """Stable Diffusion pipeline (SD 1.x/2.x) with DAAM tracing, in PyTorch.
 
-Counterpart of ``daam_tpu/pipeline/sd.py`` for the traced main path: two
-text encodes (unconditional, conditional), a DDIM loop with classifier-free
-guidance on the ``[uncond; cond]`` batch, the ``'acc'`` capture into one
-fp32 accumulator ``(B, H, 77, h·w)`` per located cross-attention layer,
+Counterpart of ``daam_tpu/pipeline/sd.py``: two text encodes
+(unconditional, conditional), a DDIM loop with classifier-free guidance on
+the ``[uncond; cond]`` batch, the ``'acc'`` capture into one fp32
+accumulator ``(B, H, 77, h·w)`` per located cross-attention layer,
 ``finalize_acc`` into per-factor blocks ``(B, L, H, T, h, w)``, and the VAE
-decode.  PyTorch runs eagerly, so the ``lax.scan`` of ``daam_tpu`` is a
-Python loop and the accumulators are updated in place.
+decode.  Inside ``trace(pipe, save_heads=True)`` every cross-attention runs
+the ``'full'`` capture instead: its per-step probabilities are cast to
+``heads_dtype`` and copied to the host every ``heads_chunk_steps`` steps (the
+replay buffer), and their conditional half is added into the accumulators.
+Inside ``trace(pipe, load_heads=True)`` each step's saved probabilities go
+back to the device and replace the computed ones (the attention
+transplant).  With ``trace(pipe, time_chunk_steps=K)`` the accumulators are
+snapshotted every K steps for per-step maps.  PyTorch runs eagerly, so the
+``lax.scan`` of ``daam_tpu`` is a Python loop and the accumulators are
+updated in place.
 """
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -55,6 +63,12 @@ class StableDiffusionPipeline:
                         for info in cross_attention_layout(config.unet)}
         param = next(unet.parameters())
         self.device, self.dtype = param.device, param.dtype
+        # save_heads copies the replay buffer to the host every this many
+        # steps, so device memory holds at most one chunk of probabilities.
+        self.heads_chunk_steps = 8
+        # Replay-buffer element type: bfloat16 halves the buffer; float32
+        # gives exact transplants (reference daam/trace.py:246-250).
+        self.heads_dtype = torch.bfloat16
         # Trace integration (installed by daam_tpu_torch.trace; None = untraced).
         self._active_trace = None
 
@@ -114,7 +128,14 @@ class StableDiffusionPipeline:
     @torch.no_grad()
     def _generate(self, input_ids, neg_ids, num_steps: int, height: int,
                   width: int, generator, latents, guidance_scale: float,
-                  capture_spec, callback) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  capture_spec, callback, save_heads: bool = False,
+                  replay: Optional[Dict[str, torch.Tensor]] = None,
+                  snapshot_steps: Optional[int] = None):
+        """The denoising loop and decode.  Returns ``(images, blocks, saved,
+        snapshots)``: the finalized per-factor blocks (or None), the replay
+        buffer ``{layer: (steps, 2B, H, h·w, 77)}`` on the host under
+        ``save_heads`` (else None), and under ``snapshot_steps`` the fp16
+        host blocks of each chunk's accumulator increase (else None)."""
         B = input_ids.shape[0]
         latent_h = height // self.vae_scale_factor
         latent_w = width // self.vae_scale_factor
@@ -137,13 +158,39 @@ class StableDiffusionPipeline:
         state = scheduler.init_state(num_steps, shape, device=self.device)
         accs = (self.make_acc(capture_spec, B, latent_h, latent_w)
                 if capture_spec else None)
+        capture = 'full' if save_heads else 'acc' if accs else False
+        n_steps = scheduler.num_scan_steps(num_steps)
+        chunk = max(1, int(self.heads_chunk_steps))
+        pending: Dict[str, List[torch.Tensor]] = {}
+        saved: Dict[str, List[torch.Tensor]] = {}
+        snaps = [] if snapshot_steps else None
+        prev = {n: a.clone() for n, a in accs.items()} if snaps is not None else None
 
-        for i in range(scheduler.num_scan_steps(num_steps)):
+        for i in range(n_steps):
             latent_in = scheduler.scale_model_input(
                 state, torch.cat([latents, latents], dim=0), i)
             t = state['timesteps'][i]
+            rep = (None if replay is None else
+                   {n: r[i].to(self.device) for n, r in replay.items()})
             eps = self.unet(latent_in, t.expand(2 * B), context,
-                            capture='acc' if accs else False, acc=accs)
+                            capture=capture,
+                            acc=accs if capture == 'acc' else None, replay=rep)
+            if save_heads:
+                eps, probs = eps
+                for n, a in (accs or {}).items():
+                    a += probs[n][B:].transpose(2, 3)  # CFG conditional half
+                for n, p in probs.items():
+                    pending.setdefault(n, []).append(p.to(self.heads_dtype))
+                if (i + 1) % chunk == 0 or i == n_steps - 1:
+                    for n, ps in pending.items():
+                        saved.setdefault(n, []).append(torch.stack(ps).cpu())
+                    pending = {}
+            if snaps is not None and ((i + 1) % snapshot_steps == 0
+                                      or i == n_steps - 1):
+                diff = {n: a - prev[n] for n, a in accs.items()}
+                snaps.append({f: b.half().cpu() for f, b in self.finalize_acc(
+                    diff, capture_spec, B, latent_h, latent_w).items()})
+                prev = {n: a.clone() for n, a in accs.items()}
             eps_u, eps_c = eps.chunk(2)
             eps = eps_u + guidance_scale * (eps_c - eps_u)
             latents, state = scheduler.step(state, i, eps, latents)
@@ -154,7 +201,9 @@ class StableDiffusionPipeline:
                   if accs else None)
         images = self.vae.decode(latents / self.config.vae.scaling_factor)
         images = (images / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
-        return images, blocks
+        saved = ({n: torch.cat(chunks) for n, chunks in saved.items()}
+                 if save_heads else None)
+        return images, blocks, saved, snaps
 
     def __call__(self, prompt: Union[str, List[str]],
                  num_inference_steps: int = 50,
@@ -189,13 +238,58 @@ class StableDiffusionPipeline:
             guidance_scale = self.config.default_guidance_scale
 
         capture_spec = tr.capture_spec(self) if tr is not None else None
-        images, blocks = self._generate(
+        save_heads = bool(tr and tr.save_heads)
+        load_heads = bool(tr and tr.load_heads)
+        # Accumulator snapshots for per-step maps; the save_heads replay
+        # buffer supersedes them (exact per-step maps).
+        snapshot_steps = (tr.time_chunk_steps
+                          if tr is not None and tr.time_chunk_steps
+                          and not (save_heads or load_heads) else None)
+        replay = None
+        if load_heads:
+            replay = tr.replay_buffer(
+                self.scheduler.num_scan_steps(num_inference_steps))
+            self._validate_replay(replay, B, height, width)
+        images, blocks, saved, snaps = self._generate(
             self._encode_tokens(prompts), self._encode_tokens(negatives),
             num_inference_steps, height, width, generator, latents,
-            guidance_scale, capture_spec, callback)
+            guidance_scale, capture_spec, callback, save_heads=save_heads,
+            replay=replay, snapshot_steps=snapshot_steps)
 
         images = images.float().cpu().numpy()
         out = _to_pil(images) if output_type == 'pil' else list(images)
         if tr is not None:
-            tr._on_call_end(prompts, out, blocks or {})
+            tr._on_call_end(prompts, out, blocks or {}, saved,
+                            num_inference_steps, time_blocks=snaps)
         return PipelineOutput(images=out)
+
+    def _validate_replay(self, replay, batch_size: int, height: int,
+                         width: int):
+        """Fail with a clear message when a saved replay buffer does not fit
+        this generation's geometry (batch, spatial grid, context length)
+        (``daam_tpu/pipeline/sd.py:618-649``)."""
+        latent_h = height // self.vae_scale_factor
+        latent_w = width // self.vae_scale_factor
+        T_ctx = self.tokenizer.model_max_length
+        for name, arr in replay.items():
+            info = self._layout.get(name)
+            if info is None:
+                raise RuntimeError(
+                    f'Replay buffer layer {name!r} does not exist in this '
+                    f'UNet ({len(self._layout)} cross-attention layers); the '
+                    f'heads were saved from a different model.')
+            want = (2 * batch_size, info.heads,
+                    (latent_h // info.downscale) * (latent_w // info.downscale),
+                    T_ctx)
+            if tuple(arr.shape[1:]) != want:
+                raise RuntimeError(
+                    f'Replay buffer layer {name!r} has per-step shape '
+                    f'{tuple(arr.shape[1:])} but this generation needs {want} '
+                    f'(batch {batch_size}, {height}x{width}); save and load '
+                    f'heads must use the same batch size and image size.')
+        missing = [n for n in self._layout if n not in replay]
+        if missing:
+            raise RuntimeError(
+                f'Replay buffer is missing layers {missing[:4]}'
+                f'{"..." if len(missing) > 4 else ""}; it was saved from a '
+                f'different model or an incomplete save_heads run.')

@@ -1,20 +1,25 @@
-"""Utility layer: seeds and token→word merge arithmetic.
+"""Utility layer: seeds, the cache directory and token→word merge arithmetic.
 
-PyTorch counterpart of ``daam_tpu/utils.py``.  :func:`compute_token_merge_indices`
-is a copy (held equal to ``daam_tpu``'s by ``tests/test_torch_shared.py``)
-with the reference semantics (``daam/utils.py:73-91``): lowercase
+PyTorch counterpart of ``daam_tpu/utils.py``.  :func:`cache_dir` and
+:func:`compute_token_merge_indices` are copies (held equal to ``daam_tpu``'s
+by ``tests/test_torch_shared.py``); the cache directory is the same one, so
+a replay buffer persisted by either package is found by the other.
+:func:`compute_token_merge_indices` has the reference semantics (``daam/utils.py:73-91``): lowercase
 tokenization, ``</w>`` marker stripping, *all-occurrence* subword-run
 matching, and the +1 shift for the SOS token.  :func:`set_seed` returns a
 ``torch.Generator``, as the reference does (``daam/utils.py:46-55``).
 """
 
+import os
 import random
+import sys
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ['set_seed', 'compute_token_merge_indices']
+__all__ = ['set_seed', 'cache_dir', 'compute_token_merge_indices']
 
 
 def set_seed(seed: int, device='cpu') -> torch.Generator:
@@ -25,6 +30,19 @@ def set_seed(seed: int, device='cpu') -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+def cache_dir() -> Path:
+    """Per-OS cache directory (same layout as reference ``daam/utils.py:58-70``)."""
+    if os.name == 'posix' and sys.platform != 'darwin':
+        xdg = os.environ.get('XDG_CACHE_HOME', os.path.expanduser('~/.cache'))
+        return Path(xdg, 'daam_tpu')
+    elif sys.platform == 'darwin':
+        return Path(os.path.expanduser('~'), 'Library/Caches/daam_tpu')
+    else:
+        local = os.environ.get('LOCALAPPDATA', None) \
+            or os.path.expanduser('~\\AppData\\Local')
+        return Path(local, 'daam_tpu')
 
 
 def compute_token_merge_indices(tokenizer, prompt: str, word: str,

@@ -118,3 +118,57 @@ def test_experiment_saves_float_images(runs, tmp_path):
     saved = np.asarray(PIL.Image.open(tmp_path / 'output.png'))
     assert saved.dtype == np.uint8 and saved.shape == (16, 16, 3)
     assert np.abs(saved / 255.0 - runs['image']).max() <= 0.5 / 255 + 1e-6
+
+
+def test_cli_save_then_load_heads(tmp_path, monkeypatch):
+    """--save-heads persists the replay buffer; a second run with
+    --load-heads replays it and writes the artifact set again."""
+    import importlib
+    from collections import OrderedDict
+    from daam_tpu_torch.run.generate import main
+
+    monkeypatch.setenv('XDG_CACHE_HOME', str(tmp_path / 'cache'))
+    monkeypatch.setattr(importlib.import_module('daam_tpu_torch.trace'),
+                        '_HEAD_CACHE', OrderedDict())
+    for flag in ('--save-heads', '--load-heads'):
+        out = tmp_path / flag.strip('-')
+        main(['A dog runs.', '--tiny', '-n', '2', '-o', str(out),
+              '--device', 'cpu', flag])
+        names = {p.name for p in out.iterdir()}
+        assert {'output.png', 'generation.pt', 'prompt.txt', 'seed.txt',
+                'dog.heat_map.png', 'runs.heat_map.png'} <= names, flag
+    assert (tmp_path / 'cache' / 'daam_tpu' / 'heads' / 'default.npz').exists()
+
+
+def test_cli_time_maps_write_gif(tmp_path):
+    import PIL.Image
+    from daam_tpu_torch.run.generate import main
+
+    main(['A dog runs', '--tiny', '-n', '2', '-o', str(tmp_path),
+          '--device', 'cpu', '--time-maps'])
+    for step in (0, 1):
+        assert (tmp_path / f'time{step:03d}-dog.heat_map.png').exists()
+    with PIL.Image.open(tmp_path / 'dog.time.gif') as im:
+        assert getattr(im, 'n_frames', 1) == 2
+
+
+def test_cli_load_heads_without_saved_heads_raises(tmp_path, monkeypatch):
+    import importlib
+    from collections import OrderedDict
+    from daam_tpu_torch.run.generate import main
+
+    monkeypatch.setenv('XDG_CACHE_HOME', str(tmp_path))
+    monkeypatch.setattr(importlib.import_module('daam_tpu_torch.trace'),
+                        '_HEAD_CACHE', OrderedDict())
+    with pytest.raises(RuntimeError, match='No saved attention heads'):
+        main(['A dog runs', '--tiny', '-n', '2', '-o', str(tmp_path),
+              '--device', 'cpu', '--load-heads'])
+
+
+def test_cli_without_gpu_does_not_fall_back_to_cpu(tmp_path, monkeypatch):
+    from daam_tpu_torch.run.generate import main
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        main(['A dog runs', '--tiny', '-n', '1', '-o', str(tmp_path)])
+    assert not any(tmp_path.iterdir())

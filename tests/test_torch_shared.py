@@ -75,3 +75,17 @@ def test_tokenizer_and_merge_indices_equal():
                     compute_token_merge_indices(ours, prompt, word)
                 continue
             assert compute_token_merge_indices(ours, prompt, word) == expect
+
+
+@pytest.mark.parametrize('xdg', [None, '/some/cache/root'])
+def test_cache_dir_equal(xdg, monkeypatch):
+    """One cache directory, so a replay buffer persisted by either package
+    is found by the other."""
+    from daam_tpu.utils import cache_dir as jax_cache_dir
+    from daam_tpu_torch.utils import cache_dir
+
+    if xdg is None:
+        monkeypatch.delenv('XDG_CACHE_HOME', raising=False)
+    else:
+        monkeypatch.setenv('XDG_CACHE_HOME', xdg)
+    assert cache_dir() == jax_cache_dir()
