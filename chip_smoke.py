@@ -7,17 +7,24 @@ traced SD 2.1-base slice, the head-replay transplant, timings.
 
 Phases, each of which raises (exit code != 0) when a check fails:
 
-1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a.
+1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
+   each kernel's registers and spills, and fail if the tensor-core
+   ``flash_attention`` spills.
 2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
    version on the same inputs: ``flash_attention`` in both layouts
-   (head-major view and the (B, L, H·hd) projection output) in fp32 and bf16
-   at Lk ∈ {4096, 1024, 77}; ``cross_attention_acc`` in both layouts and both
-   dtypes, called twice into the same accumulator; ``cross_attention_probs``
-   in both layouts and both dtypes, with and without ``cond_only``, P in fp32
-   and bf16, at every shape of the save run (P compared on the rows it
-   writes).  TF32 is off for the fp32 checks.  Max abs error ≤ 1e-4 (fp32
-   outputs), ≤ 1e-5 (fp32 accumulator and fp32 P), ≤ 2e-2 (bf16);
-   Spearman ≥ 0.999.
+   (head-major view and the (B, L, H·hd) projection output), in fp32 (the
+   CUDA-core kernel) at Lk ∈ {4096, 1024, 77}, and in bf16 (the tensor-core
+   kernel) at every head dim of ``HEAD_DIMS`` and every shape of
+   ``K2_SHAPES``, the main path's (Lq ∈ {4096, 1024, 256, 64}, Lk = Lq or 77);
+   ``cross_attention_acc`` in both layouts and both dtypes, called twice
+   into the same accumulator; ``cross_attention_probs`` in both layouts and
+   both dtypes, with and without ``cond_only``, P in fp32 and bf16, at every
+   shape of the save run (P compared on the rows it writes).  TF32 is off
+   for the fp32 checks.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5 (fp32
+   accumulator and fp32 P), ≤ 2e-2 (bf16); Spearman ≥ 0.999.  Each bf16
+   ``flash_attention`` and ``cross_attention_acc`` output must lie closer
+   (mean abs difference) to a reference that rounds P to bf16 before PV
+   where the Pallas body does than to the same reference with fp32 P.
 3. A small reference: the ``tiny`` preset in fp32, kernels against the plain
    path, same weights and latents: images within 1e-3, heat maps with
    per-token Spearman ≥ 0.999; then an fp32 save_heads → load_heads pair
@@ -27,19 +34,21 @@ Phases, each of which raises (exit code != 0) when a check fails:
    be (512, 512, 3) and finite, the word map for "dog" (64, 64), finite,
    ≥ 0 and not constant, and the launch counters, zeroed just before the
    run, must read 15 × 10 (cross_attention_acc) and 32 × 10
-   (flash_attention).
+   (flash_attention, every one on the tensor cores).
 5. The transplant at full width, the same model: a ``save_heads`` run of the
    prompt (counters: 16 × 10 cross_attention_probs, 16 × 10
-   flash_attention, no cross_attention_acc), whose bf16 buffer must hold 16
-   layers of (10, 2, H, h·w, 77), finite, rows summing to 1 within 1e-2; a
-   ``load_heads`` run of the same prompt (counters: 16 × 10
-   flash_attention, nothing else), whose per-token heat maps must match the
-   save run's at Spearman ≥ 0.999; and a ``load_heads`` run of a second
-   prompt, whose image must differ from a fresh run of that prompt.
+   flash_attention on the tensor cores, no cross_attention_acc), whose bf16
+   buffer must hold 16 layers of (10, 2, H, h·w, 77), finite, rows summing
+   to 1 within 1e-2; a ``load_heads`` run of the same prompt (counters: 16
+   × 10 flash_attention on the tensor cores, nothing else), whose per-token
+   heat maps must match the save run's at Spearman ≥ 0.999; and a
+   ``load_heads`` run of a second prompt, whose image must differ from a
+   fresh run of that prompt.
 6. Seconds per step traced and untraced (host clock, synchronized per step,
    warm runs in turns) and of the save and load runs, and each kernel's time
    against its plain version at every shape of its path (CUDA events after a
-   warm-up).
+   warm-up), with ``flash_attention``'s TFLOP/s (4·B·H·Lq·Lk·hd FLOP) and
+   share of the H100's 989 TFLOP/s dense bf16 peak.
 
 The line before the last is ``{"kernels": [...]}``: per kernel, its launches
 in its path's run (phase 4, or the phase-5 save run for
@@ -52,6 +61,7 @@ the daam_tpu_torch package beside it; it never imports JAX or PIL.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +85,7 @@ K1_SHAPES = [((1, 5, 4096, 77), 5), ((1, 10, 1024, 77), 5),
 K5_SHAPES = [((2, 5, 4096, 77), 5), ((2, 10, 1024, 77), 5),
              ((2, 20, 256, 77), 5), ((2, 20, 64, 77), 1)]
 HD = 64
+BF16_PEAK_TFLOPS = 989.0  # H100 SXM, dense (NVIDIA's data sheet)
 
 
 def check(ok: bool, msg: str):
@@ -96,18 +107,65 @@ def spearman(a, b) -> float:
     return float((ra * rb).sum() / (ra.norm() * rb.norm()))
 
 
-def qkv(B, H, Lq, Lk, layout, dtype, gen):
+def qkv(B, H, Lq, Lk, layout, dtype, gen, hd=HD):
     """(B, L, H, hd) views: of a head-major tensor or of the projection
     layout (B, L, H·hd)."""
     import torch
 
     def one(L):
         if layout == 'head_major':
-            t = torch.randn(B, H, L, HD, generator=gen, device='cuda')
+            t = torch.randn(B, H, L, hd, generator=gen, device='cuda')
             return t.to(dtype).transpose(1, 2)
-        t = torch.randn(B, L, H * HD, generator=gen, device='cuda')
-        return t.to(dtype).unflatten(-1, (H, HD))
+        t = torch.randn(B, L, H * hd, generator=gen, device='cuda')
+        return t.to(dtype).unflatten(-1, (H, hd))
     return one(Lq), one(Lk), one(Lk)
+
+
+def flash_reference(q, k, v, round_p: bool, chunk: int = 128):
+    """K2's arithmetic in fp32: an online softmax over ``chunk``-key tiles
+    (the kernel's), unnormalized P = exp(s - m) rounded to v's dtype before
+    PV when ``round_p`` (as the Pallas body does,
+    ``daam_tpu/ops/pallas_attention.py:117``), O divided by the row sum at
+    the end.  Returns (B, Lq, H·hd) in q's dtype."""
+    import torch
+
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    m = torch.full(qf.shape[:-1] + (1,), float('-inf'), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for j in range(0, kf.shape[2], chunk):
+        s = qf @ kf[:, :, j:j + chunk].transpose(-1, -2) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = p.to(v.dtype).float() if round_p else p
+        acc = acc * corr + pv @ vf[:, :, j:j + chunk]
+        m = m_new
+    return (acc / l).transpose(1, 2).flatten(2).to(q.dtype)
+
+
+def cross_reference(q, k, v, round_p: bool):
+    """K1's output arithmetic in fp32: normalized P, rounded to v's dtype
+    before PV when ``round_p`` (as the Pallas body does,
+    ``daam_tpu/ops/pallas_attention.py:480``)."""
+    import torch
+
+    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float())
+    p = (s * q.shape[-1] ** -0.5).softmax(-1)
+    p = p.to(v.dtype).float() if round_p else p
+    return torch.einsum('bhqk,bkhd->bqhd', p, v.float()).flatten(2).to(q.dtype)
+
+
+def check_rounding(name, o, rounded, unrounded):
+    """The kernel's output must be closer to the reference that rounds P
+    where the Pallas body does than to the one that keeps P in fp32."""
+    d_r = (o.float() - rounded.float()).abs().mean().item()
+    d_u = (o.float() - unrounded.float()).abs().mean().item()
+    print(f'  rounding {name}: mean abs diff to rounded-P reference {d_r:.3e}, '
+          f'to fp32-P reference {d_u:.3e}')
+    check(d_r < d_u, f'{name} rounds P where the Pallas body does')
 
 
 def parity(kernels, A):
@@ -118,20 +176,34 @@ def parity(kernels, A):
              'cross_attention_probs': 0.0}
     gen = torch.Generator(device='cuda').manual_seed(0)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    # fp32 runs on the CUDA-core kernel at hd 64; bf16 on the tensor-core
+    # kernel at every head dim it serves and every shape of the main path
+    # (the mid block's Lq = 64 fills only half of a 128-query block).
+    flash_cases = {
+        torch.float32: [(HD, sh) for sh in ((2, 5, 4096, 4096), (2, 10, 1024, 1024),
+                                            (1, 5, 4096, 77))],
+        torch.bfloat16: [(hd, sh) for hd in kernels.HEAD_DIMS for sh, _ in K2_SHAPES]}
     for dtype in (torch.float32, torch.bfloat16):
         for layout in ('head_major', 'packed'):
-            for shape in ((2, 5, 4096, 4096), (2, 10, 1024, 1024), (1, 5, 4096, 77)):
-                q, k, v = qkv(*shape, layout, dtype, gen)
+            n_tc = kernels.launches['flash_attention_wgmma']
+            for hd, shape in flash_cases[dtype]:
+                q, k, v = qkv(*shape, layout, dtype, gen, hd)
                 o = kernels.flash_attention(q, k, v)
                 r = A.flash_attention_plain(q, k, v)
                 torch.cuda.synchronize()
                 err = (o.float() - r.float()).abs().max().item()
                 rho = spearman(o, r)
                 print(f'parity flash_attention {layout:10s} {str(dtype):14s} '
-                      f'B,H,Lq,Lk={shape} max_abs_err={err:.3e} spearman={rho:.6f}')
+                      f'hd={hd:<3d} B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
+                      f'spearman={rho:.6f}')
                 check(err <= tol[dtype] and rho >= 0.999, 'flash_attention parity')
                 if dtype == torch.bfloat16:
                     worst['flash_attention'] = max(worst['flash_attention'], err)
+                    check_rounding('flash_attention', o, flash_reference(q, k, v, True),
+                                   flash_reference(q, k, v, False))
+            n_tc = kernels.launches['flash_attention_wgmma'] - n_tc
+            check(n_tc == (len(flash_cases[dtype]) if dtype == torch.bfloat16 else 0),
+                  f'{n_tc} {dtype} flash_attention launches on the tensor cores')
             for shape in ((1, 5, 4096, 77), (1, 10, 1024, 77), (1, 20, 256, 77)):
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
@@ -153,6 +225,9 @@ def parity(kernels, A):
                 if dtype == torch.bfloat16:
                     worst['cross_attention_acc'] = max(
                         worst['cross_attention_acc'], err, acc_err)
+                    # the plain version rounds normalized P before PV
+                    check_rounding('cross_attention_acc', o, r,
+                                   cross_reference(q, k, v, False))
             for shape, _ in K5_SHAPES:
                 B = shape[0]
                 q, k, v = qkv(*shape, layout, dtype, gen)
@@ -178,6 +253,19 @@ def parity(kernels, A):
                             worst['cross_attention_probs'] = max(
                                 worst['cross_attention_probs'], err, p_err)
     return worst
+
+
+def ptxas_report(log: str) -> dict:
+    """The ``-Xptxas -v`` stack/spill and register lines, by (mangled)
+    kernel name."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            name = m.group(1)
+        elif name and ('spill' in line or 'registers' in line):
+            report.setdefault(name, []).append(line.split(':', 1)[-1].strip())
+    return report
 
 
 def tiny_reference(A, StableDiffusionPipeline, trace):
@@ -272,7 +360,8 @@ def kernel_times(kernels, A):
     import torch
 
     gen = torch.Generator(device='cuda').manual_seed(1)
-    totals = {name: [0.0, 0.0] for name in kernels.launches}
+    totals = {name: [0.0, 0.0] for name in
+              ('flash_attention', 'cross_attention_acc', 'cross_attention_probs')}
     for name, shapes in (('flash_attention', K2_SHAPES),
                          ('cross_attention_acc', K1_SHAPES),
                          ('cross_attention_probs', K5_SHAPES)):
@@ -294,8 +383,14 @@ def kernel_times(kernels, A):
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             totals[name][0] += ms * per_eval
             totals[name][1] += plain_ms * per_eval
+            rate = ''
+            if name == 'flash_attention':
+                B, H, Lq, Lk = shape
+                tflops = 4 * B * H * Lq * Lk * HD / ms / 1e9
+                rate = (f' ({tflops:.1f} TFLOP/s, {100 * tflops / BF16_PEAK_TFLOPS:.1f}% '
+                        f'of peak; plain {4 * B * H * Lq * Lk * HD / plain_ms / 1e9:.1f})')
             print(f'time {name:20s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
-                  f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms')
+                  f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms{rate}')
     return totals
 
 
@@ -318,6 +413,7 @@ def transplant(pipe, trace, kernels):
                                        persist_heads=False)
     check(save_launches == {'cross_attention_probs': K5_PER_EVAL * STEPS,
                             'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
+                            'flash_attention_wgmma': K2_PER_EVAL_REPLAY * STEPS,
                             'cross_attention_acc': 0},
           f'save run launch counts {save_launches}')
     buf = tc_s.replay_buffer(STEPS)
@@ -339,7 +435,8 @@ def transplant(pipe, trace, kernels):
 
     image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
     check(load_launches == {'cross_attention_probs': 0, 'cross_attention_acc': 0,
-                            'flash_attention': K2_PER_EVAL_REPLAY * STEPS},
+                            'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
+                            'flash_attention_wgmma': K2_PER_EVAL_REPLAY * STEPS},
           f'load run launch counts {load_launches}')
     map_s = tc_s.compute_global_heat_map().heat_maps
     map_l = tc_l.compute_global_heat_map().heat_maps
@@ -405,9 +502,15 @@ def main(argv=None):
     # 1. build
     kernels.load_library()
     print(f'build: {kernels.build_seconds:.2f} s')
-    for line in kernels.build_log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('  ' + line.strip())
+    report = ptxas_report(kernels.build_log)
+    for name, lines in report.items():
+        print(f'  {name}: ' + '; '.join(lines))
+    tensor_core = [n for n in report if 'flash_attention_wgmma_kernel' in n]
+    check(len(tensor_core) == len(kernels.HEAD_DIMS),
+          f'ptxas reports {len(tensor_core)} tensor-core flash_attention kernels')
+    for name in tensor_core:
+        check(any(' 0 bytes spill stores, 0 bytes spill loads' in x for x in report[name]),
+              f'{name} spills registers')
 
     # 2-3. parity, with TF32 off for the fp32 checks
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -440,6 +543,7 @@ def main(argv=None):
           'word heat map')
     check(launches == {'cross_attention_acc': K1_PER_EVAL * STEPS,
                        'flash_attention': K2_PER_EVAL * STEPS,
+                       'flash_attention_wgmma': K2_PER_EVAL * STEPS,
                        'cross_attention_probs': 0},
           f'launch counts {launches}')
 

@@ -13,27 +13,46 @@
 // element strides each (the hd stride must be 1), so one kernel serves both
 // the head-major (B, H, L, hd) tensors and the (B, L, H*hd) projection
 // output without a relayout copy.  o is written as (B, Lq, H*hd), ready for
-// to_out.  Storage is float or bf16; all arithmetic is fp32; scale is
-// hd^-1/2, passed in by the caller.
+// to_out.  Storage is float or bf16; scale is hd^-1/2, passed in by the
+// caller.
 //
 // What bounds them on an H100, and what the design does about it:
 //
 // * flash_attention is compute bound at the main path's shapes: the
 //   64x64-latent self-attention (B=2, H=5, L=4096, hd=64) does
-//   4*B*H*L*L*hd = 21.5 GFLOP against ~10 MB of bf16 q/k/v/o.  This first
-//   version runs on the CUDA cores in fp32 (67 TFLOP/s peak, no tensor
-//   cores), and the inner loop is bounded by shared-memory reads feeding the
-//   FMAs.  One 256-thread block owns (b, h, 64 queries); four threads share
-//   a query, each holding hd/4 lanes of q and of the output in registers as
-//   float4 chunks interleaved so the four read 64 contiguous bytes of a
-//   staged key row (conflict-free, and a broadcast across the warp's eight
-//   queries).  Keys and values stream through shared memory 32 rows at a
-//   time with an online softmax (running max and sum per query), so the
-//   score matrix never leaves registers and any Lk works; the tail past Lk,
-//   including Lk = 77, is masked.  Tensor cores (mma/wgmma) and TMA are
-//   later work: on an H100 80GB HBM3 at a 700 W power limit this version
-//   takes 3.86 ms at (2, 5, 4096, 4096) in bf16, against 2.16 ms for the
-//   plain PyTorch version (cuBLAS tensor cores plus a materialized softmax).
+//   4*B*H*L*L*hd = 42.9 GFLOP against ~10 MB of bf16 q/k/v/o, and one UNet
+//   evaluation's K2 launches add up to ~248 GFLOP.  Only the tensor cores
+//   (989 TFLOP/s dense bf16) make that cheap, so bf16 goes to
+//   flash_attention_wgmma_kernel, as FlashAttention-3 is built:
+//   - one block owns (b, h, 128 queries): two consumer warpgroups of 64
+//     query rows each, and a producer warpgroup that gives its registers
+//     away (setmaxnreg) and keeps one thread issuing TMA loads;
+//   - TMA copies the q tile once and streams 128-key k and v tiles through
+//     a two-stage ring in shared memory (mbarriers mark full and empty
+//     stages), over 4-D tensor maps of the (B, L, H, hd) views encoded per
+//     call; rows are swizzled to 128 bytes (64-column panels; 64 or 32
+//     bytes for hd 32 and 16), and rows past L arrive as zeros;
+//   - S = Q K^T is one wgmma m64n128k16 per 16 of hd, both operands read
+//     from shared memory (K-major: hd is contiguous);
+//   - the online softmax runs on the fp32 S fragment in registers (row max
+//     and sum over the 4 lanes that share a row, exp2 with the scale folded
+//     in, keys past Lk set to -inf); unnormalized P = exp(s - m) is rounded
+//     to bf16, as the Pallas body rounds it before PV, and since the S
+//     fragment of 16 keys is laid out as the A fragment of a k16 step, P
+//     never leaves registers: O += P V is wgmma m64n(hd)k16 with A from
+//     registers and V from shared memory as a transposed (MN-major) B;
+//   - O is divided by the row sum at the end and stored (B, Lq, H*hd).
+//   It serves hd 16, 32, 64 and 128.  fp32 stays on flash_attention_kernel,
+//   on the CUDA cores: on the tensor cores fp32 would be TF32 and miss the
+//   fp32 gate of 1e-4.  That kernel gives each query four threads that keep
+//   q and the output in registers and stream keys and values through
+//   shared memory 32 rows at a time with the same online softmax; it took
+//   3.86 ms at (2, 5, 4096, 4096) in bf16 (11.1 TFLOP/s) before bf16 moved
+//   to the tensor cores.  On an H100 80GB HBM3 at a 700 W power limit the
+//   wgmma kernel takes 0.130 ms at (2, 5, 4096, 4096) (330 TFLOP/s, a third
+//   of the bf16 peak: each warpgroup's exp2 and its products take turns),
+//   against 2.17 ms for the plain PyTorch version, and 0.90 ms of device
+//   time over one UNet evaluation's K2 launches.
 // * cross_attention_acc is memory bound: per call it reads q and
 //   read-modify-writes the fp32 accumulator (Lk*Lq*4 bytes each way, e.g.
 //   6.3 MB for (1, 5, 4096) at Lk = 77) for only ~2*2*Lk*hd FLOP per query.
@@ -43,10 +62,11 @@
 //   (coalesced).  K and V for all Lk tokens are staged once per block in
 //   shared memory.  Two passes over the tokens (running max and sum, then
 //   the normalized probabilities) keep the scores out of memory; the second
-//   pass adds P into acc and P.V into the output, normalizing P before PV
-//   as the Pallas kernel does.  On an H100 80GB HBM3 at a 700 W power limit
-//   it takes 0.073 ms at (1, 5, 4096, 77) in bf16, against 0.161 ms for the
-//   plain PyTorch version.
+//   pass adds P into acc and, rounded to the storage type, into P.V,
+//   normalizing and rounding P before PV as the Pallas kernel does.  On an
+//   H100 80GB HBM3 at a 700 W power limit it takes 0.073 ms at
+//   (1, 5, 4096, 77) in bf16, against 0.161 ms for the plain PyTorch
+//   version.
 // * cross_attention_probs replaces cross_attention_probs (:405; body
 //   _cross_attn_kernel :347), the 'full'/'cond' capture behind save_heads:
 //   O = PV and P itself written out as (B, H, Lq, Lk), in fp32 or bf16
@@ -68,9 +88,15 @@
 // Python wrapper (daam_tpu_torch/ops/kernels.py) checks shapes, strides and
 // types, allocates o, and raises on the error code each entry point returns.
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdio.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -121,10 +147,11 @@ constexpr int FA_TPQ = 4;   // threads per query
 constexpr int FA_BK = 32;   // keys staged per tile
 constexpr int FA_THREADS = FA_BQ * FA_TPQ;
 
-template <typename T, int HD>
+// fp32 only: bf16 runs on the tensor cores (flash_attention_wgmma_kernel).
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int H,
                        int Lq, int Lk, Strides qs, Strides ks, Strides vs,
                        float scale) {
   constexpr int C4 = HD / 16;  // float4 chunks per thread
@@ -140,7 +167,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // Thread r holds chunks c = r + FA_TPQ * i, i.e. dims 4c .. 4c + 3.
   float4 qr[C4], acc[C4];
-  const T* qrow = q + b * qs.b + (long long)(valid ? qi : 0) * qs.l + h * qs.h;
+  const float* qrow = q + b * qs.b + (long long)(valid ? qi : 0) * qs.l + h * qs.h;
 #pragma unroll
   for (int i = 0; i < C4; ++i) {
     qr[i] = load4(qrow + 4 * (r + FA_TPQ * i));
@@ -149,8 +176,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = -INFINITY;
   float l = 0.f;
 
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
   float* ksf = reinterpret_cast<float*>(&Ks[0][0]);
   float* vsf = reinterpret_cast<float*>(&Vs[0][0]);
 
@@ -162,8 +189,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = k0 + row;
       float kv = 0.f, vv = 0.f;
       if (key < Lk) {
-        kv = to_f(kb[key * ks.l + col]);
-        vv = to_f(vb[key * vs.l + col]);
+        kv = kb[key * ks.l + col];
+        vv = vb[key * vs.l + col];
       }
       ksf[e] = kv;
       vsf[e] = vv;
@@ -206,9 +233,237 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (valid) {
     const float inv = 1.f / l;
-    T* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
+    float* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
 #pragma unroll
     for (int i = 0; i < C4; ++i) store4(orow + 4 * (r + FA_TPQ * i), acc[i], inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention, bf16, on the tensor cores (wgmma + TMA)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BQ = 128;        // queries per block: 64 per consumer warpgroup
+constexpr int TC_BK = 128;        // keys per tile
+constexpr int TC_STAGES = 2;      // depth of the K/V ring in shared memory
+constexpr int TC_THREADS = 384;   // warpgroups 0 and 1 compute, 2 loads
+static_assert(TC_BQ == TC_BK, "one TMA box shape serves q, k and v");
+
+// Shared-memory tiles hold rows of hd bf16 values in panels of PW columns,
+// PW * 2 bytes = the swizzle span (128, 64 or 32 bytes), so hd = 128 is two
+// 64-column panels and each panel is one TMA box.
+template <int HD>
+struct TcTile {
+  static constexpr int PW = HD < 64 ? HD : 64;
+  static constexpr int NP = HD / PW;
+  static constexpr int ROW = PW * 2;                 // bytes of a panel row
+  static constexpr uint32_t LAYOUT = PW == 64 ? 1 : PW == 32 ? 2 : 3;
+  static constexpr int PANEL = TC_BK * ROW;          // bytes of one panel
+  static constexpr int BYTES = NP * PANEL;           // one q, k or v tile
+  static constexpr int SMEM = 1024 + (1 + 2 * TC_STAGES) * BYTES + 8 * (1 + 2 * TC_STAGES);
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             __nv_bfloat16* __restrict__ o, int H, int Lq,
+                             int Lk, float scale_log2) {
+  using namespace hopper;
+  using T = TcTile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes; tiles start on that boundary.
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = q_s + T::BYTES;                  // + stage * T::BYTES
+  const uint32_t v_s = k_s + TC_STAGES * T::BYTES;
+  const uint32_t q_full = v_s + TC_STAGES * T::BYTES;
+  const uint32_t kv_full = q_full + 8;                  // + 8 * stage
+  const uint32_t kv_empty = kv_full + 8 * TC_STAGES;    // + 8 * stage
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * TC_BQ;
+  const int n_tiles = (Lk + TC_BK - 1) / TC_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one thread keeps the next K/V tile in flight.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, T::BYTES);
+      for (int p = 0; p < T::NP; ++p)
+        tma_load_4d(q_s + p * T::PANEL, &tq, q_full, p * T::PW, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % TC_STAGES;
+        mbar_wait(kv_empty + 8 * s, ((t / TC_STAGES) & 1) ^ 1);
+        const uint32_t full = kv_full + 8 * s;
+        mbar_arrive_expect_tx(full, 2 * T::BYTES);
+        for (int p = 0; p < T::NP; ++p) {
+          const uint32_t off = s * T::BYTES + p * T::PANEL;
+          tma_load_4d(k_s + off, &tk, full, p * T::PW, t * TC_BK, h, b);
+          tma_load_4d(v_s + off, &tv, full, p * T::PW, t * TC_BK, h, b);
+        }
+      }
+    }
+  } else {
+    // Consumers: warpgroup wg owns queries q0 + 64 wg .. + 63.  In the
+    // accumulator fragments a thread holds rows r and r + 8 (r = 16 warp +
+    // lane / 4) and, per 8-column chunk j, columns 8 j + 2 (lane % 4) + {0, 1}:
+    // element 4 j + e is row r + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x % 32;
+    const int warp = (threadIdx.x % 128) / 32;
+    const int quad = lane % 4;
+    const uint32_t q_wg = q_s + wg * 64 * T::ROW;
+
+    float oacc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
+    float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+
+    mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % TC_STAGES;
+      const uint32_t k_t = k_s + s * T::BYTES;
+      const uint32_t v_t = v_s + s * T::BYTES;
+      mbar_wait(kv_full + 8 * s, (t / TC_STAGES) & 1);
+
+      // S = Q Kᵀ: q and k rows are K-major (hd contiguous); step 16 of hd
+      // at a time, 32 bytes along the swizzled row of a panel.
+      float sacc[TC_BK / 2];
+#pragma unroll
+      for (int i = 0; i < TC_BK / 2; ++i) sacc[i] = 0.f;
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / (T::PW / 16)) * T::PANEL + (kk % (T::PW / 16)) * 32;
+        wgmma_m64n128k16_ss(sacc, make_desc(q_wg + off, 16, 8 * T::ROW, T::LAYOUT),
+                            make_desc(k_t + off, 16, 8 * T::ROW, T::LAYOUT), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // Keys past Lk were zero-filled by TMA, which scores 0, not -inf.
+      if ((t + 1) * TC_BK > Lk) {
+        const int col0 = t * TC_BK + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < TC_BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col0 + 8 * j + (e & 1) >= Lk) sacc[4 * j + e] = -INFINITY;
+      }
+
+      // Online softmax over the tile, rows reduced across the 4 lanes of a quad.
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < TC_BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      // Key 0 lies in the first tile, so the new max is finite and the
+      // correction of the first tile is exp2(-inf) = 0.
+      const float mn0 = fmaxf(m0, mx0 * scale_log2);
+      const float mn1 = fmaxf(m1, mx1 * scale_log2);
+      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 *= c0;
+      l1 *= c1;
+
+      // Unnormalized P = exp(s - m), summed in fp32 and rounded to bf16 for
+      // the PV product, as the Pallas body does.  The S fragment of keys
+      // 16 u .. 16 u + 15 is the A fragment of the u-th k16 step of PV.
+      uint32_t pa[TC_BK / 16][4];
+#pragma unroll
+      for (int u = 0; u < TC_BK / 16; ++u) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = 2 * u + half;
+          const float p00 = ex2(fmaf(sacc[4 * j], scale_log2, -mn0));
+          const float p01 = ex2(fmaf(sacc[4 * j + 1], scale_log2, -mn0));
+          const float p10 = ex2(fmaf(sacc[4 * j + 2], scale_log2, -mn1));
+          const float p11 = ex2(fmaf(sacc[4 * j + 3], scale_log2, -mn1));
+          l0 += p00 + p01;
+          l1 += p10 + p11;
+          pa[u][2 * half] = pack_bf16(p00, p01);
+          pa[u][2 * half + 1] = pack_bf16(p10, p11);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        oacc[4 * j] *= c0;
+        oacc[4 * j + 1] *= c0;
+        oacc[4 * j + 2] *= c1;
+        oacc[4 * j + 3] *= c1;
+      }
+
+      // O += P V: v rows are MN-major for this product (hd contiguous), so
+      // the transposed-B form; a k16 step is 16 key rows further on, and
+      // the panels of hd = 128 lie T::PANEL bytes apart along N.
+      fence_regs(oacc);
+      wgmma_fence();
+#pragma unroll
+      for (int u = 0; u < TC_BK / 16; ++u)
+        wgmma_rs_tb<HD>(oacc, pa[u],
+                        make_desc(v_t + u * 16 * T::ROW, T::PANEL, 8 * T::ROW, T::LAYOUT));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty + 8 * s);  // this warp is done with stage s
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    const int r = q0 + wg * 64 + warp * 16 + lane / 4;
+    const long long row = (long long)H * HD;
+    __nv_bfloat16* ob = o + (long long)b * Lq * row + h * HD + 2 * quad;
+    if (r < Lq) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(ob + r * row + 8 * j) =
+            pack_bf16(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+    }
+    if (r + 8 < Lq) {
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(ob + (r + 8) * row + 8 * j) =
+            pack_bf16(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    }
   }
 }
 
@@ -266,7 +521,8 @@ cross_attention_acc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   const float inv_l = 1.f / l;
 
-  // Pass 2: normalized P into the accumulator column and into P.V.
+  // Pass 2: normalized P into the accumulator column and, rounded to T as the
+  // Pallas body rounds it, into P.V.
   float4 oacc[C4];
 #pragma unroll
   for (int c = 0; c < C4; ++c) oacc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -278,7 +534,7 @@ cross_attention_acc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float p = __expf(s * scale - m) * inv_l;
     acc_col[(long long)t * Lq] += p;
 #pragma unroll
-    for (int c = 0; c < C4; ++c) fma4(oacc[c], p, Vs[t * C4 + c]);
+    for (int c = 0; c < C4; ++c) fma4(oacc[c], to_f(from_f<T>(p)), Vs[t * C4 + c]);
   }
 
   T* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
@@ -375,15 +631,92 @@ cross_attention_probs_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
                          int B, int H, int Lq, int Lk, Strides qs, Strides ks,
                          Strides vs, float scale, cudaStream_t stream) {
   dim3 grid((Lq + FA_BQ - 1) / FA_BQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, FA_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, Lq, Lk, qs, ks, vs,
-      scale);
+  flash_attention_kernel<HD><<<grid, FA_THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, Lk, qs, ks,
+      vs, scale);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up in the driver through the runtime so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// Error codes above this are a CUresult of cuTensorMapEncodeTiled.
+constexpr int TENSOR_MAP_ERROR = 100000;
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A 4-D map (hd, L, H, B) of a bf16 (B, L, H, hd) view, boxes of one panel
+// by TC_BK rows, swizzled to the panel's width.
+template <int HD>
+CUresult encode_view(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
+                     int L, int H, Strides st) {
+  using T = TcTile<HD>;
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.l * 2, (cuuint64_t)st.h * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {T::PW, TC_BK, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = T::PW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : T::PW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD>
+int launch_flash_wgmma(int device, const void* q, const void* k, const void* v,
+                       void* o, int B, int H, int Lq, int Lk, Strides qs, Strides ks,
+                       Strides vs, float scale, cudaStream_t stream) {
+  EncodeTiled encode;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  CUresult res = encode_view<HD>(encode, &tq, q, B, Lq, H, qs);
+  if (res == CUDA_SUCCESS) res = encode_view<HD>(encode, &tk, k, B, Lk, H, ks);
+  if (res == CUDA_SUCCESS) res = encode_view<HD>(encode, &tv, v, B, Lk, H, vs);
+  if (res != CUDA_SUCCESS) return TENSOR_MAP_ERROR + res;
+  const int smem = TcTile<HD>::SMEM;
+  static bool smem_set[64] = {};  // the opt-in, once per device
+  if (device >= 64 || !smem_set[device]) {
+    err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (device < 64) smem_set[device] = true;
+  }
+  dim3 grid((Lq + TC_BQ - 1) / TC_BQ, H, B);
+  flash_attention_wgmma_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Lq, Lk,
+      scale * 1.4426950408889634f);  // log2(e): the kernel works in exp2
   return cudaGetLastError();
 }
 
@@ -455,14 +788,6 @@ cudaError_t cross_probs_dispatch_hd(int hd, const void* q, const void* k,
     default: return cudaErrorInvalidValue;                                 \
   }
 
-cudaError_t flash_dispatch(int dtype, int hd, const void* q, const void* k,
-                           const void* v, void* o, int B, int H, int Lq,
-                           int Lk, Strides qs, Strides ks, Strides vs,
-                           float scale, cudaStream_t stream) {
-  DAAM_DISPATCH(launch_flash, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale,
-                stream)
-}
-
 cudaError_t cross_acc_dispatch(int dtype, int hd, const void* q, const void* k,
                                const void* v, void* o, float* acc, int B,
                                int H, int Lq, int Lk, Strides qs, Strides ks,
@@ -492,19 +817,45 @@ cudaError_t cross_probs_dispatch(int dtype, int pdtype, int hd, const void* q,
 // Plain C interface, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
 // Each returns the cudaError_t of its launch (0 on success).
 
-extern "C" int daam_flash_attention(int device, int dtype, int hd,
-                                    const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int Lq, int Lk, int qsb, int qsl, int qsh,
-                                    int ksb, int ksl, int ksh, int vsb,
-                                    int vsl, int vsh, float scale,
-                                    void* stream) {
+// fp32 only, on the CUDA cores; bf16 goes to daam_flash_attention_wgmma.
+extern "C" int daam_flash_attention(int device, int hd, const void* q,
+                                    const void* k, const void* v, void* o,
+                                    int B, int H, int Lq, int Lk, int qsb,
+                                    int qsl, int qsh, int ksb, int ksl,
+                                    int ksh, int vsb, int vsl, int vsh,
+                                    float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return flash_dispatch(dtype, hd, q, k, v, o, B, H, Lq, Lk,
-                        Strides{qsb, qsl, qsh}, Strides{ksb, ksl, ksh},
-                        Strides{vsb, vsl, vsh}, scale,
-                        static_cast<cudaStream_t>(stream));
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_flash<16>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 32: return launch_flash<32>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 64: return launch_flash<64>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 128: return launch_flash<128>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// bf16 only; every view's base must be 16-byte aligned and its b, l, h
+// strides multiples of 8 elements (16 bytes), as TMA requires.
+extern "C" int daam_flash_attention_wgmma(int device, int hd, const void* q,
+                                          const void* k, const void* v, void* o,
+                                          int B, int H, int Lq, int Lk, int qsb,
+                                          int qsl, int qsh, int ksb, int ksl,
+                                          int ksh, int vsb, int vsl, int vsh,
+                                          float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_flash_wgmma<16>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 32: return launch_flash_wgmma<32>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 64: return launch_flash_wgmma<64>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 128: return launch_flash_wgmma<128>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int daam_cross_attention_acc(int device, int dtype, int hd,
@@ -541,5 +892,11 @@ extern "C" int daam_cross_attention_probs(int device, int dtype, int hd,
 }
 
 extern "C" const char* daam_error_string(int err) {
+  if (err >= TENSOR_MAP_ERROR) {
+    static char msg[64];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed, CUresult %d",
+             err - TENSOR_MAP_ERROR);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

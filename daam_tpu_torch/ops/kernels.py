@@ -2,8 +2,8 @@
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, under
-``build/daam_tpu_torch/<hash of the sources and flags>/libattention.so`` in
-the checkout, and bound with :mod:`ctypes`.  Nothing here touches CUDA at
+``build/daam_tpu_torch/<hash of the sources, headers and flags>/libattention.so``
+in the checkout, and bound with :mod:`ctypes`.  Nothing here touches CUDA at
 import time, so CPU-only hosts import the module freely; the launchers raise
 on a tensor that is not on a CUDA device.
 
@@ -27,7 +27,8 @@ from typing import Optional
 import torch
 
 __all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
-           'launches', 'reset_launches', 'load_library', 'HEAD_DIMS']
+           'launches', 'reset_launches', 'load_library', 'tma_view_error',
+           'HEAD_DIMS']
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'daam_tpu_torch'
@@ -38,14 +39,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 _SMEM_MAX = 227 * 1024
 
-#: Kernel launches since the last :func:`reset_launches`, by launcher name.
-launches = {'flash_attention': 0, 'cross_attention_acc': 0,
-            'cross_attention_probs': 0}
+#: Kernel launches since the last :func:`reset_launches`, by launcher name;
+#: ``flash_attention_wgmma`` counts the ``flash_attention`` launches that
+#: took the tensor-core kernel (bf16), which ``flash_attention`` counts too.
+launches = {'flash_attention': 0, 'flash_attention_wgmma': 0,
+            'cross_attention_acc': 0, 'cross_attention_probs': 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.
 build_seconds: Optional[float] = None
-#: ``nvcc`` output of the last build (``-Xptxas -v``: registers, spills).
+#: ``nvcc`` output of the build of the loaded library (``-Xptxas -v``:
+#: registers and spills per kernel), kept beside it as ``build.log``.
 build_log: str = ''
 
 
@@ -55,8 +59,9 @@ def reset_launches() -> None:
 
 
 def _library_path() -> Path:
+    """Build path keyed by the flags and every source and header."""
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in sorted(_CSRC.glob('*.cu')):
+    for src in sorted([*_CSRC.glob('*.cu'), *_CSRC.glob('*.cuh')]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return _BUILD_ROOT / digest.hexdigest()[:16] / 'libattention.so'
@@ -72,9 +77,12 @@ def _build(out: Path) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stderr}')
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     log = proc.stdout + proc.stderr
-    (out.parent / 'build.log').write_text(log)
+    tmp_log = out.with_name(f'build.log.{os.getpid()}.tmp')
+    tmp_log.write_text(log)
+    # atomic: a concurrent build never sees half a file
+    os.replace(tmp_log, out.parent / 'build.log')
+    os.replace(tmp, out)
     return log
 
 
@@ -87,12 +95,16 @@ def load_library() -> ctypes.CDLL:
     path = _library_path()
     if not path.exists():
         build_log = _build(path)
+    else:
+        log = path.parent / 'build.log'
+        build_log = log.read_text() if log.exists() else ''
     lib = ctypes.CDLL(str(path))
     ptr, i = ctypes.c_void_p, ctypes.c_int
     common = [i, i, i, ptr, ptr, ptr, ptr]
     dims = [i] * 4 + [i] * 9 + [ctypes.c_float, ptr]
-    lib.daam_flash_attention.argtypes = common + dims
-    lib.daam_flash_attention.restype = i
+    for flash in (lib.daam_flash_attention, lib.daam_flash_attention_wgmma):
+        flash.argtypes = [i, i, ptr, ptr, ptr, ptr] + dims  # no dtype code
+        flash.restype = i
     lib.daam_cross_attention_acc.argtypes = common + [ptr] + dims
     lib.daam_cross_attention_acc.restype = i
     lib.daam_cross_attention_probs.argtypes = common + [ptr, i, i] + dims
@@ -135,6 +147,22 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return B, Lq, Lk, H, hd
 
 
+def tma_view_error(shape, strides, data_ptr: int,
+                   itemsize: int) -> Optional[str]:
+    """Why a (B, L, H, hd) view cannot be a TMA source, or None if it can.
+
+    TMA needs a 16-byte-aligned base and b, l, h strides that are positive
+    multiples of 16 bytes (the hd stride is 1).  Pure: shapes, strides in
+    elements and the address as integers.
+    """
+    if data_ptr % 16:
+        return f'base address {data_ptr:#x} is not 16-byte aligned'
+    if any(s <= 0 or (s * itemsize) % 16 for s in strides[:3]):
+        return (f'strides {tuple(strides)} of shape {tuple(shape)}: b, l and '
+                f'h strides must be positive multiples of 16 bytes')
+    return None
+
+
 def _args(q, k, v):
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     return strides, ctypes.c_float(q.shape[3] ** -0.5), \
@@ -152,17 +180,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     """softmax(q kᵀ / √hd) v on the card.
 
     ``q``: (B, Lq, H, hd), ``k``/``v``: (B, Lk, H, hd) views with a
-    contiguous hd axis and any other strides.  Returns (B, Lq, H·hd).
+    contiguous hd axis.  Returns (B, Lq, H·hd).
+
+    The kernel is chosen by dtype, by design: bf16 runs on the tensor cores
+    (``flash_attention_wgmma_kernel``: wgmma for both products, TMA loads),
+    which read the views through TMA and so need a 16-byte-aligned base and
+    b, l, h strides that are multiples of 16 bytes (:func:`tma_view_error`;
+    any other bf16 view raises).  fp32 runs on the CUDA cores
+    (``flash_attention_kernel``, any strides): on the tensor cores it would
+    be TF32.
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        for name, t in (('q', q), ('k', k), ('v', v)):
+            why = tma_view_error(t.shape, t.stride(), t.data_ptr(),
+                                 t.element_size())
+            if why:
+                raise ValueError(f'{name}: bf16 flash_attention reads its '
+                                 f'inputs by TMA: {why}')
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    err = lib.daam_flash_attention(
-        q.device.index, _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), B, H, Lq, Lk, *strides, scale, stream)
+    launch = (lib.daam_flash_attention_wgmma if tensor_cores
+              else lib.daam_flash_attention)
+    err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), B, H, Lq, Lk, *strides, scale, stream)
     _raise_on(err, 'flash_attention')
     launches['flash_attention'] += 1
+    if tensor_cores:
+        launches['flash_attention_wgmma'] += 1
     return o
 
 

@@ -4,9 +4,10 @@ The plain versions of the two ported kernels (``flash_attention``, K2 with
 K3's packed layout as its strided entry; ``cross_attention_acc``, K1 with
 K4's layout) are held against ``daam_tpu``'s jnp path and its Pallas kernels
 in interpret mode, in fp32 with atol 1e-5: both sides do the same fp32
-arithmetic and differ only in summation order.  The kernels themselves run
-only on a CUDA card (``cuda`` marker); there they are held against the plain
-versions at the main path's head dims.
+arithmetic and differ only in summation order; and K2's in bf16 with atol
+2e-2, the card's bf16 gate, since the two round P and O at other points.
+The kernels themselves run only on a CUDA card (``cuda`` marker); there they
+are held against the plain versions at every head dim.
 """
 
 import numpy as np
@@ -81,6 +82,29 @@ def test_flash_attention_plain_matches_daam_tpu(Lk, layout, jax_kernel_mode):
     assert ours.shape == (B, Lq, H * hd)
     np.testing.assert_allclose(ours, jnp_out, rtol=0, atol=ATOL)
     np.testing.assert_allclose(ours, pallas, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize('Lk', [77, 600, 1100])
+@pytest.mark.parametrize('layout', ['head_major', 'packed'])
+def test_flash_attention_plain_matches_daam_tpu_bf16(Lk, layout):
+    """K2/K3 in bf16: the plain version against daam_tpu's Pallas kernel
+    (interpret mode) on the same inputs cast to bf16, across the 512-key
+    online-chunk branch.  The Pallas body rounds unnormalized P to bf16 and
+    divides O after PV; the plain version rounds normalized P: atol 2e-2."""
+    B, H, Lq, hd = 2, 2, 40, 64
+    q, k, v = _qkv(B, H, Lq, Lk, hd, seed=Lk + 1)
+    view = _head_major_view if layout == 'head_major' else _packed_view
+    ours = A.flash_attention(*(view(t).to(torch.bfloat16) for t in (q, k, v)))
+    assert ours.dtype == torch.bfloat16 and ours.shape == (B, Lq, H * hd)
+
+    bf16 = lambda t: jnp.asarray(t, jnp.bfloat16)  # noqa: E731
+    if layout == 'head_major':
+        pallas = P.flash_self_attention(*map(bf16, (q, k, v)))
+        pallas = _merged(pallas.astype(jnp.float32))
+    else:
+        pallas = np.asarray(P.flash_self_attention_packed(
+            *(bf16(_packed(t)) for t in (q, k, v)), heads=H).astype(jnp.float32))
+    np.testing.assert_allclose(ours.float().numpy(), pallas, rtol=0, atol=2e-2)
 
 
 @pytest.mark.parametrize('layout', ['head_major', 'packed'])
@@ -176,6 +200,77 @@ def test_dispatch_cpu_takes_plain_and_cuda_mode_raises():
         A.set_kernel_mode('triton')
 
 
+def _view_of(shape, layout, dtype=torch.bfloat16, offset=0):
+    """A (B, L, H, hd) view of a flat CPU buffer, starting `offset` elements
+    in: head-major, packed, or packed with the rows padded by one element."""
+    B, L, H, hd = shape
+    if layout == 'head_major':
+        n, size, stride = B * H * L * hd, (B, H, L, hd), None
+    elif layout == 'packed':
+        n, size, stride = B * L * H * hd, (B, L, H, hd), None
+    else:  # 'padded_rows': row stride H·hd + 1
+        row = H * hd + 1
+        n, size, stride = B * L * row, (B, L, H, hd), (L * row, row, hd, 1)
+    flat = torch.zeros(n + offset, dtype=dtype)
+    if stride is not None:
+        return flat.as_strided(size, stride, offset)
+    t = flat[offset:].view(size)
+    return t.transpose(1, 2) if layout == 'head_major' else t
+
+
+@pytest.mark.parametrize('layout, offset, ok', [
+    ('head_major', 0, True), ('packed', 0, True),   # every main-path view
+    ('packed', 8, True),                            # q[bc:] style offsets
+    ('packed', 3, False),                           # base off 16 bytes
+    ('padded_rows', 0, False)])                     # row stride 321 elements
+def test_tma_view_error(layout, offset, ok):
+    """The bf16 wrapper's TMA check, as a pure function of shape, strides
+    and address: aligned views pass, others name what is wrong."""
+    t = _view_of((2, 10, 5, 64), layout, offset=offset)
+    why = kernels.tma_view_error(t.shape, t.stride(), t.data_ptr(),
+                                 t.element_size())
+    assert (why is None) == ok, why
+    if not ok:
+        assert ('aligned' in why) == (offset % 8 != 0)
+        assert ('strides' in why) == (layout == 'padded_rows')
+
+
+def test_tma_view_error_strides_in_bytes():
+    """Strides count in bytes: 8 bf16 elements or 4 fp32 make 16 bytes."""
+    shape = (1, 4, 1, 16)
+    assert kernels.tma_view_error(shape, (64, 16, 16, 1), 0, 2) is None
+    assert kernels.tma_view_error(shape, (64, 12, 12, 1), 0, 2) is not None
+    assert kernels.tma_view_error(shape, (64, 12, 12, 1), 0, 4) is None
+    assert kernels.tma_view_error(shape, (0, 16, 16, 1), 0, 2) is not None
+
+
+def test_library_path_tracks_headers(tmp_path, monkeypatch):
+    """Editing a .cuh under csrc/ changes the build path (so the library is
+    rebuilt), as editing a .cu does; other files do not enter the hash."""
+    (tmp_path / 'attention.cu').write_text('#include "hopper.cuh"\n')
+    (tmp_path / 'hopper.cuh').write_text('// v1\n')
+    monkeypatch.setattr(kernels, '_CSRC', tmp_path)
+    first = kernels._library_path()
+    assert kernels._library_path() == first
+    (tmp_path / 'notes.txt').write_text('not a source')
+    assert kernels._library_path() == first
+    (tmp_path / 'hopper.cuh').write_text('// v2\n')
+    second = kernels._library_path()
+    assert second != first and second.name == 'libattention.so'
+    (tmp_path / 'attention.cu').write_text('// edited\n')
+    assert kernels._library_path() not in (first, second)
+
+
+def test_launch_counters_include_the_tensor_core_route():
+    """reset_launches zeroes every counter, the tensor-core one included."""
+    kernels.launches['flash_attention_wgmma'] += 3
+    kernels.reset_launches()
+    assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
+                                     'cross_attention_acc',
+                                     'cross_attention_probs'}
+    assert not any(kernels.launches.values())
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -208,3 +303,20 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
     torch.testing.assert_close(acc, acc_plain, rtol=0, atol=1e-5)
     assert kernels.launches['flash_attention'] == n['flash_attention'] + 1
     assert kernels.launches['cross_attention_acc'] == n['cross_attention_acc'] + 1
+    assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma']
+
+    # bf16: K2 on the tensor cores, at this head dim, both layouts; the
+    # bf16 gate is 2e-2.
+    n = dict(kernels.launches)
+    for view in (_packed_view, _head_major_view):
+        qb, kb, vb = (view(t).to(cuda_device, torch.bfloat16)
+                      for t in _qkv(B, H, Lq, Lk, hd, seed=hd + 1))
+        torch.testing.assert_close(kernels.flash_attention(qb, kb, vb).float(),
+                                   A.flash_attention_plain(qb, kb, vb).float(),
+                                   rtol=0, atol=2e-2)
+    assert kernels.launches['flash_attention'] == n['flash_attention'] + 2
+    assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma'] + 2
+    with pytest.raises(ValueError, match='TMA'):
+        padded = torch.zeros(B, Lq, H * hd + 8, device=cuda_device,
+                             dtype=torch.bfloat16)[..., 1:H * hd + 1]
+        kernels.flash_attention(padded.unflatten(-1, (H, hd)), kb, vb)
