@@ -2,29 +2,39 @@
 """Smoke run of daam_tpu_torch on one NVIDIA GPU: build, kernel parity, the
 traced SD 2.1-base slice, the head-replay transplant, timings.
 
-    python3 chip_smoke.py              # from the repository root
-    python3 chip_smoke.py --profile    # also a torch.profiler table of one step
+    python3 chip_smoke.py                 # from the repository root
+    python3 chip_smoke.py --profile       # also a torch.profiler table of one step
+    python3 chip_smoke.py --kernel-times  # the build and phase 6's kernel times only
+
+``--kernel-times`` checks nothing beyond the build and prints no result
+line; a copy of this script placed in another checkout times that
+checkout's kernels (the script's own directory comes first on the import
+path), which is how two commits' kernels are compared in one call.
 
 Phases, each of which raises (exit code != 0) when a check fails:
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
-   each kernel's registers and spills, and fail if the tensor-core
-   ``flash_attention`` spills.
+   each kernel's registers and spills, and fail if a tensor-core kernel
+   (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``) is
+   missing or spills.
 2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
-   version on the same inputs: ``flash_attention`` in both layouts
-   (head-major view and the (B, L, H·hd) projection output), in fp32 (the
-   CUDA-core kernel) at Lk ∈ {4096, 1024, 77}, and in bf16 (the tensor-core
-   kernel) at every head dim of ``HEAD_DIMS`` and every shape of
-   ``K2_SHAPES``, the main path's (Lq ∈ {4096, 1024, 256, 64}, Lk = Lq or 77);
-   ``cross_attention_acc`` in both layouts and both dtypes, called twice
-   into the same accumulator; ``cross_attention_probs`` in both layouts and
-   both dtypes, with and without ``cond_only``, P in fp32 and bf16, at every
-   shape of the save run (P compared on the rows it writes).  TF32 is off
-   for the fp32 checks.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5 (fp32
-   accumulator and fp32 P), ≤ 2e-2 (bf16); Spearman ≥ 0.999.  Each bf16
-   ``flash_attention`` and ``cross_attention_acc`` output must lie closer
-   (mean abs difference) to a reference that rounds P to bf16 before PV
-   where the Pallas body does than to the same reference with fp32 P.
+   version on the same inputs, in both layouts (head-major view and the
+   (B, L, H·hd) projection output): fp32 on the CUDA-core kernels at hd 64,
+   bf16 on the tensor-core kernels at every head dim of ``HEAD_DIMS``.
+   ``flash_attention`` at Lk ∈ {4096, 1024, 77} in fp32 and at every shape
+   of ``K2_SHAPES`` (Lq ∈ {4096, 1024, 256, 64}, Lk = Lq or 77) in bf16;
+   ``cross_attention_acc`` at every shape of ``K1_SHAPES``, at the ragged
+   Lq = 100 and at Lk = 200 (three 80-key chunks), called twice into the
+   same accumulator; ``cross_attention_probs`` at every shape of
+   ``K5_SHAPES``, at the ragged Lq = 37 and at Lk = 200, with and without
+   ``cond_only``, P in fp32 and bf16 (P compared on the rows it writes).  Every bf16 case must have run on the
+   tensor cores (the ``*_wgmma`` and ``*_mma`` counters).  TF32 is off for
+   the fp32 checks.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5 (fp32 P
+   and the fp32 accumulator, whatever the inputs' type: both are built from
+   fp32 P), ≤ 1/128 (bf16 P), ≤ 2e-2 (bf16 outputs); Spearman ≥ 0.999.
+   Each bf16 output of the three kernels must lie closer (mean abs
+   difference) to a reference that rounds P to bf16 before PV where the
+   Pallas body does than to the same reference with fp32 P.
 3. A small reference: the ``tiny`` preset in fp32, kernels against the plain
    path, same weights and latents: images within 1e-3, heat maps with
    per-token Spearman ≥ 0.999; then an fp32 save_heads → load_heads pair
@@ -34,10 +44,10 @@ Phases, each of which raises (exit code != 0) when a check fails:
    be (512, 512, 3) and finite, the word map for "dog" (64, 64), finite,
    ≥ 0 and not constant, and the launch counters, zeroed just before the
    run, must read 15 × 10 (cross_attention_acc) and 32 × 10
-   (flash_attention, every one on the tensor cores).
+   (flash_attention), every one on the tensor cores.
 5. The transplant at full width, the same model: a ``save_heads`` run of the
-   prompt (counters: 16 × 10 cross_attention_probs, 16 × 10
-   flash_attention on the tensor cores, no cross_attention_acc), whose bf16
+   prompt (counters: 16 × 10 cross_attention_probs and 16 × 10
+   flash_attention, every one on the tensor cores; no cross_attention_acc), whose bf16
    buffer must hold 16 layers of (10, 2, H, h·w, 77), finite, rows summing
    to 1 within 1e-2; a ``load_heads`` run of the same prompt (counters: 16
    × 10 flash_attention on the tensor cores, nothing else), whose per-token
@@ -45,18 +55,31 @@ Phases, each of which raises (exit code != 0) when a check fails:
    ``load_heads`` run of a second prompt, whose image must differ from a
    fresh run of that prompt.
 6. Seconds per step traced and untraced (host clock, synchronized per step,
-   warm runs in turns) and of the save and load runs, and each kernel's time
-   against its plain version at every shape of its path (CUDA events after a
-   warm-up), with ``flash_attention``'s TFLOP/s (4·B·H·Lq·Lk·hd FLOP) and
-   share of the H100's 989 TFLOP/s dense bf16 peak.
+   warm runs in turns) and of the save and load runs; then each bf16 kernel
+   at every shape of its path (hd 64): its time by CUDA events (back-to-back
+   launches after a warm-up), its device time per launch (torch.profiler's
+   self device time over 20 launches, so the wrappers' host cost does not
+   stand in for kernel time), its plain version's time, its bound, and the
+   bound's share of the device time.  The bound is the larger of the bytes
+   the call must move (each input read once, each output written once) over
+   the H100's 3.35 TB/s and its FLOP (4·B·H·Lq·Lk·hd) over 989 TFLOP/s dense
+   bf16.  The bytes are q, k, v and o in bf16, plus the fp32 accumulator
+   read and written (``cross_attention_acc``) or fp32 P written
+   (``cross_attention_probs``, as the save run writes it).
+   ``flash_attention`` is also timed against
+   ``torch.nn.functional.scaled_dot_product_attention`` on the same q, k
+   and v, a yardstick the port never calls.
 
 The line before the last is ``{"kernels": [...]}``: per kernel, its launches
 in its path's run (phase 4, or the phase-5 save run for
-cross_attention_probs), the largest bf16 max-abs error of phase 2, and
-``ms`` / ``plain_ms``: the time of one UNet evaluation's worth of its
-launches (each shape's time × its launches per evaluation).  The last line
-is ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
-the daam_tpu_torch package beside it; it never imports JAX or PIL.
+cross_attention_probs), the largest bf16 max-abs error of phase 2, and,
+per UNet evaluation of its path (each shape's number × its launches per
+evaluation): ``ms`` (events), ``device_ms`` (profiler), ``plain_ms``,
+``bound_ms`` with ``bound_by`` (what bounds most of it), and ``library_ms``
+(SDPA for ``flash_attention``; null for the others: no PyTorch call adds
+Pᵀ into an accumulator or returns P).  The last line is
+``{"ok": true, "device": {...}}``.  The script needs a CUDA device and the
+daam_tpu_torch package beside it; it never imports JAX or PIL.
 """
 
 import argparse
@@ -84,8 +107,14 @@ K1_SHAPES = [((1, 5, 4096, 77), 5), ((1, 10, 1024, 77), 5),
              ((1, 20, 256, 77), 5)]
 K5_SHAPES = [((2, 5, 4096, 77), 5), ((2, 10, 1024, 77), 5),
              ((2, 20, 256, 77), 5), ((2, 20, 64, 77), 1)]
+# Off the paths: Lq not a multiple of the 64-query block, and Lk past one
+# 80-key chunk (the tensor-core kernel's two-pass route).
+EXTRA_SHAPES = {'cross_attention_acc': [(1, 5, 100, 77), (1, 5, 128, 200)],
+                'cross_attention_probs': [(2, 5, 37, 77), (2, 5, 100, 200)]}
 HD = 64
-BF16_PEAK_TFLOPS = 989.0  # H100 SXM, dense (NVIDIA's data sheet)
+# H100 SXM (NVIDIA's data sheet)
+BF16_PEAK_TFLOPS = 989.0  # dense
+HBM_TB_S = 3.35
 
 
 def check(ok: bool, msg: str):
@@ -176,17 +205,23 @@ def parity(kernels, A):
              'cross_attention_probs': 0.0}
     gen = torch.Generator(device='cuda').manual_seed(0)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    # fp32 runs on the CUDA-core kernel at hd 64; bf16 on the tensor-core
-    # kernel at every head dim it serves and every shape of the main path
-    # (the mid block's Lq = 64 fills only half of a 128-query block).
-    flash_cases = {
-        torch.float32: [(HD, sh) for sh in ((2, 5, 4096, 4096), (2, 10, 1024, 1024),
-                                            (1, 5, 4096, 77))],
-        torch.bfloat16: [(hd, sh) for hd in kernels.HEAD_DIMS for sh, _ in K2_SHAPES]}
+
+    def cases(dtype, shapes):
+        """fp32 runs on the CUDA-core kernels at hd 64; bf16 on the
+        tensor-core kernels at every head dim they serve."""
+        dims = kernels.HEAD_DIMS if dtype == torch.bfloat16 else (HD,)
+        return [(hd, sh) for hd in dims for sh in shapes]
+
+    k1_shapes = [sh for sh, _ in K1_SHAPES] + EXTRA_SHAPES['cross_attention_acc']
+    k5_shapes = [sh for sh, _ in K5_SHAPES] + EXTRA_SHAPES['cross_attention_probs']
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         for layout in ('head_major', 'packed'):
-            n_tc = kernels.launches['flash_attention_wgmma']
-            for hd, shape in flash_cases[dtype]:
+            before = dict(kernels.launches)
+            flash_cases = cases(dtype, [sh for sh, _ in K2_SHAPES] if bf16 else
+                                [(2, 5, 4096, 4096), (2, 10, 1024, 1024),
+                                 (1, 5, 4096, 77)])
+            for hd, shape in flash_cases:
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
                 o = kernels.flash_attention(q, k, v)
                 r = A.flash_attention_plain(q, k, v)
@@ -197,19 +232,17 @@ def parity(kernels, A):
                       f'hd={hd:<3d} B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
                       f'spearman={rho:.6f}')
                 check(err <= tol[dtype] and rho >= 0.999, 'flash_attention parity')
-                if dtype == torch.bfloat16:
+                if bf16:
                     worst['flash_attention'] = max(worst['flash_attention'], err)
                     check_rounding('flash_attention', o, flash_reference(q, k, v, True),
                                    flash_reference(q, k, v, False))
-            n_tc = kernels.launches['flash_attention_wgmma'] - n_tc
-            check(n_tc == (len(flash_cases[dtype]) if dtype == torch.bfloat16 else 0),
-                  f'{n_tc} {dtype} flash_attention launches on the tensor cores')
-            for shape in ((1, 5, 4096, 77), (1, 10, 1024, 77), (1, 20, 256, 77)):
+            acc_cases = cases(dtype, k1_shapes)
+            for hd, shape in acc_cases:
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
                 acc_plain = acc.clone()
                 for _ in range(2):
-                    q, k, v = qkv(*shape, layout, dtype, gen)
+                    q, k, v = qkv(*shape, layout, dtype, gen, hd)
                     o = kernels.cross_attention_acc(q, k, v, acc)
                     r = A.cross_attention_acc_plain(q, k, v, acc_plain)
                 torch.cuda.synchronize()
@@ -217,20 +250,22 @@ def parity(kernels, A):
                 acc_err = (acc - acc_plain).abs().max().item()
                 rho = min(spearman(o, r), spearman(acc, acc_plain))
                 print(f'parity cross_attention_acc {layout:10s} {str(dtype):14s} '
-                      f'B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
+                      f'hd={hd:<3d} B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
                       f'acc_max_abs_err={acc_err:.3e} spearman={rho:.6f}')
-                acc_tol = 1e-5 if dtype == torch.float32 else 2e-2
-                check(err <= tol[dtype] and acc_err <= acc_tol and rho >= 0.999,
+                # acc sums fp32 P whatever the inputs' type: a kernel that
+                # added bf16-rounded P would miss this by ~1e-3
+                check(err <= tol[dtype] and acc_err <= 1e-5 and rho >= 0.999,
                       'cross_attention_acc parity')
-                if dtype == torch.bfloat16:
+                if bf16:
                     worst['cross_attention_acc'] = max(
                         worst['cross_attention_acc'], err, acc_err)
                     # the plain version rounds normalized P before PV
                     check_rounding('cross_attention_acc', o, r,
                                    cross_reference(q, k, v, False))
-            for shape, _ in K5_SHAPES:
+            probs_cases = cases(dtype, k5_shapes)
+            for hd, shape in probs_cases:
                 B = shape[0]
-                q, k, v = qkv(*shape, layout, dtype, gen)
+                q, k, v = qkv(*shape, layout, dtype, gen, hd)
                 for cond_only in (False, True):
                     for pdt in (torch.float32, torch.bfloat16):
                         o, p = kernels.cross_attention_probs(q, k, v, cond_only, pdt)
@@ -242,16 +277,28 @@ def parity(kernels, A):
                         p_err = (p - rp).abs().max().item()
                         rho = min(spearman(o, r), spearman(p, rp))
                         print(f'parity cross_attention_probs {layout:10s} '
-                              f'{str(dtype):14s} B,H,Lq,Lk={shape} '
+                              f'{str(dtype):14s} hd={hd:<3d} B,H,Lq,Lk={shape} '
                               f'cond_only={cond_only!s:5s} P {str(pdt):14s} '
                               f'max_abs_err={err:.3e} p_max_abs_err={p_err:.3e} '
                               f'spearman={rho:.6f}')
-                        p_tol = 1e-5 if pdt == torch.float32 else 2e-2
+                        # bf16 P: kernel and plain version may round to
+                        # neighbours, one ulp (1/256 below 1) apart
+                        p_tol = 1e-5 if pdt == torch.float32 else 1 / 128
                         check(err <= tol[dtype] and p_err <= p_tol and rho >= 0.999,
                               'cross_attention_probs parity')
                         if torch.bfloat16 in (dtype, pdt):
                             worst['cross_attention_probs'] = max(
                                 worst['cross_attention_probs'], err, p_err)
+                        if bf16:
+                            check_rounding('cross_attention_probs', o, r,
+                                           cross_reference(q, k, v, False))
+            # every bf16 launch took the tensor cores, and no fp32 one did
+            for name, n in (('flash_attention_wgmma', len(flash_cases)),
+                            ('cross_attention_acc_mma', 2 * len(acc_cases)),
+                            ('cross_attention_probs_mma', 4 * len(probs_cases))):
+                got = kernels.launches[name] - before[name]
+                check(got == (n if bf16 else 0),
+                      f'{got} {dtype} {layout} launches counted by {name}')
     return worst
 
 
@@ -354,43 +401,129 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_times(kernels, A):
-    """Phase 5b: bf16 kernel vs plain at every main-path shape; returns the
-    per-UNet-evaluation totals."""
+def device_times(calls, iters: int = 20):
+    """Device time per call of each ``(label, fn)``, in ms, and the number
+    of device kernels a call ran: ``iters`` calls of each under one
+    torch.profiler session, each label's calls in a ``record_function``
+    range, and every kernel credited to the label whose device-side range
+    it starts in.  (One session: on the card, a long series of sessions
+    was seen to stop recording kernels.)"""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for label, fn in calls:
+            torch.cuda.synchronize()
+            with record_function(label):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+    labels = {label for label, _ in calls}
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ranges = {e.name: e.time_range for e in device if e.name in labels}
+    check(len(ranges) == len(labels), f'device ranges of {sorted(labels - set(ranges))} '
+          f'missing from the profile')
+    out = {}
+    for label in ranges:
+        r = ranges[label]
+        ran = [e for e in device if e.name not in labels
+               and r.start <= e.time_range.start < r.end]
+        check(bool(ran), f'no device kernels profiled for {label}')
+        out[label] = (sum(e.time_range.elapsed_us() for e in ran) / iters / 1e3,
+                      len(ran) / iters)
+    return out
+
+
+def bound(name, shape, hd=HD):
+    """(ms, 'bytes' or 'operations'): the least time of one launch on an
+    H100 SXM, each input read once and each output written once."""
+    B, H, Lq, Lk = shape
+    nbytes = 2 * B * H * (2 * Lq + 2 * Lk) * hd  # q, o, k, v in bf16
+    if name == 'cross_attention_acc':
+        nbytes += 2 * 4 * B * H * Lk * Lq  # the accumulator read and written
+    elif name == 'cross_attention_probs':
+        nbytes += 4 * B * H * Lq * Lk      # fp32 P, as the save run writes it
+    t_bytes = nbytes / (HBM_TB_S * 1e12) * 1e3
+    t_ops = 4 * B * H * Lq * Lk * hd / (BF16_PEAK_TFLOPS * 1e12) * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def kernel_times(kernels, A):
+    """Phase 6b: every bf16 kernel at every main-path shape against its
+    plain version, its bound and, for flash_attention, SDPA; returns the
+    totals per UNet evaluation by kernel."""
+    import torch
+    import torch.nn.functional as F
 
     gen = torch.Generator(device='cuda').manual_seed(1)
-    totals = {name: [0.0, 0.0] for name in
-              ('flash_attention', 'cross_attention_acc', 'cross_attention_probs')}
+    rows, calls = [], []
     for name, shapes in (('flash_attention', K2_SHAPES),
                          ('cross_attention_acc', K1_SHAPES),
                          ('cross_attention_probs', K5_SHAPES)):
         for shape, per_eval in shapes:
             q, k, v = qkv(*shape, 'packed', torch.bfloat16, gen)
+            lib = None
             if name == 'flash_attention':
-                kern = lambda: kernels.flash_attention(q, k, v)  # noqa: E731
-                plain = lambda: A.flash_attention_plain(q, k, v)  # noqa: E731
+                kern = lambda q=q, k=k, v=v: kernels.flash_attention(q, k, v)  # noqa: E731
+                plain = lambda q=q, k=k, v=v: A.flash_attention_plain(q, k, v)  # noqa: E731
+                lib = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(  # noqa: E731
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
             elif name == 'cross_attention_probs':  # the 'full' capture
-                kern = lambda: kernels.cross_attention_probs(q, k, v)  # noqa: E731
-                plain = lambda: A.cross_attention_probs_plain(q, k, v)  # noqa: E731
+                kern = lambda q=q, k=k, v=v: kernels.cross_attention_probs(q, k, v)  # noqa: E731
+                plain = lambda q=q, k=k, v=v: A.cross_attention_probs_plain(q, k, v)  # noqa: E731
             else:
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
-                kern = lambda: kernels.cross_attention_acc(q, k, v, acc)  # noqa: E731
-                plain = lambda: A.cross_attention_acc_plain(q, k, v, acc)  # noqa: E731
+                kern = lambda q=q, k=k, v=v, acc=acc: kernels.cross_attention_acc(  # noqa: E731
+                    q, k, v, acc)
+                plain = lambda q=q, k=k, v=v, acc=acc: A.cross_attention_acc_plain(  # noqa: E731
+                    q, k, v, acc)
             # plain, kernel, kernel, plain: the card's clocks drift in a run
             p1, k1, k2, p2 = (event_ms(f) for f in (plain, kern, kern, plain))
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            totals[name][0] += ms * per_eval
-            totals[name][1] += plain_ms * per_eval
-            rate = ''
-            if name == 'flash_attention':
-                B, H, Lq, Lk = shape
-                tflops = 4 * B * H * Lq * Lk * HD / ms / 1e9
-                rate = (f' ({tflops:.1f} TFLOP/s, {100 * tflops / BF16_PEAK_TFLOPS:.1f}% '
-                        f'of peak; plain {4 * B * H * Lq * Lk * HD / plain_ms / 1e9:.1f})')
-            print(f'time {name:20s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
-                  f'kernel={ms:.4f} ms plain={plain_ms:.4f} ms{rate}')
+            row = {'name': name, 'shape': shape, 'per_eval': per_eval,
+                   'ms': (k1 + k2) / 2, 'plain_ms': (p1 + p2) / 2,
+                   'bound': bound(name, shape), 'lib_ms': None}
+            calls.append((f'{name} {shape}', kern))
+            if lib is not None:
+                row['lib_ms'] = (event_ms(lib) + event_ms(lib)) / 2
+                calls.append((f'sdpa {shape}', lib))
+            rows.append(row)
+    dev = device_times(calls)
+    totals = {}
+    for row in rows:
+        name, shape, per_eval = row['name'], row['shape'], row['per_eval']
+        d_ms, n_kernels = dev[f'{name} {shape}']
+        check(n_kernels == 1, f'{name} {shape}: {n_kernels} device kernels a call')
+        (b_ms, by) = row['bound']
+        tot = totals.setdefault(name, {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
+                                       'bound_ms': 0.0, 'library_ms': None,
+                                       'library_device_ms': None,
+                                       'by': {'bytes': 0.0, 'operations': 0.0}})
+        for key, val in (('ms', row['ms']), ('device_ms', d_ms),
+                         ('plain_ms', row['plain_ms']), ('bound_ms', b_ms)):
+            tot[key] += val * per_eval
+        tot['by'][by] += b_ms * per_eval
+        extra = ''
+        if row['lib_ms'] is not None:
+            lib_dev = dev[f'sdpa {shape}'][0]
+            tot['library_ms'] = (tot['library_ms'] or 0.0) + row['lib_ms'] * per_eval
+            tot['library_device_ms'] = (tot['library_device_ms'] or 0.0) + lib_dev * per_eval
+            B, H, Lq, Lk = shape
+            tflops = 4 * B * H * Lq * Lk * HD / d_ms / 1e9
+            extra = (f' sdpa={row["lib_ms"]:.4f} ms (device {lib_dev:.4f}); '
+                     f'{tflops:.1f} TFLOP/s on the device, '
+                     f'{100 * tflops / BF16_PEAK_TFLOPS:.1f}% of peak')
+        print(f'time {name:21s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
+              f'event={row["ms"]:.4f} ms device={d_ms:.4f} ms '
+              f'plain={row["plain_ms"]:.4f} ms bound={b_ms:.5f} ms ({by}), '
+              f'{100 * b_ms / d_ms:.1f}% of the device time{extra}')
+    for name, tot in totals.items():
+        lib = (f' sdpa={tot["library_ms"]:.4f} ms (device '
+               f'{tot["library_device_ms"]:.4f})' if tot['library_ms'] else '')
+        print(f'time {name:21s} per UNet evaluation: event={tot["ms"]:.4f} ms '
+              f'device={tot["device_ms"]:.4f} ms plain={tot["plain_ms"]:.4f} ms '
+              f'bound={tot["bound_ms"]:.5f} ms{lib}')
     return totals
 
 
@@ -412,9 +545,10 @@ def transplant(pipe, trace, kernels):
     image_s, tc_s, save_launches = run(PROMPT, save_heads=True,
                                        persist_heads=False)
     check(save_launches == {'cross_attention_probs': K5_PER_EVAL * STEPS,
+                            'cross_attention_probs_mma': K5_PER_EVAL * STEPS,
                             'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
                             'flash_attention_wgmma': K2_PER_EVAL_REPLAY * STEPS,
-                            'cross_attention_acc': 0},
+                            'cross_attention_acc': 0, 'cross_attention_acc_mma': 0},
           f'save run launch counts {save_launches}')
     buf = tc_s.replay_buffer(STEPS)
     check(len(buf) == N_LAYERS, f'{len(buf)} layers in the replay buffer')
@@ -434,7 +568,8 @@ def transplant(pipe, trace, kernels):
           f'bf16 per step, rows sum to 1 within 1e-2')
 
     image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
-    check(load_launches == {'cross_attention_probs': 0, 'cross_attention_acc': 0,
+    check(load_launches == {'cross_attention_probs': 0, 'cross_attention_probs_mma': 0,
+                            'cross_attention_acc': 0, 'cross_attention_acc_mma': 0,
                             'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
                             'flash_attention_wgmma': K2_PER_EVAL_REPLAY * STEPS},
           f'load run launch counts {load_launches}')
@@ -469,16 +604,24 @@ def profile_step(pipe, trace):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     print(events.table(sort_by='self_cuda_time_total', row_limit=25))
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type != DeviceType.CPU) / 1e3
+    device = [e for e in events if e.device_type != DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     print(f'profiled traced call (2 steps, encode, decode): wall {wall_ms:.3f} ms, '
           f'device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
+    for e in device:  # the port's own kernels, wherever they rank
+        if '_attention' in e.key and e.key.startswith('void (anonymous'):
+            print(f'  {e.key.split("::", 1)[1].split("(")[0]}: {e.count} launches, '
+                  f'{e.self_device_time_total / 1e3:.3f} ms, '
+                  f'{100 * e.self_device_time_total / 1e3 / busy_ms:.1f}% of busy')
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
                         help='print a torch.profiler table of a traced run')
+    parser.add_argument('--kernel-times', action='store_true',
+                        help='build and time the kernels only (phase 6b); '
+                             'no checks beyond the build, no result line')
     args = parser.parse_args(argv)
 
     import torch
@@ -505,12 +648,20 @@ def main(argv=None):
     report = ptxas_report(kernels.build_log)
     for name, lines in report.items():
         print(f'  {name}: ' + '; '.join(lines))
-    tensor_core = [n for n in report if 'flash_attention_wgmma_kernel' in n]
-    check(len(tensor_core) == len(kernels.HEAD_DIMS),
-          f'ptxas reports {len(tensor_core)} tensor-core flash_attention kernels')
-    for name in tensor_core:
-        check(any(' 0 bytes spill stores, 0 bytes spill loads' in x for x in report[name]),
-              f'{name} spills registers')
+    if args.kernel_times:
+        kernel_times(kernels, A)
+        print(smi)
+        return
+    # flash_attention: one per head dim; cross_attention_mma_kernel: acc,
+    # and P in fp32 and bf16, per head dim
+    for family, count in (('flash_attention_wgmma_kernel', len(kernels.HEAD_DIMS)),
+                          ('cross_attention_mma_kernel', 3 * len(kernels.HEAD_DIMS))):
+        tensor_core = [n for n in report if family in n]
+        check(len(tensor_core) == count,
+              f'ptxas reports {len(tensor_core)} kernels {family}, not {count}')
+        for name in tensor_core:
+            check(any(' 0 bytes spill stores, 0 bytes spill loads' in x
+                      for x in report[name]), f'{name} spills registers')
 
     # 2-3. parity, with TF32 off for the fp32 checks
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -542,9 +693,10 @@ def main(argv=None):
           and bool((word >= 0).all()) and word.max().item() > word.min().item(),
           'word heat map')
     check(launches == {'cross_attention_acc': K1_PER_EVAL * STEPS,
+                       'cross_attention_acc_mma': K1_PER_EVAL * STEPS,
                        'flash_attention': K2_PER_EVAL * STEPS,
                        'flash_attention_wgmma': K2_PER_EVAL * STEPS,
-                       'cross_attention_probs': 0},
+                       'cross_attention_probs': 0, 'cross_attention_probs_mma': 0},
           f'launch counts {launches}')
 
     # 5. the transplant at full width
@@ -588,9 +740,11 @@ def main(argv=None):
         {'name': name, 'route': 'cuda',
          'source': 'daam_tpu_torch/csrc/attention.cu', 'replaces': route[name],
          'launches': launches[name], 'max_abs_err': worst[name],
-         'ms': totals[name][0], 'plain_ms': totals[name][1]}
-        for name in ('cross_attention_acc', 'flash_attention',
-                     'cross_attention_probs')]}))
+         'ms': t['ms'], 'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
+         'bound_ms': t['bound_ms'], 'bound_by': max(t['by'], key=t['by'].get),
+         'library_ms': t['library_ms']}
+        for name, t in ((n, totals[n]) for n in (
+            'cross_attention_acc', 'flash_attention', 'cross_attention_probs'))]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

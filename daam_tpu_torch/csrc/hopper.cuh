@@ -1,6 +1,8 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory barriers
 // (mbarrier), TMA tile loads, and warpgroup matrix multiplies (wgmma) with
-// their shared-memory matrix descriptors.  Only attention.cu includes it.
+// their shared-memory matrix descriptors; and the warp-level set (cp.async
+// 16-byte copies, ldmatrix, mma.sync m16n8k16).  Only attention.cu
+// includes it.
 
 #pragma once
 
@@ -252,6 +254,60 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&
     static_assert(N == 128, "wgmma_rs_tb: N must be 16, 32, 64 or 128");
     wgmma_m64n128k16_rs_tb(d, a, db);
   }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async, ldmatrix, mma.sync
+// ---------------------------------------------------------------------------
+
+// Copies 16 bytes from device memory to shared memory without passing
+// through registers; with src_bytes = 0 nothing is read and the 16 bytes
+// are zero-filled.  Both addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and each lane receives (row lane / 4, columns 2 (lane % 4) + {0, 1})
+// of every matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same, each matrix transposed: a lane receives (rows 2 (lane % 4) + {0, 1},
+// column lane / 4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// D (16 x 8, fp32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col), one
+// warp.  With g = lane / 4 and t = lane % 4: a = {(g, 2t..), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..)}, b = {(k 2t.., n g), (k 2t + 8.., n g)},
+// d = {(g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hopper

@@ -36,8 +36,10 @@ __all__ = ['init_random', 'from_jax_params', 'load_modules', 'build_modules',
 VAE_SKIPPED_PREFIXES = ('encoder.', 'quant_conv.')
 
 
-def build_modules(config: PipelineConfig, device='cpu') -> Dict[str, nn.Module]:
-    """Uninitialized modules of the pipeline (storage allocated, not filled)."""
+def build_modules(config: PipelineConfig, device='cuda') -> Dict[str, nn.Module]:
+    """Uninitialized modules of the pipeline (storage allocated, not filled)
+    on ``device``: the card unless the caller names another; without one
+    this raises."""
     if config.is_sdxl:
         raise NotImplementedError('SDXL is not ported yet')
     with torch.device('meta'):
@@ -49,7 +51,7 @@ def build_modules(config: PipelineConfig, device='cpu') -> Dict[str, nn.Module]:
 
 @torch.no_grad()
 def init_random(config: PipelineConfig, generator: torch.Generator,
-                device='cpu', dtype=torch.float32) -> Dict[str, nn.Module]:
+                device='cuda', dtype=torch.float32) -> Dict[str, nn.Module]:
     """Random full-width modules on ``device`` in ``dtype``.
 
     Normals are drawn on ``generator``'s device in fp32, scaled by
@@ -78,7 +80,7 @@ def init_random(config: PipelineConfig, generator: torch.Generator,
 
 
 def load_modules(config: PipelineConfig, state_dicts: Dict[str, Dict[str, Any]],
-                 device='cpu', dtype=torch.float32) -> Dict[str, nn.Module]:
+                 device='cuda', dtype=torch.float32) -> Dict[str, nn.Module]:
     """Modules holding the given diffusers-named state dicts (numpy arrays or
     tensors), loaded with ``strict=True``."""
     modules = build_modules(config, device)

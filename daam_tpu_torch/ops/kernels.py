@@ -28,7 +28,7 @@ import torch
 
 __all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
            'launches', 'reset_launches', 'load_library', 'tma_view_error',
-           'HEAD_DIMS']
+           'cross_route_error', 'HEAD_DIMS']
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'daam_tpu_torch'
@@ -39,11 +39,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 _SMEM_MAX = 227 * 1024
 
-#: Kernel launches since the last :func:`reset_launches`, by launcher name;
-#: ``flash_attention_wgmma`` counts the ``flash_attention`` launches that
-#: took the tensor-core kernel (bf16), which ``flash_attention`` counts too.
+#: Kernel launches since the last :func:`reset_launches`, by launcher name.
+#: ``flash_attention_wgmma``, ``cross_attention_acc_mma`` and
+#: ``cross_attention_probs_mma`` count the launches of the bf16 route
+#: (tensor cores), which the launcher's own total counts too.
 launches = {'flash_attention': 0, 'flash_attention_wgmma': 0,
-            'cross_attention_acc': 0, 'cross_attention_probs': 0}
+            'cross_attention_acc': 0, 'cross_attention_acc_mma': 0,
+            'cross_attention_probs': 0, 'cross_attention_probs_mma': 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.
@@ -100,15 +102,16 @@ def load_library() -> ctypes.CDLL:
         build_log = log.read_text() if log.exists() else ''
     lib = ctypes.CDLL(str(path))
     ptr, i = ctypes.c_void_p, ctypes.c_int
-    common = [i, i, i, ptr, ptr, ptr, ptr]
+    common = [i, i, ptr, ptr, ptr, ptr]  # device, hd, q, k, v, o
     dims = [i] * 4 + [i] * 9 + [ctypes.c_float, ptr]
-    for flash in (lib.daam_flash_attention, lib.daam_flash_attention_wgmma):
-        flash.argtypes = [i, i, ptr, ptr, ptr, ptr] + dims  # no dtype code
-        flash.restype = i
-    lib.daam_cross_attention_acc.argtypes = common + [ptr] + dims
-    lib.daam_cross_attention_acc.restype = i
-    lib.daam_cross_attention_probs.argtypes = common + [ptr, i, i] + dims
-    lib.daam_cross_attention_probs.restype = i
+    for fn, extra in ((lib.daam_flash_attention, []),
+                      (lib.daam_flash_attention_wgmma, []),
+                      (lib.daam_cross_attention_acc, [ptr]),
+                      (lib.daam_cross_attention_acc_mma, [ptr]),
+                      (lib.daam_cross_attention_probs, [ptr, i, i]),
+                      (lib.daam_cross_attention_probs_mma, [ptr, i, i])):
+        fn.argtypes = common + extra + dims
+        fn.restype = i
     lib.daam_error_string.argtypes = [i]
     lib.daam_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -161,6 +164,39 @@ def tma_view_error(shape, strides, data_ptr: int,
         return (f'strides {tuple(strides)} of shape {tuple(shape)}: b, l and '
                 f'h strides must be positive multiples of 16 bytes')
     return None
+
+
+def cross_route_error(views, Lq: int, acc_ptr=None) -> Optional[str]:
+    """Why the bf16 tensor-core ``cross_attention_acc`` (``acc_ptr`` given)
+    or ``cross_attention_probs`` kernel cannot take these operands, or None.
+
+    ``views``: ``{name: (shape, strides, data_ptr)}`` of the bf16 q, k and v
+    views, which the kernels copy in 16-byte pieces (the conditions of
+    :func:`tma_view_error`).  The accumulator tile moves in 16-byte pieces
+    too: acc's base must be 16-byte aligned and Lq a multiple of 4.  Pure:
+    shapes, strides and addresses as integers.  (An Lk whose block does not
+    fit in shared memory is refused by the kernel's entry point, and the
+    launch raises.)
+    """
+    for name, (shape, strides, ptr) in views.items():
+        why = tma_view_error(shape, strides, ptr, 2)
+        if why:
+            return f'{name}: {why}'
+    if acc_ptr is not None:
+        if acc_ptr % 16:
+            return f'acc base address {acc_ptr:#x} is not 16-byte aligned'
+        if Lq % 4:
+            return f'Lq={Lq}: the accumulator tile needs Lq % 4 == 0'
+    return None
+
+
+def _route_check(name, q, k, v, Lq, **kw):
+    why = cross_route_error({n: (t.shape, t.stride(), t.data_ptr())
+                             for n, t in (('q', q), ('k', k), ('v', v))},
+                            Lq, **kw)
+    if why:
+        raise ValueError(f'bf16 {name} runs on the tensor cores, which cannot '
+                         f'take this call: {why}')
 
 
 def _args(q, k, v):
@@ -220,6 +256,13 @@ def cross_attention_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q``: (B, Lq, H, hd), ``k``/``v``: (B, Lk, H, hd) views as for
     :func:`flash_attention`; ``acc``: contiguous fp32 (B, H, Lk, Lq).
     Returns the attention output (B, Lq, H·hd).
+
+    The kernel is chosen by dtype, as for :func:`flash_attention`: bf16 runs
+    on the tensor cores (``cross_attention_mma_kernel``: mma.sync for both
+    products, 16-byte copies of the operands and of the acc tile), and
+    raises on a call it cannot take (:func:`cross_route_error`; an Lk whose
+    block passes 227 KB of shared memory fails at launch); fp32 runs on the
+    CUDA cores (``cross_attention_acc_kernel``).
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
     if acc.dtype != torch.float32 or tuple(acc.shape) != (B, H, Lk, Lq) \
@@ -227,17 +270,23 @@ def cross_attention_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f'acc must be contiguous fp32 {(B, H, Lk, Lq)} on '
                          f'{q.device}, got {acc.dtype} {tuple(acc.shape)} '
                          f'on {acc.device}')
-    if 2 * Lk * hd * 4 > _SMEM_MAX:
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        _route_check('cross_attention_acc', q, k, v, Lq, acc_ptr=acc.data_ptr())
+    elif 2 * Lk * hd * 4 > _SMEM_MAX:
         raise ValueError(f'Lk={Lk} x hd={hd} does not fit in shared memory')
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    err = lib.daam_cross_attention_acc(
-        q.device.index, _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), acc.data_ptr(), B, H, Lq, Lk, *strides,
-        scale, stream)
+    launch = (lib.daam_cross_attention_acc_mma if tensor_cores
+              else lib.daam_cross_attention_acc)
+    err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), acc.data_ptr(), B, H, Lq, Lk, *strides, scale,
+                 stream)
     _raise_on(err, 'cross_attention_acc')
     launches['cross_attention_acc'] += 1
+    if tensor_cores:
+        launches['cross_attention_acc_mma'] += 1
     return o
 
 
@@ -251,20 +300,32 @@ def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and P (B, H, Lq, Lk) in ``probs_dtype`` (float32 or bfloat16).  With
     ``cond_only`` (CFG layout ``[uncond; cond]``) the rows of the first B/2
     samples of P are left unwritten.
+
+    Routed by the dtype of q, k and v as :func:`cross_attention_acc` is:
+    bf16 on the tensor cores (``cross_attention_mma_kernel``, raising on a
+    call :func:`cross_route_error` refuses), fp32 on the CUDA cores
+    (``cross_attention_probs_kernel``).
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
     if probs_dtype not in _DTYPE_CODES:
         raise ValueError(f'probs_dtype {probs_dtype} not supported')
-    if (2 * Lk * hd + 64 * Lk) * 4 > _SMEM_MAX:
+    tensor_cores = q.dtype == torch.bfloat16
+    if tensor_cores:
+        _route_check('cross_attention_probs', q, k, v, Lq)
+    elif (2 * Lk * hd + 64 * Lk) * 4 > _SMEM_MAX:
         raise ValueError(f'Lk={Lk} x hd={hd} does not fit in shared memory')
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     p = torch.empty(B, H, Lq, Lk, dtype=probs_dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    err = lib.daam_cross_attention_probs(
-        q.device.index, _DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), p.data_ptr(), _DTYPE_CODES[probs_dtype],
-        B // 2 if cond_only else 0, B, H, Lq, Lk, *strides, scale, stream)
+    launch = (lib.daam_cross_attention_probs_mma if tensor_cores
+              else lib.daam_cross_attention_probs)
+    err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), p.data_ptr(), _DTYPE_CODES[probs_dtype],
+                 B // 2 if cond_only else 0, B, H, Lq, Lk, *strides, scale,
+                 stream)
     _raise_on(err, 'cross_attention_probs')
     launches['cross_attention_probs'] += 1
+    if tensor_cores:
+        launches['cross_attention_probs_mma'] += 1
     return o, p

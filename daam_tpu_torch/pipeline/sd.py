@@ -73,11 +73,13 @@ class StableDiffusionPipeline:
         self._active_trace = None
 
     @classmethod
-    def from_pretrained(cls, model_name: str, device='cpu',
+    def from_pretrained(cls, model_name: str, device='cuda',
                         dtype=torch.float32, seed: int = 0,
                         scheduler: str = 'ddim') -> 'StableDiffusionPipeline':
         """A preset (``v2-1-base``, ``tiny``, …) with random weights drawn on
-        ``device`` from ``seed`` (no checkpoint is read or downloaded)."""
+        ``device`` from ``seed`` (no checkpoint is read or downloaded).  The
+        card by default: without one this raises, and only
+        ``device='cpu'`` runs on the CPU."""
         from ..models.weights import init_random
 
         config = get_pipeline_config(model_name)

@@ -22,9 +22,10 @@ import torch
 __all__ = ['set_seed', 'cache_dir', 'compute_token_merge_indices']
 
 
-def set_seed(seed: int, device='cpu') -> torch.Generator:
+def set_seed(seed: int, device='cuda') -> torch.Generator:
     """Seed Python/NumPy RNGs and return a ``torch.Generator`` on ``device``
-    seeded with ``seed`` (pass it to pipeline calls)."""
+    seeded with ``seed`` (pass it to pipeline calls).  The card by default,
+    as the reference's is; without one this raises."""
     random.seed(seed)
     np.random.seed(seed & 0xFFFFFFFF)
     gen = torch.Generator(device=device)

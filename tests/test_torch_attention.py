@@ -158,7 +158,7 @@ def test_finalize_acc_blocks_match_daam_tpu_layout():
     (pipeline/sd.py:212-228)."""
     from daam_tpu_torch.pipeline.sd import StableDiffusionPipeline
 
-    pipe = StableDiffusionPipeline.from_pretrained('tiny')
+    pipe = StableDiffusionPipeline.from_pretrained('tiny', device='cpu')
     config = get_pipeline_config('tiny')
     layout = {i.name: i for i in cross_attention_layout(config.unet)}
     spec = ((12, ('up_0_0', 'up_0_1', 'down_0_0'), (0, 1, 2)),)
@@ -262,13 +262,81 @@ def test_library_path_tracks_headers(tmp_path, monkeypatch):
 
 
 def test_launch_counters_include_the_tensor_core_route():
-    """reset_launches zeroes every counter, the tensor-core one included."""
-    kernels.launches['flash_attention_wgmma'] += 3
+    """reset_launches zeroes every counter, the tensor-core ones included."""
+    for name in ('flash_attention_wgmma', 'cross_attention_acc_mma',
+                 'cross_attention_probs_mma'):
+        kernels.launches[name] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
                                      'cross_attention_acc',
-                                     'cross_attention_probs'}
+                                     'cross_attention_acc_mma',
+                                     'cross_attention_probs',
+                                     'cross_attention_probs_mma'}
     assert not any(kernels.launches.values())
+
+
+@pytest.mark.parametrize('Lq', [64, 100])
+@pytest.mark.parametrize('layout', ['head_major', 'packed'])
+def test_cross_attention_acc_plain_matches_daam_tpu_bf16(layout, Lq):
+    """K1/K4 in bf16: the plain version against daam_tpu's Pallas kernels
+    (interpret mode) on the same inputs cast to bf16, two calls into one
+    accumulator; Lq = 100 is not a multiple of the tensor-core kernel's
+    64-query block.  Both round normalized P to bf16 before PV, in other
+    summation orders: O within the bf16 gate 2e-2.  Both form P in fp32
+    from the same bf16 products, so the fp32 accumulator meets the fp32
+    gate 1e-5."""
+    B, H, Lk, hd = 1, 2, 77, 64
+    view = _head_major_view if layout == 'head_major' else _packed_view
+    bf16 = lambda t: jnp.asarray(t, jnp.bfloat16)  # noqa: E731
+    acc = torch.zeros(B, H, Lk, Lq)
+    acc_jax = jnp.zeros(P.cross_acc_shape(B, H, Lq, Lk), jnp.float32)
+    for seed in (10, 11):
+        q, k, v = _qkv(B, H, Lq, Lk, hd, seed=seed)
+        ours = A.cross_attention_acc(*(view(t).to(torch.bfloat16) for t in (q, k, v)),
+                                     acc)
+        assert ours.dtype == torch.bfloat16 and ours.shape == (B, Lq, H * hd)
+        if layout == 'head_major':
+            out, acc_jax = P.cross_attention_acc(*map(bf16, (q, k, v)), acc_jax)
+            out = _merged(out.astype(jnp.float32))
+        else:
+            out, acc_jax = P.cross_attention_acc_packed(
+                *(bf16(_packed(t)) for t in (q, k, v)), acc_jax, heads=H)
+            out = np.asarray(out.astype(jnp.float32))
+        np.testing.assert_allclose(ours.float().numpy(), out, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(acc_jax)[:, :, :Lk, :Lq],
+                               rtol=0, atol=ATOL)
+
+
+def _views(q, k, v):
+    return {n: (t.shape, t.stride(), t.data_ptr())
+            for n, t in (('q', q), ('k', k), ('v', v))}
+
+
+@pytest.mark.parametrize('layout, offset, ok', [
+    ('head_major', 0, True), ('packed', 0, True), ('packed', 8, True),
+    ('packed', 3, False), ('padded_rows', 0, False)])
+def test_cross_route_error_views(layout, offset, ok):
+    """The bf16 K1/K5 route copies q, k and v in 16-byte pieces: the views of
+    the paths pass, a misaligned base or row stride is named."""
+    q = _view_of((1, 64, 5, 64), layout, offset=offset)
+    k = v = _view_of((1, 77, 5, 64), 'packed')
+    for kw in ({'acc_ptr': 0}, {}):
+        why = kernels.cross_route_error(_views(q, k, v), 64, **kw)
+        assert (why is None) == ok, why
+        if not ok:
+            assert why.startswith('q: ')
+
+
+def test_cross_route_error_accumulator():
+    """acc moves in 16-byte pieces: an aligned base and Lq % 4 == 0; P has
+    no such rule."""
+    q = _view_of((1, 64, 5, 64), 'packed')
+    k = _view_of((1, 77, 5, 64), 'packed')
+    views = _views(q, k, k)
+    assert kernels.cross_route_error(views, 64, acc_ptr=4096) is None
+    assert 'aligned' in kernels.cross_route_error(views, 64, acc_ptr=4100)
+    assert 'Lq % 4' in kernels.cross_route_error(views, 62, acc_ptr=4096)
+    assert kernels.cross_route_error(views, 62) is None
 
 
 # ---------------------------------------------------------------------------
@@ -295,15 +363,20 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
     torch.testing.assert_close(kernels.flash_attention(q, k, v),
                                A.flash_attention_plain(q, k, v),
                                rtol=0, atol=1e-4)
-    acc = torch.rand(B, H, Lk, Lq, device=cuda_device)
+    # fp32 K1 stages k and v as fp32: 2·Lk·hd floats must fit in 227 KB
+    lk_acc = min(Lk, 227 * 1024 // (8 * hd))
+    q1, k1, v1 = (_packed_view(t).to(cuda_device)
+                  for t in _qkv(B, H, Lq, lk_acc, hd, seed=hd + 2))
+    acc = torch.rand(B, H, lk_acc, Lq, device=cuda_device)
     acc_plain = acc.clone()
-    out = kernels.cross_attention_acc(q, k, v, acc)
+    out = kernels.cross_attention_acc(q1, k1, v1, acc)
     torch.testing.assert_close(
-        out, A.cross_attention_acc_plain(q, k, v, acc_plain), rtol=0, atol=1e-4)
+        out, A.cross_attention_acc_plain(q1, k1, v1, acc_plain), rtol=0, atol=1e-4)
     torch.testing.assert_close(acc, acc_plain, rtol=0, atol=1e-5)
     assert kernels.launches['flash_attention'] == n['flash_attention'] + 1
     assert kernels.launches['cross_attention_acc'] == n['cross_attention_acc'] + 1
     assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma']
+    assert kernels.launches['cross_attention_acc_mma'] == n['cross_attention_acc_mma']
 
     # bf16: K2 on the tensor cores, at this head dim, both layouts; the
     # bf16 gate is 2e-2.
@@ -320,3 +393,37 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
         padded = torch.zeros(B, Lq, H * hd + 8, device=cuda_device,
                              dtype=torch.bfloat16)[..., 1:H * hd + 1]
         kernels.flash_attention(padded.unflatten(-1, (H, hd)), kb, vb)
+
+    # bf16 K1 and K5 on the tensor cores, at this head dim, both layouts,
+    # two calls into one accumulator, P in both types with cond_only; a block
+    # holds q, k, v and its fp32 P span in 227 KB, which 256 keys fit at
+    # every head dim
+    lk_mma = min(Lk, 256)
+    n = dict(kernels.launches)
+    acc = torch.rand(B, H, lk_mma, Lq, device=cuda_device)
+    acc_plain = acc.clone()
+    for view in (_packed_view, _head_major_view):
+        qb, kb, vb = (view(t).to(cuda_device, torch.bfloat16)
+                      for t in _qkv(B, H, Lq, lk_mma, hd, seed=hd + 3))
+        torch.testing.assert_close(
+            kernels.cross_attention_acc(qb, kb, vb, acc).float(),
+            A.cross_attention_acc_plain(qb, kb, vb, acc_plain).float(),
+            rtol=0, atol=2e-2)
+        for pdt, cond_only in ((torch.float32, False), (torch.bfloat16, True)):
+            o, p = kernels.cross_attention_probs(qb, kb, vb, cond_only, pdt)
+            ro, rp = A.cross_attention_probs_plain(qb, kb, vb, cond_only, pdt)
+            rows = slice(B // 2, None) if cond_only else slice(None)
+            torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=2e-2)
+            torch.testing.assert_close(p[rows].float(), rp[rows].float(), rtol=0,
+                                       atol=1e-5 if pdt == torch.float32 else 1 / 128)
+    torch.testing.assert_close(acc, acc_plain, rtol=0, atol=1e-5)
+    for name, count in (('cross_attention_acc', 2), ('cross_attention_probs', 4)):
+        assert kernels.launches[name] == n[name] + count
+        assert kernels.launches[name + '_mma'] == n[name + '_mma'] + count
+    with pytest.raises(ValueError, match='tensor cores'):  # Lq % 4 != 0
+        kernels.cross_attention_acc(qb[:, :Lq - 2], kb, vb, torch.zeros(
+            B, H, lk_mma, Lq - 2, device=cuda_device))
+    # the entry point refuses a block past 227 KB of shared memory
+    kl = torch.zeros(B, 4096, H, hd, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        kernels.cross_attention_probs(qb, kl, kl)

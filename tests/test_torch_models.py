@@ -46,7 +46,7 @@ def jax_params(config, seed: int = 0):
 def tiny():
     config = get_pipeline_config('tiny')
     params = jax_params(config)
-    modules = W.load_modules(config, W.from_jax_params(params))
+    modules = W.load_modules(config, W.from_jax_params(params), device='cpu')
     return config, params, modules
 
 

@@ -45,7 +45,7 @@ def runs():
     latents = np.asarray(jax.random.normal(key, (1, s, s, 4))) * \
         jpipe.scheduler.init_noise_sigma
     pipe = StableDiffusionPipeline(config, **W.load_modules(
-        config, W.from_jax_params(params)))
+        config, W.from_jax_params(params), device='cpu'))
     with trace(pipe) as tc:
         out = pipe(PROMPT, num_inference_steps=STEPS,
                    latents=latents.transpose(0, 3, 1, 2), output_type='np')

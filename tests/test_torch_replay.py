@@ -214,7 +214,7 @@ def _runs(mp, tmp_path_factory):
         jtc.dump_heads(npz / 'jax.npz')
 
     pipe = StableDiffusionPipeline(config, **W.load_modules(
-        config, W.from_jax_params(params)))
+        config, W.from_jax_params(params), device='cpu'))
     pipe.heads_dtype = torch.float32
     with trace(pipe, save_heads=True, persist_heads=False,
                data_dir='port-save') as tc:
@@ -324,12 +324,12 @@ def test_low_memory_snapshot_time_maps_match_daam_tpu(runs):
 
 @pytest.fixture(scope='module')
 def pipe():
-    return StableDiffusionPipeline.from_pretrained('tiny')
+    return StableDiffusionPipeline.from_pretrained('tiny', device='cpu')
 
 
 def _image(pipe, prompt, data_dir=None, seed=0, steps=2, **trace_kwargs):
     """One generation (traced when ``trace_kwargs`` are given) as uint8."""
-    gen = set_seed(seed)
+    gen = set_seed(seed, device='cpu')
     if not trace_kwargs:
         return np.asarray(pipe(prompt, num_inference_steps=steps,
                                generator=gen).images[0])
@@ -368,7 +368,7 @@ def test_persist_and_restart_round_trip(pipe, registries):
     load_heads reads the file back."""
     with trace(pipe, save_heads=True, data_dir='restart') as tc:
         saved = np.asarray(pipe('a dog runs', num_inference_steps=2,
-                                generator=set_seed(0)).images[0])
+                                generator=set_seed(0, device='cpu')).images[0])
     path = tc.heads_path()
     assert path == registries / 'daam_tpu' / 'heads' / 'restart.npz'
     assert path.stat().st_size > 0
@@ -392,7 +392,7 @@ def test_heads_path_matches_daam_tpu(pipe, registries):
 def test_persist_heads_opt_out(pipe, registries):
     with trace(pipe, save_heads=True, data_dir='no-persist',
                persist_heads=False) as tc:
-        pipe('a dog runs', num_inference_steps=2, generator=set_seed(0))
+        pipe('a dog runs', num_inference_steps=2, generator=set_seed(0, device='cpu'))
     assert not tc.heads_path().exists()
     assert 'no-persist' in trace_mod._HEAD_CACHE
 
@@ -449,7 +449,7 @@ def test_save_heads_chunked_matches_single_chunk(pipe, registries):
             with trace(pipe, save_heads=True, data_dir=f'chunk{chunk}',
                        persist_heads=False) as tc:
                 pipe('a cat on a mat', num_inference_steps=5,
-                     generator=set_seed(3))
+                     generator=set_seed(3, device='cpu'))
                 bufs.append(tc.replay_buffer(5))
         finally:
             pipe.heads_chunk_steps = 8

@@ -44,7 +44,7 @@ def test_unet_round_trip(preset):
 
 
 def test_clip_round_trip():
-    modules = W.build_modules(get_pipeline_config('tiny'))
+    modules = W.build_modules(get_pipeline_config('tiny'), device='cpu')
     sd = _random_state_dict(modules['text_encoder'], seed=1)
     back = W.from_jax_params({'text_encoder': _convert_clip(dict(sd))})
     _assert_same(back['text_encoder'], sd)
@@ -55,7 +55,7 @@ def test_vae_round_trip_and_encoder_skip_list():
     VAE are exactly the skip list, and daam_tpu's encoder subtree is
     skipped."""
     config = get_pipeline_config('tiny')
-    modules = W.build_modules(config)
+    modules = W.build_modules(config, device='cpu')
     sd = _random_state_dict(modules['vae'], seed=2)
     back = W.from_jax_params({'vae': _convert_vae(dict(sd), config.vae)})['vae']
     _assert_same(back, sd)
@@ -80,9 +80,9 @@ def test_init_random_shapes_and_scale_rule():
 
     config = get_pipeline_config('tiny')
     gen = torch.Generator().manual_seed(0)
-    modules = W.init_random(config, gen)
+    modules = W.init_random(config, gen, device='cpu')
     jax_sd = W.from_jax_params(_init_random_params_host(config, 0, jnp.float32))
-    fresh = W.build_modules(config)
+    fresh = W.build_modules(config, device='cpu')
     for name, module in modules.items():
         sd = module.state_dict()
         assert {k: tuple(v.shape) for k, v in sd.items()} == \
@@ -102,8 +102,39 @@ def test_init_random_shapes_and_scale_rule():
 
 def test_init_random_dtype_and_seed():
     config = get_pipeline_config('tiny')
-    a = W.init_random(config, torch.Generator().manual_seed(5), dtype=torch.bfloat16)
-    b = W.init_random(config, torch.Generator().manual_seed(5), dtype=torch.bfloat16)
+    a = W.init_random(config, torch.Generator().manual_seed(5), device='cpu',
+                      dtype=torch.bfloat16)
+    b = W.init_random(config, torch.Generator().manual_seed(5), device='cpu',
+                      dtype=torch.bfloat16)
     wa, wb = a['unet'].conv_in.weight, b['unet'].conv_in.weight
     assert wa.dtype == torch.bfloat16
     assert torch.equal(wa, wb)
+
+
+def _entry_points():
+    from daam_tpu_torch import StableDiffusionPipeline
+    from daam_tpu_torch.utils import set_seed
+    return {'from_pretrained': StableDiffusionPipeline.from_pretrained,
+            'build_modules': W.build_modules, 'init_random': W.init_random,
+            'load_modules': W.load_modules, 'set_seed': set_seed}
+
+
+@pytest.mark.parametrize('name', ['from_pretrained', 'build_modules',
+                                  'init_random', 'load_modules', 'set_seed'])
+def test_entry_points_default_to_the_card(name):
+    """The port runs on the card unless the caller asks for the CPU."""
+    import inspect
+    fn = _entry_points()[name]
+    assert inspect.signature(fn).parameters['device'].default == 'cuda'
+
+
+def test_default_device_raises_without_a_card():
+    """Without a card a default call raises; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default call succeeds')
+    from daam_tpu_torch.utils import set_seed
+    with pytest.raises((RuntimeError, AssertionError)):
+        set_seed(0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        W.build_modules(get_pipeline_config('tiny'))
+    assert set_seed(0, device='cpu').device.type == 'cpu'
