@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of daam_tpu_torch on one NVIDIA GPU: build, kernel parity, the
-traced SD 2.1-base slice, the head-replay transplant, timings.
+traced SD 2.1-base slice, the head-replay transplant, the traced SDXL slice,
+timings.
 
     python3 chip_smoke.py                 # from the repository root
-    python3 chip_smoke.py --profile       # also a torch.profiler table of one step
-    python3 chip_smoke.py --kernel-times  # the build and phase 6's kernel times only
+    python3 chip_smoke.py --profile       # also a torch.profiler table of a
+                                          # traced call of each full-width model
+    python3 chip_smoke.py --kernel-times  # the build and phase 6b's kernel times only
 
 ``--kernel-times`` checks nothing beyond the build and prints no result
 line; a copy of this script placed in another checkout times that
@@ -27,18 +29,21 @@ Phases, each of which raises (exit code != 0) when a check fails:
    Lq = 100 and at Lk = 200 (three 80-key chunks), called twice into the
    same accumulator; ``cross_attention_probs`` at every shape of
    ``K5_SHAPES``, at the ragged Lq = 37 and at Lk = 200, with and without
-   ``cond_only``, P in fp32 and bf16 (P compared on the rows it writes).  Every bf16 case must have run on the
-   tensor cores (the ``*_wgmma`` and ``*_mma`` counters).  TF32 is off for
+   ``cond_only``, P in fp32 and bf16 (P compared on the rows it writes);
+   and in bf16 at hd 64, every shape of SDXL's path (``SDXL_K2_SHAPES``,
+   ``SDXL_K1_SHAPES``, ``SDXL_K5_SHAPES``: 4096 queries × 10 heads and 1024
+   × 20).  Every bf16 case must have run on the tensor cores (the ``*_wgmma`` and ``*_mma`` counters).  TF32 is off for
    the fp32 checks.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5 (fp32 P
    and the fp32 accumulator, whatever the inputs' type: both are built from
    fp32 P), ≤ 1/128 (bf16 P), ≤ 2e-2 (bf16 outputs); Spearman ≥ 0.999.
    Each bf16 output of the three kernels must lie closer (mean abs
    difference) to a reference that rounds P to bf16 before PV where the
    Pallas body does than to the same reference with fp32 P.
-3. A small reference: the ``tiny`` preset in fp32, kernels against the plain
-   path, same weights and latents: images within 1e-3, heat maps with
-   per-token Spearman ≥ 0.999; then an fp32 save_heads → load_heads pair
-   under each, whose buffers agree within 1e-5 and images within 1e-3.
+3. A small reference: the ``tiny`` and ``tiny-xl`` presets in fp32, kernels
+   against the plain path, same weights and latents: images within 1e-3,
+   heat maps with per-token Spearman ≥ 0.999; then an fp32 save_heads →
+   load_heads pair under each, whose buffers agree within 1e-5 and images
+   within 1e-3.
 4. The main path at full width: ``v2-1-base`` (random weights from seed 0),
    bf16, 512², 10 traced DDIM steps through ``trace(pipe)``; the image must
    be (512, 512, 3) and finite, the word map for "dog" (64, 64), finite,
@@ -54,9 +59,11 @@ Phases, each of which raises (exit code != 0) when a check fails:
    heat maps must match the save run's at Spearman ≥ 0.999; and a
    ``load_heads`` run of a second prompt, whose image must differ from a
    fresh run of that prompt.
-6. Seconds per step traced and untraced (host clock, synchronized per step,
-   warm runs in turns) and of the save and load runs; then each bf16 kernel
-   at every shape of its path (hd 64): its time by CUDA events (back-to-back
+6. (a) Seconds per step of v2-1-base traced and untraced (host clock,
+   synchronized per step, warm runs in turns) and of the save and load
+   runs.  (b) Run first, right after phase 3, before any pipeline is
+   profiled: each bf16 kernel at every shape of each path (hd 64;
+   v2-1-base, then xl-base-1.0): its time by CUDA events (back-to-back
    launches after a warm-up), its device time per launch (torch.profiler's
    self device time over 20 launches, so the wrappers' host cost does not
    stand in for kernel time), its plain version's time, its bound, and the
@@ -69,7 +76,26 @@ Phases, each of which raises (exit code != 0) when a check fails:
    ``flash_attention`` is also timed against
    ``torch.nn.functional.scaled_dot_product_attention`` on the same q, k
    and v, a yardstick the port never calls.
+7. SDXL at full width: ``xl-base-1.0`` (random weights from seed 0; UNet
+   320/640/1280, CLIP-L and OpenCLIP-bigG), bf16, 1024², 10 traced DDIM
+   steps through ``trace(pipe)``: the image must be (1024, 1024, 3) and
+   finite, the "dog" map (64, 64), finite, ≥ 0 and not constant, the VAE
+   decoder called once on the 3 × 3 batch of 64² tiles, and the counters,
+   zeroed just before the run, 60 × 10 cross_attention_acc and 140 × 10
+   flash_attention, every one on the tensor cores, and no
+   cross_attention_probs.  Then one traced step through the kernels and one
+   with ``set_kernel_mode('torch')``, from the same latents, whose global
+   heat maps must agree at per-token Spearman ≥ 0.99; then its seconds per
+   step traced and untraced.  The SDXL save run (~0.5 GB of bf16 P a step)
+   is not driven here; phase 5 holds the replay path.
 
+With phase 7 the whole run takes ~60–80 s of command time on one H100;
+the earlier phases keep their repeats.
+
+Before the card's name and power limit, ``{"sdxl_kernels": [...]}`` gives
+the same keys as the next line for SDXL's path: launches from phase 7
+(cross_attention_probs: 0) and times per SDXL evaluation
+(cross_attention_probs: per evaluation of an SDXL save run).
 The line before the last is ``{"kernels": [...]}``: per kernel, its launches
 in its path's run (phase 4, or the phase-5 save run for
 cross_attention_probs), the largest bf16 max-abs error of phase 2, and,
@@ -83,6 +109,7 @@ daam_tpu_torch package beside it; it never imports JAX or PIL.
 """
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -97,6 +124,18 @@ K1_PER_EVAL, K2_PER_EVAL = 15, 32
 # through cross_attention_probs, every attn1 through flash_attention.
 K5_PER_EVAL, K2_PER_EVAL_REPLAY = 16, 16
 N_LAYERS = 16
+# xl-base-1.0 at 1024² (128² latent), hd 64: 10 transformer blocks at 4096
+# queries × 10 heads (level 1) and 60 at 1024 × 20 (level 2, the mid
+# block's 10 included); the trace captures the 60 outside the mid block.
+SDXL_K1_PER_EVAL, SDXL_K2_PER_EVAL = 60, 140
+SDXL_K2_SHAPES = [((2, 10, 4096, 4096), 10), ((2, 20, 1024, 1024), 60),
+                  ((1, 10, 4096, 77), 10), ((1, 20, 1024, 77), 50),
+                  ((2, 20, 1024, 77), 10)]
+SDXL_K1_SHAPES = [((1, 10, 4096, 77), 10), ((1, 20, 1024, 77), 50)]
+# per evaluation of an SDXL save run (not driven here: ~0.5 GB of bf16 P a
+# step), every attn2 through cross_attention_probs
+SDXL_K5_SHAPES = [((2, 10, 4096, 77), 10), ((2, 20, 1024, 77), 60)]
+SDXL_TILES = (9, 4, 64, 64)  # one decoder call: 3 × 3 tiles of 64² latents
 # (B, H, Lq, Lk) of every launch of one UNet evaluation at 512², hd 64,
 # with its count per evaluation.
 K2_SHAPES = [((2, 5, 4096, 4096), 5), ((2, 10, 1024, 1024), 5),
@@ -214,6 +253,10 @@ def parity(kernels, A):
 
     k1_shapes = [sh for sh, _ in K1_SHAPES] + EXTRA_SHAPES['cross_attention_acc']
     k5_shapes = [sh for sh, _ in K5_SHAPES] + EXTRA_SHAPES['cross_attention_probs']
+    # SDXL's shapes at its one head dim, 64, in bf16 (the path's type)
+    sdxl = {name: [(HD, sh) for sh, _ in shapes] for name, shapes in (
+        ('flash_attention', SDXL_K2_SHAPES), ('cross_attention_acc', SDXL_K1_SHAPES),
+        ('cross_attention_probs', SDXL_K5_SHAPES))}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         for layout in ('head_major', 'packed'):
@@ -221,6 +264,7 @@ def parity(kernels, A):
             flash_cases = cases(dtype, [sh for sh, _ in K2_SHAPES] if bf16 else
                                 [(2, 5, 4096, 4096), (2, 10, 1024, 1024),
                                  (1, 5, 4096, 77)])
+            flash_cases += sdxl['flash_attention'] if bf16 else []
             for hd, shape in flash_cases:
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
                 o = kernels.flash_attention(q, k, v)
@@ -236,7 +280,8 @@ def parity(kernels, A):
                     worst['flash_attention'] = max(worst['flash_attention'], err)
                     check_rounding('flash_attention', o, flash_reference(q, k, v, True),
                                    flash_reference(q, k, v, False))
-            acc_cases = cases(dtype, k1_shapes)
+            acc_cases = cases(dtype, k1_shapes) + (sdxl['cross_attention_acc']
+                                                   if bf16 else [])
             for hd, shape in acc_cases:
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
@@ -262,7 +307,8 @@ def parity(kernels, A):
                     # the plain version rounds normalized P before PV
                     check_rounding('cross_attention_acc', o, r,
                                    cross_reference(q, k, v, False))
-            probs_cases = cases(dtype, k5_shapes)
+            probs_cases = cases(dtype, k5_shapes) + (sdxl['cross_attention_probs']
+                                                     if bf16 else [])
             for hd, shape in probs_cases:
                 B = shape[0]
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
@@ -315,11 +361,11 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
-def tiny_reference(A, StableDiffusionPipeline, trace):
-    """Phase 3: kernels against the plain path on the tiny preset."""
+def tiny_reference(A, StableDiffusionPipeline, trace, preset):
+    """Phase 3: kernels against the plain path on a tiny preset."""
     import torch
 
-    pipe = StableDiffusionPipeline.from_pretrained('tiny', device='cuda')
+    pipe = StableDiffusionPipeline.from_pretrained(preset, device='cuda')
     results = {}
     for mode in ('torch', 'auto'):
         A.set_kernel_mode(mode)
@@ -336,9 +382,9 @@ def tiny_reference(A, StableDiffusionPipeline, trace):
     im_err = float(abs(im_k - im_p).max())
     rho = min(spearman(map_k[t], map_p[t]) for t in range(map_k.shape[0]))
     map_err = (map_k - map_p).abs().max().item() / map_p.abs().max().item()
-    print(f'tiny reference (fp32, kernels vs plain): image max_abs_err={im_err:.3e} '
+    print(f'{preset} reference (fp32, kernels vs plain): image max_abs_err={im_err:.3e} '
           f'heat-map min spearman={rho:.6f} max rel err={map_err:.3e}')
-    check(im_err <= 1e-3 and rho >= 0.999, 'tiny kernel path vs plain path')
+    check(im_err <= 1e-3 and rho >= 0.999, f'{preset} kernel path vs plain path')
 
     # fp32 save -> load of the same prompt, kernels against the plain path
     pipe.heads_dtype = torch.float32
@@ -347,20 +393,20 @@ def tiny_reference(A, StableDiffusionPipeline, trace):
         A.set_kernel_mode(mode)
         try:
             out_s, _, tc = timed_call(pipe, True, trace, steps=3, save_heads=True,
-                                      persist_heads=False, data_dir=f'tiny-{mode}')
+                                      persist_heads=False, data_dir=f'{preset}-{mode}')
             out_l, _, _ = timed_call(pipe, True, trace, steps=3, load_heads=True,
-                                     data_dir=f'tiny-{mode}')
+                                     data_dir=f'{preset}-{mode}')
             replay[mode] = (tc.replay_buffer(3), out_s.images[0], out_l.images[0])
         finally:
             A.set_kernel_mode('auto')
     (buf_p, save_p, load_p), (buf_k, save_k, load_k) = replay['torch'], replay['auto']
     buf_err = max((buf_k[n] - buf_p[n]).abs().max().item() for n in buf_p)
     im_err = max(float(abs(save_k - save_p).max()), float(abs(load_k - load_p).max()))
-    print(f'tiny save/load (fp32 heads, kernels vs plain): {len(buf_k)} layers, '
+    print(f'{preset} save/load (fp32 heads, kernels vs plain): {len(buf_k)} layers, '
           f'buffer max_abs_err={buf_err:.3e}, image max_abs_err={im_err:.3e}, '
           f'replayed vs saved image max_abs_err={float(abs(load_k - save_k).max()):.3e}')
     check(sorted(buf_k) == sorted(buf_p) and buf_err <= 1e-5 and im_err <= 1e-3,
-          'tiny save/load kernel path vs plain path')
+          f'{preset} save/load kernel path vs plain path')
 
 
 def timed_call(pipe, traced: bool, trace, steps: int = STEPS,
@@ -449,18 +495,26 @@ def bound(name, shape, hd=HD):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def kernel_times(kernels, A):
-    """Phase 6b: every bf16 kernel at every main-path shape against its
-    plain version, its bound and, for flash_attention, SDPA; returns the
-    totals per UNet evaluation by kernel."""
+#: (B, H, Lq, Lk) and launches per UNet evaluation, by kernel, of each
+#: path phase 6b times
+PATH_SHAPES = {
+    'v2-1-base': (('flash_attention', K2_SHAPES), ('cross_attention_acc', K1_SHAPES),
+                  ('cross_attention_probs', K5_SHAPES)),
+    'xl-base-1.0': (('flash_attention', SDXL_K2_SHAPES),
+                    ('cross_attention_acc', SDXL_K1_SHAPES),
+                    ('cross_attention_probs', SDXL_K5_SHAPES))}
+
+
+def kernel_times(kernels, A, model):
+    """Phase 6b: every bf16 kernel at every shape of ``model``'s path
+    against its plain version, its bound and, for flash_attention, SDPA;
+    returns the totals per UNet evaluation by kernel."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device='cuda').manual_seed(1)
     rows, calls = [], []
-    for name, shapes in (('flash_attention', K2_SHAPES),
-                         ('cross_attention_acc', K1_SHAPES),
-                         ('cross_attention_probs', K5_SHAPES)):
+    for name, shapes in PATH_SHAPES[model]:
         for shape, per_eval in shapes:
             q, k, v = qkv(*shape, 'packed', torch.bfloat16, gen)
             lib = None
@@ -514,14 +568,14 @@ def kernel_times(kernels, A):
             extra = (f' sdpa={row["lib_ms"]:.4f} ms (device {lib_dev:.4f}); '
                      f'{tflops:.1f} TFLOP/s on the device, '
                      f'{100 * tflops / BF16_PEAK_TFLOPS:.1f}% of peak')
-        print(f'time {name:21s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
+        print(f'time {model} {name:21s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
               f'event={row["ms"]:.4f} ms device={d_ms:.4f} ms '
               f'plain={row["plain_ms"]:.4f} ms bound={b_ms:.5f} ms ({by}), '
               f'{100 * b_ms / d_ms:.1f}% of the device time{extra}')
     for name, tot in totals.items():
         lib = (f' sdpa={tot["library_ms"]:.4f} ms (device '
                f'{tot["library_device_ms"]:.4f})' if tot['library_ms'] else '')
-        print(f'time {name:21s} per UNet evaluation: event={tot["ms"]:.4f} ms '
+        print(f'time {model} {name:21s} per UNet evaluation: event={tot["ms"]:.4f} ms '
               f'device={tot["device_ms"]:.4f} ms plain={tot["plain_ms"]:.4f} ms '
               f'bound={tot["bound_ms"]:.5f} ms{lib}')
     return totals
@@ -591,10 +645,131 @@ def transplant(pipe, trace, kernels):
     return save_launches
 
 
+def step_times(pipe, trace, label):
+    """Seconds per step traced and untraced: warm runs in turns, each
+    without its first step (which includes the text encode)."""
+    per_step = {True: [], False: []}
+    for traced in (False, True, False, True):
+        _, steps, _ = timed_call(pipe, traced, trace)
+        per_step[traced] += steps[1:]
+    traced_s = sum(per_step[True]) / len(per_step[True])
+    untraced_s = sum(per_step[False]) / len(per_step[False])
+    print(f's/step {label}: traced={traced_s:.5f} untraced={untraced_s:.5f} '
+          f'traced/untraced={traced_s / untraced_s:.4f}')
+
+
+def v2_step_times(pipe, trace, A):
+    """Phase 6a: v2-1-base's seconds per step traced and untraced, traced
+    through the plain versions, and of the save and load runs."""
+    step_times(pipe, trace, 'v2-1-base 512^2 bf16')
+    A.set_kernel_mode('torch')
+    try:
+        _, steps, _ = timed_call(pipe, True, trace)
+    finally:
+        A.set_kernel_mode('auto')
+    print(f's/step traced, plain attention instead of the kernels: '
+          f'{sum(steps[1:]) / len(steps[1:]):.5f}')
+    replay_steps = {'save_heads': [], 'load_heads': []}
+    for _ in range(2):
+        for flag in replay_steps:
+            _, steps, _ = timed_call(pipe, True, trace, data_dir='smoke',
+                                     persist_heads=False, **{flag: True})
+            replay_steps[flag] += steps[1:]
+    print('s/step v2-1-base 512^2 bf16, head replay: ' + ' '.join(
+        f'{flag}={sum(v) / len(v):.5f} (slowest step {max(v):.5f})'
+        for flag, v in replay_steps.items()))
+
+
+def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
+    """Phase 7: xl-base-1.0 at full width; returns the launch counts of
+    its traced run."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.from_pretrained('xl-base-1.0', device='cuda',
+                                                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.unet, pipe.text_encoder,
+                                       pipe.text_encoder_2, pipe.vae)
+                   for p in m.parameters())
+    print(f'xl-base-1.0 init (random weights, bf16): '
+          f'{time.perf_counter() - t0:.2f} s, {type(pipe).__name__}, '
+          f'{n_params / 1e9:.3f} B parameters, '
+          f'{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated')
+    check(type(pipe).__name__ == 'StableDiffusionXLPipeline', 'the SDXL class')
+
+    decodes = []  # the input shape of every VAE decoder call
+    vae_decode = pipe.vae.decode
+
+    def recording_decode(z):
+        decodes.append(tuple(z.shape))
+        return vae_decode(z)
+    pipe.vae.decode = recording_decode
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out, cold_steps, tc = timed_call(pipe, True, trace)
+    launches = dict(kernels.launches)
+    image = out.images[0]
+    word = tc.compute_global_heat_map().compute_word_heat_map('dog').heatmap
+    print(f'xl-base-1.0 main path launches: {launches}')
+    print(f'xl-base-1.0 image {image.shape} range [{image.min():.4f}, '
+          f'{image.max():.4f}]; dog map {tuple(word.shape)} range '
+          f'[{word.min().item():.4e}, {word.max().item():.4e}]; VAE decoder '
+          f'calls {decodes}; peak memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    print(f'xl-base-1.0 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
+    check(image.shape == (1024, 1024, 3) and bool(np.isfinite(image).all()),
+          'xl-base-1.0 image')
+    check(tuple(word.shape) == (64, 64) and bool(torch.isfinite(word).all())
+          and bool((word >= 0).all()) and word.max().item() > word.min().item(),
+          'xl-base-1.0 word heat map')
+    check(decodes == [SDXL_TILES], f'tiled VAE decode: decoder calls {decodes}')
+    check(launches == {'cross_attention_acc': SDXL_K1_PER_EVAL * STEPS,
+                       'cross_attention_acc_mma': SDXL_K1_PER_EVAL * STEPS,
+                       'flash_attention': SDXL_K2_PER_EVAL * STEPS,
+                       'flash_attention_wgmma': SDXL_K2_PER_EVAL * STEPS,
+                       'cross_attention_probs': 0, 'cross_attention_probs_mma': 0},
+          f'xl-base-1.0 launch counts {launches}')
+
+    # one traced step through the kernels and one through the plain
+    # versions, from the same latents (the same generator seed)
+    maps = {}
+    for mode in ('auto', 'torch'):
+        A.set_kernel_mode(mode)
+        try:
+            _, _, tc1 = timed_call(pipe, True, trace, steps=1)
+        finally:
+            A.set_kernel_mode('auto')
+        maps[mode] = tc1.compute_global_heat_map().heat_maps
+    rhos = [spearman(maps['auto'][t], maps['torch'][t])
+            for t in range(maps['auto'].shape[0])]
+    print(f'xl-base-1.0 one traced step, kernels vs plain: per-token heat-map '
+          f'spearman min {min(rhos):.6f} over {len(rhos)} tokens')
+    check(min(rhos) >= 0.99, 'xl-base-1.0 kernel maps vs plain maps')
+
+    step_times(pipe, trace, 'xl-base-1.0 1024^2 bf16')
+    latents = torch.randn(1, 4, 128, 128, device=pipe.device)
+    for _ in range(2):  # the second call is timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pipe._decode(latents)
+        torch.cuda.synchronize()
+    print(f'xl-base-1.0 tiled VAE decode (9 tiles, one batch): '
+          f'{time.perf_counter() - t0:.4f} s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    if profile:
+        profile_step(pipe, trace)
+    return launches
+
+
 def profile_step(pipe, trace):
-    """A traced 2-step call under torch.profiler: the top kernels, and the
-    device's busy share of the call's wall time (one stream, so the kernel
-    times add up without overlap)."""
+    """A traced 2-step call of ``pipe`` under torch.profiler: the top
+    kernels, and the device's busy share of the call's wall time (one
+    stream, so the kernel times add up without overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -606,7 +781,8 @@ def profile_step(pipe, trace):
     print(events.table(sort_by='self_cuda_time_total', row_limit=25))
     device = [e for e in events if e.device_type != DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    print(f'profiled traced call (2 steps, encode, decode): wall {wall_ms:.3f} ms, '
+    print(f'profiled traced {pipe.config.name} call (2 steps, encode, decode): '
+          f'wall {wall_ms:.3f} ms, '
           f'device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
     for e in device:  # the port's own kernels, wherever they rank
         if '_attention' in e.key and e.key.startswith('void (anonymous'):
@@ -649,7 +825,8 @@ def main(argv=None):
     for name, lines in report.items():
         print(f'  {name}: ' + '; '.join(lines))
     if args.kernel_times:
-        kernel_times(kernels, A)
+        for model in PATH_SHAPES:
+            kernel_times(kernels, A, model)
         print(smi)
         return
     # flash_attention: one per head dim; cross_attention_mma_kernel: acc,
@@ -668,8 +845,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = parity(kernels, A)
-    tiny_reference(A, StableDiffusionPipeline, trace)
+    for preset in ('tiny', 'tiny-xl'):
+        tiny_reference(A, StableDiffusionPipeline, trace, preset)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # 6b. the kernels alone at both paths' shapes, before any other
+    # profiler session (after --profile's, the card's profiler was seen to
+    # drop kernels)
+    totals = {model: kernel_times(kernels, A, model) for model in PATH_SHAPES}
 
     # 4. the slice at full width
     t0 = time.perf_counter()
@@ -703,48 +886,40 @@ def main(argv=None):
     launches['cross_attention_probs'] = transplant(
         pipe, trace, kernels)['cross_attention_probs']
 
-    # 6. timings: warm runs in turns, then the kernels alone
-    per_step = {True: [], False: []}
-    for traced in (False, True, False, True):
-        _, steps, _ = timed_call(pipe, traced, trace)
-        per_step[traced] += steps[1:]  # the first step includes text encode
-    traced_s = sum(per_step[True]) / len(per_step[True])
-    untraced_s = sum(per_step[False]) / len(per_step[False])
-    print(f's/step v2-1-base 512^2 bf16: traced={traced_s:.5f} '
-          f'untraced={untraced_s:.5f} traced/untraced={traced_s / untraced_s:.4f}')
-    A.set_kernel_mode('torch')
-    try:
-        _, steps, _ = timed_call(pipe, True, trace)
-    finally:
-        A.set_kernel_mode('auto')
-    print(f's/step traced, plain attention instead of the kernels: '
-          f'{sum(steps[1:]) / len(steps[1:]):.5f}')
-    replay_steps = {'save_heads': [], 'load_heads': []}
-    for _ in range(2):
-        for flag in replay_steps:
-            _, steps, _ = timed_call(pipe, True, trace, data_dir='smoke',
-                                     persist_heads=False, **{flag: True})
-            replay_steps[flag] += steps[1:]
-    print('s/step v2-1-base 512^2 bf16, head replay: ' + ' '.join(
-        f'{flag}={sum(v) / len(v):.5f} (slowest step {max(v):.5f})'
-        for flag, v in replay_steps.items()))
-    totals = kernel_times(kernels, A)
+    # 6a. step timings
+    v2_step_times(pipe, trace, A)
     if args.profile:
         profile_step(pipe, trace)
+    del pipe, tc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. SDXL at full width
+    sdxl_launches = sdxl_full_width(StableDiffusionPipeline, trace, kernels, A,
+                                    args.profile)
 
     route = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
              'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
              'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
+
+    def kernel_lines(totals, launches):
+        return [{'name': name, 'route': 'cuda',
+                 'source': 'daam_tpu_torch/csrc/attention.cu',
+                 'replaces': route[name], 'launches': launches[name],
+                 'max_abs_err': worst[name], 'ms': t['ms'],
+                 'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
+                 'bound_ms': t['bound_ms'],
+                 'bound_by': max(t['by'], key=t['by'].get),
+                 'library_ms': t['library_ms']}
+                for name, t in ((n, totals[n]) for n in (
+                    'cross_attention_acc', 'flash_attention',
+                    'cross_attention_probs'))]
+    # per SDXL evaluation; cross_attention_probs per evaluation of an SDXL
+    # save run, which phase 7 does not drive (launches 0)
+    print(json.dumps({'sdxl_kernels': kernel_lines(totals['xl-base-1.0'],
+                                                   sdxl_launches)}))
     print(smi)
-    print(json.dumps({'kernels': [
-        {'name': name, 'route': 'cuda',
-         'source': 'daam_tpu_torch/csrc/attention.cu', 'replaces': route[name],
-         'launches': launches[name], 'max_abs_err': worst[name],
-         'ms': t['ms'], 'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
-         'bound_ms': t['bound_ms'], 'bound_by': max(t['by'], key=t['by'].get),
-         'library_ms': t['library_ms']}
-        for name, t in ((n, totals[n]) for n in (
-            'cross_attention_acc', 'flash_attention', 'cross_attention_probs'))]}))
+    print(json.dumps({'kernels': kernel_lines(totals['v2-1-base'], launches)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -8,6 +8,7 @@ kernels for Hopper (``csrc/attention.cu``).  It never imports JAX.
 from .experiment import GenerationExperiment  # noqa: F401
 from .heatmap import GlobalHeatMap, RawHeatMapCollection, WordHeatMap  # noqa: F401
 from .pipeline.sd import PipelineOutput, StableDiffusionPipeline  # noqa: F401
+from .pipeline.sdxl import StableDiffusionXLPipeline  # noqa: F401
 from .tokenization import default_tokenizer  # noqa: F401
 from .trace import DiffusionHeatMapHooker, release_heads, trace  # noqa: F401
 from .utils import compute_token_merge_indices, set_seed  # noqa: F401

@@ -17,10 +17,15 @@ Counterpart of ``daam_tpu/models/unet.py``, grown from the torch modules that
   ``replay`` dict of such probabilities replaces the computed ones (the
   ``load_heads`` transplant).
 
+* SDXL's ``text_time`` conditioning (``addition_embed_type='text_time'``):
+  ``add_embedding`` maps the pooled text embedding and the sinusoids of the
+  six size/crop ids into the time embedding (``daam_tpu`` ``:402-411``).
+
 Numerics copied from ``daam_tpu``: exact-erf GEGLU in fp32, GroupNorm eps
 1e-5 in resnets and 1e-6 in ``Transformer2DModel``, LayerNorm eps 1e-6 in the
 transformer blocks (flax's default; diffusers uses 1e-5), ``conv_out`` in
-fp32, the sinusoidal embedding with ``flip_sin_to_cos``, nearest-2× upsample.
+fp32, the sinusoidal embeddings in fp32 with ``flip_sin_to_cos``, nearest-2×
+upsample.
 """
 
 import math
@@ -209,15 +214,14 @@ class Transformer2DModel(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    """SD 1.x/2.x conditional UNet (SDXL's ``text_time`` conditioning is not
-    ported yet)."""
+    """SD 1.x/2.x and SDXL conditional UNet."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if config.addition_embed_type is not None:
-            raise NotImplementedError(
-                f'addition_embed_type={config.addition_embed_type!r} (SDXL) '
-                f'is not ported yet')
+        if config.addition_embed_type not in (None, 'text_time'):
+            raise ValueError(
+                f'addition_embed_type={config.addition_embed_type!r} is not '
+                f'supported')
         self.config = config
         cfg = config
         ch = cfg.block_out_channels
@@ -232,6 +236,9 @@ class UNet2DConditionModel(nn.Module):
 
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], ted)
+        if cfg.addition_embed_type == 'text_time':
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, ted)
 
         self.down_blocks = nn.ModuleList()
         for level in range(n):
@@ -297,13 +304,15 @@ class UNet2DConditionModel(nn.Module):
                 for name in m.layer_names]
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor, capture=False,
-                acc: Optional[Dict[str, torch.Tensor]] = None,
+                encoder_hidden_states: torch.Tensor,
+                added_cond: Optional[Dict[str, torch.Tensor]] = None,
+                capture=False, acc: Optional[Dict[str, torch.Tensor]] = None,
                 replay: Optional[Dict[str, torch.Tensor]] = None):
         """Denoise ``sample`` (B, C, h, w); returns the fp32 prediction.
 
-        The batch is the CFG layout ``[uncond; cond]``.  With
-        ``capture='acc'``, ``acc`` maps layer names to fp32 accumulators
+        The batch is the CFG layout ``[uncond; cond]``.  SDXL's UNet needs
+        ``added_cond``: ``{'text_embeds': (B, pooled), 'time_ids': (B, 6)}``.
+        With ``capture='acc'``, ``acc`` maps layer names to fp32 accumulators
         ``(B/2, H, 77, h·w)`` that are updated in place.  With
         ``capture='full'`` (or ``'cond'``) it returns ``(eps, probs)``:
         ``probs`` maps every cross-attention layer's name to its
@@ -319,6 +328,15 @@ class UNet2DConditionModel(nn.Module):
         temb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                   cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.expand(B, -1).to(dtype))
+        if cfg.addition_embed_type == 'text_time':
+            if added_cond is None:
+                raise ValueError('SDXL needs added_cond (text_embeds, time_ids)')
+            tid = timestep_embedding(added_cond['time_ids'].flatten(),
+                                     cfg.addition_time_embed_dim,
+                                     cfg.flip_sin_to_cos, cfg.freq_shift)
+            add = torch.cat([added_cond['text_embeds'].float(),
+                             tid.reshape(B, -1)], dim=-1)
+            temb = temb + self.add_embedding(add.to(dtype))
         context = encoder_hidden_states.to(dtype)
         probs_out: Dict[str, torch.Tensor] = {}
 

@@ -7,8 +7,9 @@
   JAX's values (the two generators never agree).
 * :func:`from_jax_params` turns a ``daam_tpu`` parameter pytree (the one
   ``daam_tpu.models.weights.init_random_params`` returns, as numpy arrays)
-  into diffusers-named state dicts: the inverse of ``_convert_clip`` (``:250``),
-  ``_convert_unet`` (``:343``) and ``_convert_vae`` (``:420``).  Dense kernels
+  into diffusers-named state dicts: the inverse of ``_convert_clip`` (``:250``,
+  both of SDXL's encoders), ``_convert_unet`` (``:343``, SDXL's
+  ``add_embedding`` included) and ``_convert_vae`` (``:420``).  Dense kernels
   are transposed and conv kernels go from ``(kh, kw, in, out)`` back to
   ``(out, in, kh, kw)``.
 * :func:`load_modules` builds the modules from such state dicts
@@ -39,13 +40,14 @@ VAE_SKIPPED_PREFIXES = ('encoder.', 'quant_conv.')
 def build_modules(config: PipelineConfig, device='cuda') -> Dict[str, nn.Module]:
     """Uninitialized modules of the pipeline (storage allocated, not filled)
     on ``device``: the card unless the caller names another; without one
-    this raises."""
-    if config.is_sdxl:
-        raise NotImplementedError('SDXL is not ported yet')
+    this raises.  SDXL adds ``text_encoder_2`` (OpenCLIP-bigG with its
+    ``text_projection``)."""
     with torch.device('meta'):
         modules = {'text_encoder': CLIPTextModel(config.text),
                    'unet': UNet2DConditionModel(config.unet),
                    'vae': AutoencoderKL(config.vae)}
+        if config.is_sdxl:
+            modules['text_encoder_2'] = CLIPTextModel(config.text_2)
     return {k: m.to_empty(device=device).eval() for k, m in modules.items()}
 
 
@@ -160,8 +162,10 @@ def _unet_state_dict(p: Dict) -> Dict[str, np.ndarray]:
     n = _count(p, r'down_\d+_resnet_0')
     lpb = _count(p, r'down_0_resnet_\d+')
     _put_linear(out, 'conv_in.', p['conv_in'])
-    for lin in ('linear_1', 'linear_2'):
-        _put_linear(out, f'time_embedding.{lin}.', p['time_embedding'][lin])
+    for emb in ('time_embedding', 'add_embedding'):
+        if emb in p:  # add_embedding: SDXL's text_time conditioning
+            for lin in ('linear_1', 'linear_2'):
+                _put_linear(out, f'{emb}.{lin}.', p[emb][lin])
     for level in range(n):
         for i in range(lpb):
             _put_resnet(out, f'down_blocks.{level}.resnets.{i}.',
@@ -241,16 +245,17 @@ def _vae_state_dict(p: Dict) -> Dict[str, np.ndarray]:
     return out
 
 
-_CONVERTERS = {'text_encoder': _clip_state_dict, 'unet': _unet_state_dict,
+_CONVERTERS = {'text_encoder': _clip_state_dict,
+               'text_encoder_2': _clip_state_dict, 'unet': _unet_state_dict,
                'vae': _vae_state_dict}
 
 
 def from_jax_params(params: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
-    """``daam_tpu`` params ``{'text_encoder', 'unet', 'vae', …}`` →
-    diffusers-named state dicts for the modules present (numpy arrays;
-    anything array-like is accepted as a leaf).  Other entries (SDXL's
-    ``text_encoder_2``) are not ported and raise."""
+    """``daam_tpu`` params ``{'text_encoder', 'unet', 'vae'}`` (and SDXL's
+    ``'text_encoder_2'``) → diffusers-named state dicts for the modules
+    present (numpy arrays; anything array-like is accepted as a leaf).
+    Another entry raises."""
     unknown = set(params) - set(_CONVERTERS)
     if unknown:
-        raise NotImplementedError(f'cannot convert {sorted(unknown)} yet')
+        raise ValueError(f'cannot convert {sorted(unknown)}')
     return {name: _CONVERTERS[name](tree) for name, tree in params.items()}

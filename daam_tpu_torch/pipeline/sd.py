@@ -1,12 +1,15 @@
-"""Stable Diffusion pipeline (SD 1.x/2.x) with DAAM tracing, in PyTorch.
+"""Stable Diffusion pipeline (SD 1.x/2.x; SDXL in :mod:`.sdxl`) with DAAM
+tracing, in PyTorch.
 
 Counterpart of ``daam_tpu/pipeline/sd.py``: two text encodes
-(unconditional, conditional), a DDIM loop with classifier-free guidance on
+(unconditional, conditional) through the ``_text_forward``/``_merge_added``
+seams that SDXL overrides, a DDIM loop with classifier-free guidance on
 the ``[uncond; cond]`` batch, the ``'acc'`` capture into one fp32
 accumulator ``(B, H, 77, h·w)`` per located cross-attention layer,
 ``finalize_acc`` into per-factor blocks ``(B, L, H, T, h, w)``, and the VAE
-decode.  Inside ``trace(pipe, save_heads=True)`` every cross-attention runs
-the ``'full'`` capture instead: its per-step probabilities are cast to
+decode, tiled for latent edges above ``vae_tile_threshold`` (SDXL's 128²).
+Inside ``trace(pipe, save_heads=True)`` every cross-attention runs the
+``'full'`` capture instead: its per-step probabilities are cast to
 ``heads_dtype`` and copied to the host every ``heads_chunk_steps`` steps (the
 replay buffer), and their conditional half is added into the accumulators.
 Inside ``trace(pipe, load_heads=True)`` each step's saved probabilities go
@@ -63,6 +66,10 @@ class StableDiffusionPipeline:
                         for info in cross_attention_layout(config.unet)}
         param = next(unet.parameters())
         self.device, self.dtype = param.device, param.dtype
+        # Tiled VAE decode (daam_tpu/pipeline/sd.py:95-99): 'auto' tiles
+        # latent edges above vae_tile_threshold, True/False force it.
+        self.vae_tile_threshold = 96
+        self.vae_tiling: Union[str, bool] = 'auto'
         # save_heads copies the replay buffer to the host every this many
         # steps, so device memory holds at most one chunk of probabilities.
         self.heads_chunk_steps = 8
@@ -76,16 +83,18 @@ class StableDiffusionPipeline:
     def from_pretrained(cls, model_name: str, device='cuda',
                         dtype=torch.float32, seed: int = 0,
                         scheduler: str = 'ddim') -> 'StableDiffusionPipeline':
-        """A preset (``v2-1-base``, ``tiny``, …) with random weights drawn on
-        ``device`` from ``seed`` (no checkpoint is read or downloaded).  The
-        card by default: without one this raises, and only
-        ``device='cpu'`` runs on the CPU."""
+        """A preset (``v2-1-base``, ``xl-base-1.0``, ``tiny``, …) with random
+        weights drawn on ``device`` from ``seed`` (no checkpoint is read or
+        downloaded); an SDXL preset gives a
+        :class:`~.sdxl.StableDiffusionXLPipeline`.  The card by default:
+        without one this raises, and only ``device='cpu'`` runs on the
+        CPU."""
         from ..models.weights import init_random
 
         config = get_pipeline_config(model_name)
         gen = torch.Generator(device=device).manual_seed(seed)
         modules = init_random(config, gen, device=device, dtype=dtype)
-        return cls(config, **modules, scheduler=scheduler)
+        return _pipeline_class(config)(config, **modules, scheduler=scheduler)
 
     # ---------------------------------------------------------------- encode
     def _encode_tokens(self, prompts: Sequence[str]) -> torch.Tensor:
@@ -93,6 +102,15 @@ class StableDiffusionPipeline:
                              truncation=True, return_tensors='np')
         return torch.as_tensor(enc['input_ids'], dtype=torch.long,
                                device=self.device)
+
+    def _text_forward(self, input_ids: torch.Tensor):
+        """``(context, added)`` for the UNet.  SD: the final hidden states
+        (SD2: no penultimate) and no added conditioning."""
+        return self.text_encoder(input_ids)[0], None
+
+    def _merge_added(self, added_uncond, added_cond, height: int, width: int):
+        """The UNet's ``added_cond`` for the CFG batch; SD has none."""
+        return None
 
     # -------------------------------------------------------------- capture
     def _layer_grid(self, name: str, latent_h: int, latent_w: int):
@@ -144,9 +162,10 @@ class StableDiffusionPipeline:
         shape = (B, self.config.unet.in_channels, latent_h, latent_w)
         scheduler = self.scheduler
 
-        # [uncond; cond], each the final hidden states (SD2: no penultimate)
-        context = torch.cat([self.text_encoder(neg_ids)[0],
-                             self.text_encoder(input_ids)[0]], dim=0)
+        context_c, added_c = self._text_forward(input_ids)
+        context_u, added_u = self._text_forward(neg_ids)
+        context = torch.cat([context_u, context_c], dim=0)  # [uncond; cond]
+        added = self._merge_added(added_u, added_c, height, width)
         if latents is None:
             latents = torch.randn(shape, generator=generator,
                                   device=getattr(generator, 'device', self.device))
@@ -175,7 +194,7 @@ class StableDiffusionPipeline:
             rep = (None if replay is None else
                    {n: r[i].to(self.device) for n, r in replay.items()})
             eps = self.unet(latent_in, t.expand(2 * B), context,
-                            capture=capture,
+                            added_cond=added, capture=capture,
                             acc=accs if capture == 'acc' else None, replay=rep)
             if save_heads:
                 eps, probs = eps
@@ -201,11 +220,85 @@ class StableDiffusionPipeline:
 
         blocks = (self.finalize_acc(accs, capture_spec, B, latent_h, latent_w)
                   if accs else None)
-        images = self.vae.decode(latents / self.config.vae.scaling_factor)
-        images = (images / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        images = self._decode(latents)
         saved = ({n: torch.cat(chunks) for n, chunks in saved.items()}
                  if save_heads else None)
         return images, blocks, saved, snaps
+
+    # --------------------------------------------------------------- decode
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        """Latents (B, 4, h, w) → fp32 images (B, H, W, 3) in [0, 1], tiled
+        under ``vae_tiling`` (``daam_tpu/pipeline/sd.py:340-342``)."""
+        if self.vae_tiling is True or (self.vae_tiling == 'auto' and max(
+                latents.shape[2:]) > self.vae_tile_threshold):
+            return self._tiled_decode(latents)
+        images = self.vae.decode(latents / self.config.vae.scaling_factor)
+        return (images / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+    def _tiled_decode(self, latents: torch.Tensor, tile: int = 64,
+                      overlap: int = 16) -> torch.Tensor:
+        """The tiled VAE decode of ``daam_tpu/pipeline/sd.py:429-498``, tile
+        for tile: ``tile``² latent tiles at the same positions and in the
+        same order, each decoded and clipped to [0, 1], then blended in
+        pixel space with linear ramps over the ``overlap``·sf-pixel bands
+        where it meets another tile, and divided by the summed weights.
+        NCHW latents in, (B, H, W, 3) fp32 images out.
+
+        The tiles go through the decoder as one batch, as in ``daam_tpu``:
+        one decoder call issues a ninth of the launches of nine (the host's
+        dispatch sets the pace, ``PERF.md`` §5), and at SDXL's nine 64²
+        tiles its largest activation, (9, 128, 512, 512) bf16, is 0.6 GB.
+        """
+        sf = self.vae_scale_factor
+        batch_size, _, latent_h, latent_w = latents.shape
+        tile_h, tile_w = min(tile, latent_h), min(tile, latent_w)
+
+        def positions(size, t):
+            stride = max(t - overlap, 1)
+            pos = list(range(0, max(size - t, 0) + 1, stride))
+            if not pos or pos[-1] + t < size:
+                pos.append(size - t)
+            return sorted(set(p for p in pos if p >= 0))
+
+        rows, cols = positions(latent_h, tile_h), positions(latent_w, tile_w)
+        grid = [(r, c) for r in rows for c in cols]
+        band = min(overlap, tile_h - 1, tile_w - 1) * sf
+        ramp = (np.arange(band) + 1) / float(band + 1)
+
+        def tile_weight(r, c):
+            wy = np.ones(tile_h * sf, dtype=np.float32)
+            wx = np.ones(tile_w * sf, dtype=np.float32)
+            if r != rows[0]:
+                wy[:band] = ramp
+            if r != rows[-1]:
+                wy[-band:] = ramp[::-1]
+            if c != cols[0]:
+                wx[:band] = ramp
+            if c != cols[-1]:
+                wx[-band:] = ramp[::-1]
+            return wy[:, None] * wx[None, :]
+
+        tiles = torch.stack([latents[:, :, r:r + tile_h, c:c + tile_w]
+                             for r, c in grid])
+        imgs = self.vae.decode(tiles.flatten(0, 1)
+                               / self.config.vae.scaling_factor)
+        imgs = (imgs / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        imgs = imgs.reshape(len(grid), batch_size, tile_h * sf, tile_w * sf, 3)
+        weights = torch.from_numpy(np.stack([tile_weight(r, c) for r, c in grid])
+                                   )[..., None].to(imgs.device)
+        out = imgs.new_zeros(batch_size, latent_h * sf, latent_w * sf, 3)
+        norm = imgs.new_zeros(1, latent_h * sf, latent_w * sf, 1)
+        for i, (r, c) in enumerate(grid):
+            ys = slice(r * sf, (r + tile_h) * sf)
+            xs = slice(c * sf, (c + tile_w) * sf)
+            out[:, ys, xs] += imgs[i] * weights[i]
+            norm[:, ys, xs] += weights[i]
+        return out / norm.clamp_min(1e-8)
+
+    def enable_vae_tiling(self, enabled: Union[str, bool] = True):
+        """Force the tiled VAE decode on or off (``'auto'`` tiles latent
+        edges above ``vae_tile_threshold``)."""
+        self.vae_tiling = enabled
 
     def __call__(self, prompt: Union[str, List[str]],
                  num_inference_steps: int = 50,
@@ -295,3 +388,11 @@ class StableDiffusionPipeline:
                 f'Replay buffer is missing layers {missing[:4]}'
                 f'{"..." if len(missing) > 4 else ""}; it was saved from a '
                 f'different model or an incomplete save_heads run.')
+
+
+def _pipeline_class(config: PipelineConfig):
+    """The pipeline class of a config (``daam_tpu/pipeline/sd.py:687-691``)."""
+    if config.is_sdxl:
+        from .sdxl import StableDiffusionXLPipeline
+        return StableDiffusionXLPipeline
+    return StableDiffusionPipeline

@@ -24,7 +24,7 @@ from ..pipeline.sd import StableDiffusionPipeline
 from ..trace import trace
 from ..utils import set_seed
 
-MODELS = ['v2-base', 'v2-1-base', 'v2-large', 'v2-1-large']
+MODELS = ['v2-base', 'v2-1-base', 'v2-large', 'v2-1-large', 'xl-base-1.0']
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--save-heads', action='store_true')
     parser.add_argument('--load-heads', action='store_true')
     parser.add_argument('--tiny', action='store_true',
-                        help='tiny random-weight preset (smoke runs)')
+                        help='tiny random-weight preset (smoke runs): '
+                             'tiny-xl for an xl --model, else tiny')
     parser.add_argument('--dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'])
     parser.add_argument('--device', type=str, default='cuda',
@@ -62,7 +63,9 @@ def load_pipeline(args) -> StableDiffusionPipeline:
         raise RuntimeError(f'--device {args.device}: no CUDA device is '
                            f'available; pass --device cpu to run on the CPU')
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
-    name = 'tiny' if args.tiny else args.model
+    name = args.model
+    if args.tiny:  # daam_tpu/run/generate.py:241
+        name = 'tiny-xl' if 'xl' in args.model else 'tiny'
     return StableDiffusionPipeline.from_pretrained(name, device=device,
                                                    dtype=dtype, seed=args.seed)
 

@@ -38,7 +38,7 @@ def test_port_never_imports_jax():
     """Import every module of the port in a fresh interpreter."""
     modules = [m.name for m in pkgutil.walk_packages(
         daam_tpu_torch.__path__, prefix='daam_tpu_torch.')]
-    assert 'daam_tpu_torch.ops.kernels' in modules
+    assert {'daam_tpu_torch.ops.kernels', 'daam_tpu_torch.pipeline.sdxl'} <= set(modules)
     code = ('import importlib, sys\n'
             f'for m in {modules!r}: importlib.import_module(m)\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '

@@ -34,9 +34,10 @@ def _assert_same(ours, theirs):
         np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
 
 
-@pytest.mark.parametrize('preset', ['tiny', 'tiny-v1'])
+@pytest.mark.parametrize('preset', ['tiny', 'tiny-v1', 'tiny-xl'])
 def test_unet_round_trip(preset):
-    """'tiny' has linear proj_in/out (SD2), 'tiny-v1' 1×1 convs (SD1)."""
+    """'tiny' has linear proj_in/out (SD2), 'tiny-v1' 1×1 convs (SD1),
+    'tiny-xl' SDXL's add_embedding and depth-2 transformers."""
     cfg = get_pipeline_config(preset).unet
     sd = _fabricate_unet_checkpoint(cfg)
     back = W.from_jax_params({'unet': _convert_unet(sd, cfg)})['unet']
