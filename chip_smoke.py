@@ -1,42 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of daam_tpu_torch on one NVIDIA GPU: build, kernel parity, the
-traced SD 2.1-base slice, the head-replay transplant, the traced SDXL slice,
-timings.
+card's pytest cases, the traced SD 2.1-base slice in bf16 and in fp32, the
+head-replay transplant, the traced SDXL slice, timings.
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile       # also a torch.profiler table of a
                                           # traced call of each full-width model
-    python3 chip_smoke.py --kernel-times  # the build and phase 6b's kernel times only
+    python3 chip_smoke.py --kernel-times  # the build, phase 6b's kernel times and
+                                          # phase 9's fp32 s/step only
 
 ``--kernel-times`` checks nothing beyond the build and prints no result
 line; a copy of this script placed in another checkout times that
-checkout's kernels (the script's own directory comes first on the import
-path), which is how two commits' kernels are compared in one call.
+checkout's kernels and fp32 pipeline (the script's own directory comes
+first on the import path), which is how two commits are compared in one
+call.
 
-Phases, each of which raises (exit code != 0) when a check fails:
+Phases, each of which raises (exit code != 0) when a check fails, in the
+order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a tensor-core kernel
-   (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``) is
+   (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``,
+   ``flash_attention_tf32x3_kernel``, ``cross_attention_tf32x3_kernel``) is
    missing or spills.
 2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
    version on the same inputs, in both layouts (head-major view and the
-   (B, L, H·hd) projection output): fp32 on the CUDA-core kernels at hd 64,
-   bf16 on the tensor-core kernels at every head dim of ``HEAD_DIMS``.
-   ``flash_attention`` at Lk ∈ {4096, 1024, 77} in fp32 and at every shape
-   of ``K2_SHAPES`` (Lq ∈ {4096, 1024, 256, 64}, Lk = Lq or 77) in bf16;
-   ``cross_attention_acc`` at every shape of ``K1_SHAPES``, at the ragged
-   Lq = 100 and at Lk = 200 (three 80-key chunks), called twice into the
-   same accumulator; ``cross_attention_probs`` at every shape of
-   ``K5_SHAPES``, at the ragged Lq = 37 and at Lk = 200, with and without
-   ``cond_only``, P in fp32 and bf16 (P compared on the rows it writes);
-   and in bf16 at hd 64, every shape of SDXL's path (``SDXL_K2_SHAPES``,
-   ``SDXL_K1_SHAPES``, ``SDXL_K5_SHAPES``: 4096 queries × 10 heads and 1024
-   × 20).  Every bf16 case must have run on the tensor cores (the ``*_wgmma`` and ``*_mma`` counters).  TF32 is off for
-   the fp32 checks.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5 (fp32 P
-   and the fp32 accumulator, whatever the inputs' type: both are built from
-   fp32 P), ≤ 1/128 (bf16 P), ≤ 2e-2 (bf16 outputs); Spearman ≥ 0.999.
-   Each bf16 output of the three kernels must lie closer (mean abs
+   (B, L, H·hd) projection output), in bf16 and fp32 at every head dim of
+   ``HEAD_DIMS``: ``flash_attention`` at every shape of ``K2_SHAPES`` (Lq ∈
+   {4096, 1024, 256, 64}, Lk = Lq or 77) and ``SDXL_K2_SHAPES``;
+   ``cross_attention_acc`` at every shape of ``K1_SHAPES`` and
+   ``SDXL_K1_SHAPES``, at the ragged Lq = 100 and at Lk = 200 (three 80-key
+   chunks), called twice into the same accumulator;
+   ``cross_attention_probs`` at every shape of ``K5_SHAPES``, at the ragged
+   Lq = 37 and at Lk = 200, with and without ``cond_only``, P in fp32 and
+   bf16 (P compared on the rows it writes), in bf16 at every head dim and
+   at ``SDXL_K5_SHAPES``, in fp32 (its CUDA-core kernel) at hd 64.  Every
+   case must have run on its dtype's route (the ``*_wgmma`` and ``*_mma``
+   counters for bf16, ``*_tf32x3`` for fp32 K1 and K2).  TF32 is off for
+   the fp32 plain versions.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5
+   (fp32 P and the fp32 accumulator, whatever the inputs' type: both are
+   built from fp32 P), ≤ 1/128 (bf16 P), ≤ 2e-2 (bf16 outputs); Spearman ≥
+   0.999.  Each bf16 output of the three kernels must lie closer (mean abs
    difference) to a reference that rounds P to bf16 before PV where the
    Pallas body does than to the same reference with fp32 P.
 3. A small reference: the ``tiny`` and ``tiny-xl`` presets in fp32, kernels
@@ -49,31 +53,33 @@ Phases, each of which raises (exit code != 0) when a check fails:
    be (512, 512, 3) and finite, the word map for "dog" (64, 64), finite,
    ≥ 0 and not constant, and the launch counters, zeroed just before the
    run, must read 15 × 10 (cross_attention_acc) and 32 × 10
-   (flash_attention), every one on the tensor cores.
+   (flash_attention), every one on the bf16 route.
 5. The transplant at full width, the same model: a ``save_heads`` run of the
    prompt (counters: 16 × 10 cross_attention_probs and 16 × 10
-   flash_attention, every one on the tensor cores; no cross_attention_acc), whose bf16
-   buffer must hold 16 layers of (10, 2, H, h·w, 77), finite, rows summing
-   to 1 within 1e-2; a ``load_heads`` run of the same prompt (counters: 16
-   × 10 flash_attention on the tensor cores, nothing else), whose per-token
-   heat maps must match the save run's at Spearman ≥ 0.999; and a
-   ``load_heads`` run of a second prompt, whose image must differ from a
-   fresh run of that prompt.
-6. (a) Seconds per step of v2-1-base traced and untraced (host clock,
+   flash_attention, every one on the bf16 route; no cross_attention_acc),
+   whose bf16 buffer must hold 16 layers of (10, 2, H, h·w, 77), finite,
+   rows summing to 1 within 1e-2; a ``load_heads`` run of the same prompt
+   (counters: 16 × 10 flash_attention on the bf16 route, nothing else),
+   whose per-token heat maps must match the save run's at Spearman ≥ 0.999;
+   and a ``load_heads`` run of a second prompt, whose image must differ
+   from a fresh run of that prompt.
+6. (a) Seconds per step of v2-1-base bf16 traced and untraced (host clock,
    synchronized per step, warm runs in turns) and of the save and load
-   runs.  (b) Run first, right after phase 3, before any pipeline is
-   profiled: each bf16 kernel at every shape of each path (hd 64;
-   v2-1-base, then xl-base-1.0): its time by CUDA events (back-to-back
-   launches after a warm-up), its device time per launch (torch.profiler's
-   self device time over 20 launches, so the wrappers' host cost does not
-   stand in for kernel time), its plain version's time, its bound, and the
-   bound's share of the device time.  The bound is the larger of the bytes
-   the call must move (each input read once, each output written once) over
-   the H100's 3.35 TB/s and its FLOP (4·B·H·Lq·Lk·hd) over 989 TFLOP/s dense
-   bf16.  The bytes are q, k, v and o in bf16, plus the fp32 accumulator
-   read and written (``cross_attention_acc``) or fp32 P written
-   (``cross_attention_probs``, as the save run writes it).
-   ``flash_attention`` is also timed against
+   runs.  (b) Run right after phase 8, before any pipeline is profiled:
+   each kernel in bf16 and in fp32 (TF32 off for the plain versions and
+   SDPA) at every shape of each path (hd 64; v2-1-base, then xl-base-1.0):
+   its time by CUDA events (back-to-back launches after a warm-up), its
+   device time per launch (torch.profiler's self device time over 20
+   launches, so the wrappers' host cost does not stand in for kernel time),
+   its plain version's time, its bound, and the bound's share of the device
+   time.  The bound is the larger of the bytes the call must move (each
+   input read once, each output written once) over the H100's 3.35 TB/s and
+   its FLOP (4·B·H·Lq·Lk·hd) over 989 TFLOP/s dense bf16, or for fp32 three
+   times the FLOP (3xTF32) over 495 TFLOP/s dense TF32; fp32 rows also
+   print the CUDA-core bound, the FLOP over 67 TFLOP/s.  The bytes are q, k,
+   v and o in the dtype, plus the fp32 accumulator read and written
+   (``cross_attention_acc``) or fp32 P written (``cross_attention_probs``,
+   as the save run writes it).  ``flash_attention`` is also timed against
    ``torch.nn.functional.scaled_dot_product_attention`` on the same q, k
    and v, a yardstick the port never calls.
 7. SDXL at full width: ``xl-base-1.0`` (random weights from seed 0; UNet
@@ -82,30 +88,45 @@ Phases, each of which raises (exit code != 0) when a check fails:
    finite, the "dog" map (64, 64), finite, ≥ 0 and not constant, the VAE
    decoder called once on the 3 × 3 batch of 64² tiles, and the counters,
    zeroed just before the run, 60 × 10 cross_attention_acc and 140 × 10
-   flash_attention, every one on the tensor cores, and no
+   flash_attention, every one on the bf16 route, and no
    cross_attention_probs.  Then one traced step through the kernels and one
    with ``set_kernel_mode('torch')``, from the same latents, whose global
    heat maps must agree at per-token Spearman ≥ 0.99; then its seconds per
-   step traced and untraced.  The SDXL save run (~0.5 GB of bf16 P a step)
-   is not driven here; phase 5 holds the replay path.
+   step traced and untraced.  Then the pipeline is rebuilt in fp32 (13.7 GB
+   of weights) and the one-step comparison repeated with TF32 off, at
+   Spearman ≥ 0.999, its kernel step's counters 60 cross_attention_acc and
+   140 flash_attention, all on the fp32 route.  The SDXL save run (~0.5 GB
+   of bf16 P a step) is not driven here; phase 5 holds the replay path.
+8. ``tests/test_torch_cuda.py`` (the kernels against their plain versions,
+   JAX-free) in a subprocess, ``python -m pytest --noconftest``: exit 0
+   and at least one pass.
+9. What ``daam-torch`` runs by default: ``v2-1-base`` in fp32, 512², 10
+   traced steps, checked as in phase 4, with 15 × 10 cross_attention_acc
+   and 32 × 10 flash_attention launches, every one on the 3xTF32 route;
+   a ``save_heads`` run (16 × 10 cross_attention_probs on the CUDA cores,
+   16 × 10 flash_attention on the 3xTF32 route); its seconds per step
+   traced and untraced.
 
-With phase 7 the whole run takes ~60–80 s of command time on one H100;
-the earlier phases keep their repeats.
+The whole run takes ~3–4 min of command time on one H100.
 
 Before the card's name and power limit, ``{"sdxl_kernels": [...]}`` gives
 the same keys as the next line for SDXL's path: launches from phase 7
-(cross_attention_probs: 0) and times per SDXL evaluation
+(the bf16 run's; the fp32 step's for the fp32 entries;
+cross_attention_probs: 0) and times per SDXL evaluation
 (cross_attention_probs: per evaluation of an SDXL save run).
-The line before the last is ``{"kernels": [...]}``: per kernel, its launches
-in its path's run (phase 4, or the phase-5 save run for
-cross_attention_probs), the largest bf16 max-abs error of phase 2, and,
+The line before the last is ``{"kernels": [...]}``: per kernel and dtype
+(the fp32 entries named ``flash_attention_tf32x3``,
+``cross_attention_acc_tf32x3`` and ``cross_attention_probs_fp32``), its
+launches in its path's run (phase 4 or 9, or the phase-5 or phase-9 save
+run for cross_attention_probs), the largest max-abs error of phase 2, and,
 per UNet evaluation of its path (each shape's number × its launches per
 evaluation): ``ms`` (events), ``device_ms`` (profiler), ``plain_ms``,
-``bound_ms`` with ``bound_by`` (what bounds most of it), and ``library_ms``
-(SDPA for ``flash_attention``; null for the others: no PyTorch call adds
-Pᵀ into an accumulator or returns P).  The last line is
-``{"ok": true, "device": {...}}``.  The script needs a CUDA device and the
-daam_tpu_torch package beside it; it never imports JAX or PIL.
+``bound_ms`` with ``bound_by`` (what bounds most of it), ``core_bound_ms``
+(fp32: the CUDA-core bound) and ``library_ms`` (SDPA for
+``flash_attention``; null for the others: no PyTorch call adds Pᵀ into an
+accumulator or returns P).  The last line is ``{"ok": true, "device":
+{...}}``.  The script needs a CUDA device and the daam_tpu_torch package
+beside it; it never imports JAX or PIL.
 """
 
 import argparse
@@ -151,14 +172,40 @@ K5_SHAPES = [((2, 5, 4096, 77), 5), ((2, 10, 1024, 77), 5),
 EXTRA_SHAPES = {'cross_attention_acc': [(1, 5, 100, 77), (1, 5, 128, 200)],
                 'cross_attention_probs': [(2, 5, 37, 77), (2, 5, 100, 200)]}
 HD = 64
+DTYPES = ('bf16', 'fp32')
 # H100 SXM (NVIDIA's data sheet)
 BF16_PEAK_TFLOPS = 989.0  # dense
+TF32_PEAK_TFLOPS = 495.0  # dense
+FP32_CORE_TFLOPS = 67.0   # the CUDA cores
 HBM_TB_S = 3.35
 
 
 def check(ok: bool, msg: str):
     if not ok:
         raise RuntimeError(f'check failed: {msg}')
+
+
+def expected(kernels, **counts) -> dict:
+    """Launch counts of a run: the named ones, every other counter 0."""
+    return {**dict.fromkeys(kernels.launches, 0), **counts}
+
+
+def check_traced(out, tc, side: int, label: str):
+    """A traced run's image must be (side, side, 3) and finite, its "dog"
+    map (64, 64), finite, ≥ 0 and not constant."""
+    import numpy as np
+    import torch
+
+    image = out.images[0]
+    word = tc.compute_global_heat_map().compute_word_heat_map('dog').heatmap
+    print(f'{label} image {image.shape} range [{image.min():.4f}, {image.max():.4f}]; '
+          f'dog map {tuple(word.shape)} range [{word.min().item():.4e}, '
+          f'{word.max().item():.4e}]')
+    check(image.shape == (side, side, 3) and bool(np.isfinite(image).all()),
+          f'{label} image')
+    check(tuple(word.shape) == (64, 64) and bool(torch.isfinite(word).all())
+          and bool((word >= 0).all()) and word.max().item() > word.min().item(),
+          f'{label} word heat map')
 
 
 def spearman(a, b) -> float:
@@ -237,34 +284,30 @@ def check_rounding(name, o, rounded, unrounded):
 
 
 def parity(kernels, A):
-    """Phase 2; returns the largest bf16 max-abs error per kernel."""
+    """Phase 2; returns the largest max-abs error per kernel and dtype
+    ('bf16', 'fp32')."""
     import torch
 
-    worst = {'flash_attention': 0.0, 'cross_attention_acc': 0.0,
-             'cross_attention_probs': 0.0}
+    worst = {(name, dtype): 0.0 for dtype in DTYPES for name in (
+        'flash_attention', 'cross_attention_acc', 'cross_attention_probs')}
     gen = torch.Generator(device='cuda').manual_seed(0)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-    def cases(dtype, shapes):
-        """fp32 runs on the CUDA-core kernels at hd 64; bf16 on the
-        tensor-core kernels at every head dim they serve."""
-        dims = kernels.HEAD_DIMS if dtype == torch.bfloat16 else (HD,)
+    def cases(shapes, dims=kernels.HEAD_DIMS):
         return [(hd, sh) for hd in dims for sh in shapes]
 
     k1_shapes = [sh for sh, _ in K1_SHAPES] + EXTRA_SHAPES['cross_attention_acc']
     k5_shapes = [sh for sh, _ in K5_SHAPES] + EXTRA_SHAPES['cross_attention_probs']
-    # SDXL's shapes at its one head dim, 64, in bf16 (the path's type)
+    # SDXL's shapes at its one head dim, 64
     sdxl = {name: [(HD, sh) for sh, _ in shapes] for name, shapes in (
         ('flash_attention', SDXL_K2_SHAPES), ('cross_attention_acc', SDXL_K1_SHAPES),
         ('cross_attention_probs', SDXL_K5_SHAPES))}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
+        dname = 'bf16' if bf16 else 'fp32'
         for layout in ('head_major', 'packed'):
             before = dict(kernels.launches)
-            flash_cases = cases(dtype, [sh for sh, _ in K2_SHAPES] if bf16 else
-                                [(2, 5, 4096, 4096), (2, 10, 1024, 1024),
-                                 (1, 5, 4096, 77)])
-            flash_cases += sdxl['flash_attention'] if bf16 else []
+            flash_cases = cases([sh for sh, _ in K2_SHAPES]) + sdxl['flash_attention']
             for hd, shape in flash_cases:
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
                 o = kernels.flash_attention(q, k, v)
@@ -276,12 +319,11 @@ def parity(kernels, A):
                       f'hd={hd:<3d} B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
                       f'spearman={rho:.6f}')
                 check(err <= tol[dtype] and rho >= 0.999, 'flash_attention parity')
+                worst['flash_attention', dname] = max(worst['flash_attention', dname], err)
                 if bf16:
-                    worst['flash_attention'] = max(worst['flash_attention'], err)
                     check_rounding('flash_attention', o, flash_reference(q, k, v, True),
                                    flash_reference(q, k, v, False))
-            acc_cases = cases(dtype, k1_shapes) + (sdxl['cross_attention_acc']
-                                                   if bf16 else [])
+            acc_cases = cases(k1_shapes) + sdxl['cross_attention_acc']
             for hd, shape in acc_cases:
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
@@ -301,14 +343,17 @@ def parity(kernels, A):
                 # added bf16-rounded P would miss this by ~1e-3
                 check(err <= tol[dtype] and acc_err <= 1e-5 and rho >= 0.999,
                       'cross_attention_acc parity')
+                worst['cross_attention_acc', dname] = max(
+                    worst['cross_attention_acc', dname], err, acc_err)
                 if bf16:
-                    worst['cross_attention_acc'] = max(
-                        worst['cross_attention_acc'], err, acc_err)
                     # the plain version rounds normalized P before PV
                     check_rounding('cross_attention_acc', o, r,
                                    cross_reference(q, k, v, False))
-            probs_cases = cases(dtype, k5_shapes) + (sdxl['cross_attention_probs']
-                                                     if bf16 else [])
+            # fp32 K5 keeps its CUDA-core kernel, checked at hd 64 (its
+            # block stages 2·Lk·hd + 64·Lk floats: Lk = 200 passes 227 KB at
+            # hd 128)
+            probs_cases = (cases(k5_shapes) + sdxl['cross_attention_probs'] if bf16
+                           else cases(k5_shapes, (HD,)))
             for hd, shape in probs_cases:
                 B = shape[0]
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
@@ -332,19 +377,25 @@ def parity(kernels, A):
                         p_tol = 1e-5 if pdt == torch.float32 else 1 / 128
                         check(err <= tol[dtype] and p_err <= p_tol and rho >= 0.999,
                               'cross_attention_probs parity')
-                        if torch.bfloat16 in (dtype, pdt):
-                            worst['cross_attention_probs'] = max(
-                                worst['cross_attention_probs'], err, p_err)
+                        worst['cross_attention_probs', dname] = max(
+                            worst['cross_attention_probs', dname], err, p_err)
                         if bf16:
                             check_rounding('cross_attention_probs', o, r,
                                            cross_reference(q, k, v, False))
-            # every bf16 launch took the tensor cores, and no fp32 one did
-            for name, n in (('flash_attention_wgmma', len(flash_cases)),
-                            ('cross_attention_acc_mma', 2 * len(acc_cases)),
-                            ('cross_attention_probs_mma', 4 * len(probs_cases))):
+            # every launch took its dtype's route: bf16 the wgmma and mma
+            # kernels, fp32 the 3xTF32 kernels (K1, K2) and the CUDA-core K5
+            for name, n, route_bf16 in (
+                    ('flash_attention_wgmma', len(flash_cases), True),
+                    ('cross_attention_acc_mma', 2 * len(acc_cases), True),
+                    ('cross_attention_probs_mma', 4 * len(probs_cases), True),
+                    ('flash_attention_tf32x3', len(flash_cases), False),
+                    ('cross_attention_acc_tf32x3', 2 * len(acc_cases), False)):
                 got = kernels.launches[name] - before[name]
-                check(got == (n if bf16 else 0),
+                check(got == (n if route_bf16 == bf16 else 0),
                       f'{got} {dtype} {layout} launches counted by {name}')
+            got = kernels.launches['cross_attention_probs'] - before['cross_attention_probs']
+            check(got == 4 * len(probs_cases),
+                  f'{got} {dtype} {layout} cross_attention_probs launches')
     return worst
 
 
@@ -481,18 +532,30 @@ def device_times(calls, iters: int = 20):
     return out
 
 
-def bound(name, shape, hd=HD):
+def bound(name, shape, dtype='bf16', hd=HD):
     """(ms, 'bytes' or 'operations'): the least time of one launch on an
-    H100 SXM, each input read once and each output written once."""
+    H100 SXM, each input read once and each output written once.  q, k, v
+    and o move in ``dtype``; the FLOP (4·B·H·Lq·Lk·hd) run at the dense bf16
+    rate, or for fp32 as three TF32 products (3xTF32) at the dense TF32
+    rate."""
     B, H, Lq, Lk = shape
-    nbytes = 2 * B * H * (2 * Lq + 2 * Lk) * hd  # q, o, k, v in bf16
+    size = 2 if dtype == 'bf16' else 4
+    nbytes = size * B * H * (2 * Lq + 2 * Lk) * hd  # q, o, k, v
     if name == 'cross_attention_acc':
         nbytes += 2 * 4 * B * H * Lk * Lq  # the accumulator read and written
     elif name == 'cross_attention_probs':
         nbytes += 4 * B * H * Lq * Lk      # fp32 P, as the save run writes it
     t_bytes = nbytes / (HBM_TB_S * 1e12) * 1e3
-    t_ops = 4 * B * H * Lq * Lk * hd / (BF16_PEAK_TFLOPS * 1e12) * 1e3
+    flop = 4 * B * H * Lq * Lk * hd
+    t_ops = (flop / (BF16_PEAK_TFLOPS * 1e12) if dtype == 'bf16'
+             else 3 * flop / (TF32_PEAK_TFLOPS * 1e12)) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def core_bound(shape, hd=HD) -> float:
+    """ms of one launch's FLOP at the fp32 rate of the CUDA cores."""
+    B, H, Lq, Lk = shape
+    return 4 * B * H * Lq * Lk * hd / (FP32_CORE_TFLOPS * 1e12) * 1e3
 
 
 #: (B, H, Lq, Lk) and launches per UNet evaluation, by kernel, of each
@@ -505,18 +568,31 @@ PATH_SHAPES = {
                     ('cross_attention_probs', SDXL_K5_SHAPES))}
 
 
-def kernel_times(kernels, A, model):
-    """Phase 6b: every bf16 kernel at every shape of ``model``'s path
+def kernel_times(kernels, A, model, dtype='bf16'):
+    """Phase 6b: every kernel at every shape of ``model``'s path in
+    ``dtype`` ('bf16' or 'fp32', TF32 off for the plain versions and SDPA)
     against its plain version, its bound and, for flash_attention, SDPA;
     returns the totals per UNet evaluation by kernel."""
+    import torch
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _kernel_times(kernels, A, model, dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _kernel_times(kernels, A, model, dtype):
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device='cuda').manual_seed(1)
+    tdtype = torch.bfloat16 if dtype == 'bf16' else torch.float32
     rows, calls = [], []
     for name, shapes in PATH_SHAPES[model]:
         for shape, per_eval in shapes:
-            q, k, v = qkv(*shape, 'packed', torch.bfloat16, gen)
+            q, k, v = qkv(*shape, 'packed', tdtype, gen)
             lib = None
             if name == 'flash_attention':
                 kern = lambda q=q, k=k, v=v: kernels.flash_attention(q, k, v)  # noqa: E731
@@ -537,47 +613,54 @@ def kernel_times(kernels, A, model):
             p1, k1, k2, p2 = (event_ms(f) for f in (plain, kern, kern, plain))
             row = {'name': name, 'shape': shape, 'per_eval': per_eval,
                    'ms': (k1 + k2) / 2, 'plain_ms': (p1 + p2) / 2,
-                   'bound': bound(name, shape), 'lib_ms': None}
-            calls.append((f'{name} {shape}', kern))
+                   'bound': bound(name, shape, dtype), 'lib_ms': None}
+            calls.append((f'{name} {dtype} {shape}', kern))
             if lib is not None:
                 row['lib_ms'] = (event_ms(lib) + event_ms(lib)) / 2
-                calls.append((f'sdpa {shape}', lib))
+                calls.append((f'sdpa {dtype} {shape}', lib))
             rows.append(row)
     dev = device_times(calls)
+    peak = BF16_PEAK_TFLOPS if dtype == 'bf16' else TF32_PEAK_TFLOPS / 3
     totals = {}
     for row in rows:
         name, shape, per_eval = row['name'], row['shape'], row['per_eval']
-        d_ms, n_kernels = dev[f'{name} {shape}']
+        d_ms, n_kernels = dev[f'{name} {dtype} {shape}']
         check(n_kernels == 1, f'{name} {shape}: {n_kernels} device kernels a call')
         (b_ms, by) = row['bound']
         tot = totals.setdefault(name, {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
-                                       'bound_ms': 0.0, 'library_ms': None,
-                                       'library_device_ms': None,
+                                       'bound_ms': 0.0, 'core_bound_ms': 0.0,
+                                       'library_ms': None, 'library_device_ms': None,
                                        'by': {'bytes': 0.0, 'operations': 0.0}})
         for key, val in (('ms', row['ms']), ('device_ms', d_ms),
-                         ('plain_ms', row['plain_ms']), ('bound_ms', b_ms)):
+                         ('plain_ms', row['plain_ms']), ('bound_ms', b_ms),
+                         ('core_bound_ms', core_bound(shape))):
             tot[key] += val * per_eval
         tot['by'][by] += b_ms * per_eval
         extra = ''
+        if dtype == 'fp32':
+            extra = f' CUDA-core bound={core_bound(shape):.5f} ms;'
         if row['lib_ms'] is not None:
-            lib_dev = dev[f'sdpa {shape}'][0]
+            lib_dev = dev[f'sdpa {dtype} {shape}'][0]
             tot['library_ms'] = (tot['library_ms'] or 0.0) + row['lib_ms'] * per_eval
             tot['library_device_ms'] = (tot['library_device_ms'] or 0.0) + lib_dev * per_eval
             B, H, Lq, Lk = shape
             tflops = 4 * B * H * Lq * Lk * HD / d_ms / 1e9
-            extra = (f' sdpa={row["lib_ms"]:.4f} ms (device {lib_dev:.4f}); '
-                     f'{tflops:.1f} TFLOP/s on the device, '
-                     f'{100 * tflops / BF16_PEAK_TFLOPS:.1f}% of peak')
-        print(f'time {model} {name:21s} bf16 B,H,Lq,Lk={shape} x{per_eval}/eval '
+            extra += (f' sdpa={row["lib_ms"]:.4f} ms (device {lib_dev:.4f}); '
+                      f'{tflops:.1f} TFLOP/s on the device, '
+                      f'{100 * tflops / peak:.1f}% of the {dtype} peak')
+        print(f'time {model} {name:21s} {dtype} B,H,Lq,Lk={shape} x{per_eval}/eval '
               f'event={row["ms"]:.4f} ms device={d_ms:.4f} ms '
               f'plain={row["plain_ms"]:.4f} ms bound={b_ms:.5f} ms ({by}), '
-              f'{100 * b_ms / d_ms:.1f}% of the device time{extra}')
+              f'{100 * b_ms / d_ms:.1f}% of the device time;{extra}')
     for name, tot in totals.items():
         lib = (f' sdpa={tot["library_ms"]:.4f} ms (device '
                f'{tot["library_device_ms"]:.4f})' if tot['library_ms'] else '')
-        print(f'time {model} {name:21s} per UNet evaluation: event={tot["ms"]:.4f} ms '
-              f'device={tot["device_ms"]:.4f} ms plain={tot["plain_ms"]:.4f} ms '
-              f'bound={tot["bound_ms"]:.5f} ms{lib}')
+        core = (f' CUDA-core bound={tot["core_bound_ms"]:.5f} ms'
+                if dtype == 'fp32' else '')
+        print(f'time {model} {name:21s} {dtype} per UNet evaluation: '
+              f'event={tot["ms"]:.4f} ms device={tot["device_ms"]:.4f} ms '
+              f'plain={tot["plain_ms"]:.4f} ms bound={tot["bound_ms"]:.5f} ms'
+              f'{core}{lib}')
     return totals
 
 
@@ -598,11 +681,11 @@ def transplant(pipe, trace, kernels):
 
     image_s, tc_s, save_launches = run(PROMPT, save_heads=True,
                                        persist_heads=False)
-    check(save_launches == {'cross_attention_probs': K5_PER_EVAL * STEPS,
-                            'cross_attention_probs_mma': K5_PER_EVAL * STEPS,
-                            'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
-                            'flash_attention_wgmma': K2_PER_EVAL_REPLAY * STEPS,
-                            'cross_attention_acc': 0, 'cross_attention_acc_mma': 0},
+    check(save_launches == expected(
+        kernels, cross_attention_probs=K5_PER_EVAL * STEPS,
+        cross_attention_probs_mma=K5_PER_EVAL * STEPS,
+        flash_attention=K2_PER_EVAL_REPLAY * STEPS,
+        flash_attention_wgmma=K2_PER_EVAL_REPLAY * STEPS),
           f'save run launch counts {save_launches}')
     buf = tc_s.replay_buffer(STEPS)
     check(len(buf) == N_LAYERS, f'{len(buf)} layers in the replay buffer')
@@ -622,10 +705,8 @@ def transplant(pipe, trace, kernels):
           f'bf16 per step, rows sum to 1 within 1e-2')
 
     image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
-    check(load_launches == {'cross_attention_probs': 0, 'cross_attention_probs_mma': 0,
-                            'cross_attention_acc': 0, 'cross_attention_acc_mma': 0,
-                            'flash_attention': K2_PER_EVAL_REPLAY * STEPS,
-                            'flash_attention_wgmma': K2_PER_EVAL_REPLAY * STEPS},
+    check(load_launches == expected(kernels, flash_attention=K2_PER_EVAL_REPLAY * STEPS,
+                                    flash_attention_wgmma=K2_PER_EVAL_REPLAY * STEPS),
           f'load run launch counts {load_launches}')
     map_s = tc_s.compute_global_heat_map().heat_maps
     map_l = tc_l.compute_global_heat_map().heat_maps
@@ -681,9 +762,9 @@ def v2_step_times(pipe, trace, A):
 
 
 def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
-    """Phase 7: xl-base-1.0 at full width; returns the launch counts of
-    its traced run."""
-    import numpy as np
+    """Phase 7: xl-base-1.0 at full width in bf16, then one step in fp32;
+    returns the launch counts of the bf16 traced run and of the fp32
+    kernel step."""
     import torch
 
     t0 = time.perf_counter()
@@ -711,43 +792,18 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
     kernels.reset_launches()
     out, cold_steps, tc = timed_call(pipe, True, trace)
     launches = dict(kernels.launches)
-    image = out.images[0]
-    word = tc.compute_global_heat_map().compute_word_heat_map('dog').heatmap
     print(f'xl-base-1.0 main path launches: {launches}')
-    print(f'xl-base-1.0 image {image.shape} range [{image.min():.4f}, '
-          f'{image.max():.4f}]; dog map {tuple(word.shape)} range '
-          f'[{word.min().item():.4e}, {word.max().item():.4e}]; VAE decoder '
-          f'calls {decodes}; peak memory '
+    print(f'xl-base-1.0 VAE decoder calls {decodes}; peak memory '
           f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
     print(f'xl-base-1.0 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
-    check(image.shape == (1024, 1024, 3) and bool(np.isfinite(image).all()),
-          'xl-base-1.0 image')
-    check(tuple(word.shape) == (64, 64) and bool(torch.isfinite(word).all())
-          and bool((word >= 0).all()) and word.max().item() > word.min().item(),
-          'xl-base-1.0 word heat map')
+    check_traced(out, tc, 1024, 'xl-base-1.0')
     check(decodes == [SDXL_TILES], f'tiled VAE decode: decoder calls {decodes}')
-    check(launches == {'cross_attention_acc': SDXL_K1_PER_EVAL * STEPS,
-                       'cross_attention_acc_mma': SDXL_K1_PER_EVAL * STEPS,
-                       'flash_attention': SDXL_K2_PER_EVAL * STEPS,
-                       'flash_attention_wgmma': SDXL_K2_PER_EVAL * STEPS,
-                       'cross_attention_probs': 0, 'cross_attention_probs_mma': 0},
+    check(launches == expected(kernels, cross_attention_acc=SDXL_K1_PER_EVAL * STEPS,
+                               cross_attention_acc_mma=SDXL_K1_PER_EVAL * STEPS,
+                               flash_attention=SDXL_K2_PER_EVAL * STEPS,
+                               flash_attention_wgmma=SDXL_K2_PER_EVAL * STEPS),
           f'xl-base-1.0 launch counts {launches}')
-
-    # one traced step through the kernels and one through the plain
-    # versions, from the same latents (the same generator seed)
-    maps = {}
-    for mode in ('auto', 'torch'):
-        A.set_kernel_mode(mode)
-        try:
-            _, _, tc1 = timed_call(pipe, True, trace, steps=1)
-        finally:
-            A.set_kernel_mode('auto')
-        maps[mode] = tc1.compute_global_heat_map().heat_maps
-    rhos = [spearman(maps['auto'][t], maps['torch'][t])
-            for t in range(maps['auto'].shape[0])]
-    print(f'xl-base-1.0 one traced step, kernels vs plain: per-token heat-map '
-          f'spearman min {min(rhos):.6f} over {len(rhos)} tokens')
-    check(min(rhos) >= 0.99, 'xl-base-1.0 kernel maps vs plain maps')
+    one_step_maps(pipe, trace, kernels, A, 'bf16', 0.99)
 
     step_times(pipe, trace, 'xl-base-1.0 1024^2 bf16')
     latents = torch.randn(1, 4, 128, 128, device=pipe.device)
@@ -763,7 +819,117 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
           f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
     if profile:
         profile_step(pipe, trace)
+    del pipe, tc, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32, with TF32 off: do the bf16 maps' 0.993 come from bf16 rounding?
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.from_pretrained('xl-base-1.0', device='cuda')
+    torch.cuda.synchronize()
+    print(f'xl-base-1.0 init (random weights, fp32): {time.perf_counter() - t0:.2f} s, '
+          f'{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated')
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        launches_fp32 = one_step_maps(pipe, trace, kernels, A, 'fp32', 0.999)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    check(launches_fp32 == expected(kernels, cross_attention_acc=SDXL_K1_PER_EVAL,
+                                    cross_attention_acc_tf32x3=SDXL_K1_PER_EVAL,
+                                    flash_attention=SDXL_K2_PER_EVAL,
+                                    flash_attention_tf32x3=SDXL_K2_PER_EVAL),
+          f'xl-base-1.0 fp32 step launch counts {launches_fp32}')
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, launches_fp32
+
+
+def one_step_maps(pipe, trace, kernels, A, label: str, gate: float) -> dict:
+    """One traced step through the kernels and one through the plain
+    versions, from the same latents (the same generator seed): their global
+    heat maps must agree at per-token Spearman >= ``gate``.  Returns the
+    kernel step's launch counts."""
+    maps = {}
+    for mode in ('auto', 'torch'):
+        A.set_kernel_mode(mode)
+        kernels.reset_launches()
+        try:
+            _, _, tc = timed_call(pipe, True, trace, steps=1)
+        finally:
+            A.set_kernel_mode('auto')
+        if mode == 'auto':
+            launches = dict(kernels.launches)
+        maps[mode] = tc.compute_global_heat_map().heat_maps
+    rhos = [spearman(maps['auto'][t], maps['torch'][t])
+            for t in range(maps['auto'].shape[0])]
+    print(f'{pipe.config.name} {label}, one traced step, kernels vs plain: per-token '
+          f'heat-map spearman min {min(rhos):.6f} over {len(rhos)} tokens')
+    check(min(rhos) >= gate, f'{pipe.config.name} {label} kernel maps vs plain maps')
     return launches
+
+
+def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
+    """Phase 9: what ``daam-torch "A dog runs across the field."`` runs by
+    default, v2-1-base in fp32 at 512²: a traced 10-step run (every K1 and
+    K2 launch on the 3xTF32 kernels), a save_heads run (fp32 K5 on the CUDA
+    cores), and seconds per step traced and untraced.  Returns the launch
+    counts of the traced run, K5's from the save run."""
+    import torch
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
+    torch.cuda.synchronize()
+    print(f'v2-1-base init (random weights, fp32): {time.perf_counter() - t0:.2f} s')
+    check(pipe.dtype == torch.float32, f'default dtype {pipe.dtype}')
+    kernels.reset_launches()
+    out, cold_steps, tc = timed_call(pipe, True, trace)
+    launches = dict(kernels.launches)
+    print(f'fp32 main path launches: {launches}')
+    print(f'fp32 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
+    check_traced(out, tc, 512, 'v2-1-base fp32')
+    check(launches == expected(kernels, cross_attention_acc=K1_PER_EVAL * STEPS,
+                               cross_attention_acc_tf32x3=K1_PER_EVAL * STEPS,
+                               flash_attention=K2_PER_EVAL * STEPS,
+                               flash_attention_tf32x3=K2_PER_EVAL * STEPS),
+          f'fp32 launch counts {launches}')
+    kernels.reset_launches()
+    timed_call(pipe, True, trace, data_dir='smoke-fp32', save_heads=True,
+               persist_heads=False)
+    save = dict(kernels.launches)
+    print(f'fp32 save_heads run launches: {save}')
+    check(save == expected(kernels, cross_attention_probs=K5_PER_EVAL * STEPS,
+                           flash_attention=K2_PER_EVAL_REPLAY * STEPS,
+                           flash_attention_tf32x3=K2_PER_EVAL_REPLAY * STEPS),
+          f'fp32 save run launch counts {save}')
+    launches['cross_attention_probs'] = save['cross_attention_probs']
+    step_times(pipe, trace, 'v2-1-base 512^2 fp32')
+    del pipe, tc, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def card_tests():
+    """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
+    and without ``tests/conftest.py`` (which imports JAX); fails on a
+    non-zero exit or on no passes."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, '-m', 'pytest', '--noconftest', '-q', '-p', 'no:cacheprovider',
+         'tests/test_torch_cuda.py'], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ''
+    print(f'card tests (tests/test_torch_cuda.py): exit {proc.returncode}, {summary}')
+    passed = re.search(r'(\d+) passed', summary)
+    if proc.returncode != 0 or not passed:
+        print(proc.stdout[-6000:] + proc.stderr[-2000:])
+    check(proc.returncode == 0 and passed is not None and int(passed.group(1)) > 0,
+          'tests/test_torch_cuda.py on the card')
 
 
 def profile_step(pipe, trace):
@@ -796,8 +962,9 @@ def main(argv=None):
     parser.add_argument('--profile', action='store_true',
                         help='print a torch.profiler table of a traced run')
     parser.add_argument('--kernel-times', action='store_true',
-                        help='build and time the kernels only (phase 6b); '
-                             'no checks beyond the build, no result line')
+                        help="build, time the kernels (phase 6b) and v2-1-base's "
+                             'fp32 steps (phase 9) only; no checks beyond the '
+                             'build, no result line')
     args = parser.parse_args(argv)
 
     import torch
@@ -826,13 +993,19 @@ def main(argv=None):
         print(f'  {name}: ' + '; '.join(lines))
     if args.kernel_times:
         for model in PATH_SHAPES:
-            kernel_times(kernels, A, model)
+            for dtype in DTYPES:
+                kernel_times(kernels, A, model, dtype)
+        pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
+        step_times(pipe, trace, 'v2-1-base 512^2 fp32')
         print(smi)
         return
-    # flash_attention: one per head dim; cross_attention_mma_kernel: acc,
-    # and P in fp32 and bf16, per head dim
-    for family, count in (('flash_attention_wgmma_kernel', len(kernels.HEAD_DIMS)),
-                          ('cross_attention_mma_kernel', 3 * len(kernels.HEAD_DIMS))):
+    # one per head dim, but cross_attention_mma_kernel: acc, and P in fp32
+    # and bf16, per head dim
+    n_hd = len(kernels.HEAD_DIMS)
+    for family, count in (('flash_attention_wgmma_kernel', n_hd),
+                          ('cross_attention_mma_kernel', 3 * n_hd),
+                          ('flash_attention_tf32x3_kernel', n_hd),
+                          ('cross_attention_tf32x3_kernel', n_hd)):
         tensor_core = [n for n in report if family in n]
         check(len(tensor_core) == count,
               f'ptxas reports {len(tensor_core)} kernels {family}, not {count}')
@@ -849,10 +1022,14 @@ def main(argv=None):
         tiny_reference(A, StableDiffusionPipeline, trace, preset)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
+    # 8. the card's pytest cases
+    card_tests()
+
     # 6b. the kernels alone at both paths' shapes, before any other
     # profiler session (after --profile's, the card's profiler was seen to
     # drop kernels)
-    totals = {model: kernel_times(kernels, A, model) for model in PATH_SHAPES}
+    totals = {(model, dtype): kernel_times(kernels, A, model, dtype)
+              for model in PATH_SHAPES for dtype in DTYPES}
 
     # 4. the slice at full width
     t0 = time.perf_counter()
@@ -863,23 +1040,13 @@ def main(argv=None):
     kernels.reset_launches()
     out, cold_steps, tc = timed_call(pipe, True, trace)
     launches = dict(kernels.launches)
-    image = out.images[0]
-    word = tc.compute_global_heat_map().compute_word_heat_map('dog').heatmap
     print(f'main path launches: {launches}')
-    print(f'image {image.shape} range [{image.min():.4f}, {image.max():.4f}]; '
-          f'dog map {tuple(word.shape)} range [{word.min().item():.4e}, '
-          f'{word.max().item():.4e}]')
     print(f'first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
-    import numpy as np
-    check(image.shape == (512, 512, 3) and bool(np.isfinite(image).all()), 'image')
-    check(tuple(word.shape) == (64, 64) and bool(torch.isfinite(word).all())
-          and bool((word >= 0).all()) and word.max().item() > word.min().item(),
-          'word heat map')
-    check(launches == {'cross_attention_acc': K1_PER_EVAL * STEPS,
-                       'cross_attention_acc_mma': K1_PER_EVAL * STEPS,
-                       'flash_attention': K2_PER_EVAL * STEPS,
-                       'flash_attention_wgmma': K2_PER_EVAL * STEPS,
-                       'cross_attention_probs': 0, 'cross_attention_probs_mma': 0},
+    check_traced(out, tc, 512, 'v2-1-base bf16')
+    check(launches == expected(kernels, cross_attention_acc=K1_PER_EVAL * STEPS,
+                               cross_attention_acc_mma=K1_PER_EVAL * STEPS,
+                               flash_attention=K2_PER_EVAL * STEPS,
+                               flash_attention_wgmma=K2_PER_EVAL * STEPS),
           f'launch counts {launches}')
 
     # 5. the transplant at full width
@@ -894,32 +1061,43 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 7. SDXL at full width
-    sdxl_launches = sdxl_full_width(StableDiffusionPipeline, trace, kernels, A,
-                                    args.profile)
+    # 9. the default command's path: v2-1-base in fp32
+    launches_fp32 = fp32_main_path(StableDiffusionPipeline, trace, kernels)
+
+    # 7. SDXL at full width, in bf16, then one step in fp32
+    sdxl_launches, sdxl_launches_fp32 = sdxl_full_width(
+        StableDiffusionPipeline, trace, kernels, A, args.profile)
 
     route = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
              'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
              'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
+    # the fp32 routes as entries of their own, named by their launch counter
+    # (fp32 cross_attention_probs, on the CUDA cores, has none)
+    fp32_name = {'flash_attention': 'flash_attention_tf32x3',
+                 'cross_attention_acc': 'cross_attention_acc_tf32x3',
+                 'cross_attention_probs': 'cross_attention_probs_fp32'}
 
-    def kernel_lines(totals, launches):
-        return [{'name': name, 'route': 'cuda',
-                 'source': 'daam_tpu_torch/csrc/attention.cu',
-                 'replaces': route[name], 'launches': launches[name],
-                 'max_abs_err': worst[name], 'ms': t['ms'],
-                 'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
-                 'bound_ms': t['bound_ms'],
-                 'bound_by': max(t['by'], key=t['by'].get),
-                 'library_ms': t['library_ms']}
-                for name, t in ((n, totals[n]) for n in (
-                    'cross_attention_acc', 'flash_attention',
-                    'cross_attention_probs'))]
+    def kernel_lines(model, launches, launches_fp32):
+        lines = []
+        for dtype, counts in (('bf16', launches), ('fp32', launches_fp32)):
+            for name in ('cross_attention_acc', 'flash_attention', 'cross_attention_probs'):
+                t = totals[model, dtype][name]
+                lines.append({
+                    'name': name if dtype == 'bf16' else fp32_name[name], 'dtype': dtype,
+                    'route': 'cuda', 'source': 'daam_tpu_torch/csrc/attention.cu',
+                    'replaces': route[name], 'launches': counts[name],
+                    'max_abs_err': worst[name, dtype], 'ms': t['ms'],
+                    'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
+                    'bound_ms': t['bound_ms'], 'bound_by': max(t['by'], key=t['by'].get),
+                    'core_bound_ms': t['core_bound_ms'] if dtype == 'fp32' else None,
+                    'library_ms': t['library_ms']})
+        return lines
     # per SDXL evaluation; cross_attention_probs per evaluation of an SDXL
     # save run, which phase 7 does not drive (launches 0)
-    print(json.dumps({'sdxl_kernels': kernel_lines(totals['xl-base-1.0'],
-                                                   sdxl_launches)}))
+    print(json.dumps({'sdxl_kernels': kernel_lines('xl-base-1.0', sdxl_launches,
+                                                   sdxl_launches_fp32)}))
     print(smi)
-    print(json.dumps({'kernels': kernel_lines(totals['v2-1-base'], launches)}))
+    print(json.dumps({'kernels': kernel_lines('v2-1-base', launches, launches_fp32)}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -43,17 +43,52 @@
 //     never leaves registers: O += P V is wgmma m64n(hd)k16 with A from
 //     registers and V from shared memory as a transposed (MN-major) B;
 //   - O is divided by the row sum at the end and stored (B, Lq, H*hd).
-//   It serves hd 16, 32, 64 and 128.  fp32 stays on flash_attention_kernel,
-//   on the CUDA cores: on the tensor cores fp32 would be TF32 and miss the
-//   fp32 gate of 1e-4.  That kernel gives each query four threads that keep
-//   q and the output in registers and stream keys and values through
-//   shared memory 32 rows at a time with the same online softmax; it took
-//   3.86 ms at (2, 5, 4096, 4096) in bf16 (11.1 TFLOP/s) before bf16 moved
-//   to the tensor cores.  On an H100 80GB HBM3 at a 700 W power limit the
-//   wgmma kernel takes 0.130 ms at (2, 5, 4096, 4096) (330 TFLOP/s, a third
-//   of the bf16 peak: each warpgroup's exp2 and its products take turns),
-//   against 2.17 ms for the plain PyTorch version, and 0.90 ms of device
-//   time over one UNet evaluation's K2 launches.
+//   It serves hd 16, 32, 64 and 128.  On an H100 80GB HBM3 at a 700 W
+//   power limit the wgmma kernel takes 0.130 ms at (2, 5, 4096, 4096) (330
+//   TFLOP/s, a third of the bf16 peak: each warpgroup's exp2 and its
+//   products take turns), against 2.17 ms for the plain PyTorch version,
+//   and 0.90 ms of device time over one UNet evaluation's K2 launches.
+//   fp32 (what daam-torch runs by default) goes to
+//   flash_attention_tf32x3_kernel.  Plain TF32 would round each operand to
+//   10 mantissa bits (2^-11 relative) and miss the fp32 gate of 1e-4, and
+//   the CUDA cores (67 TFLOP/s) bound the work at 3.7 ms per evaluation;
+//   the former CUDA-core kernel took 3.97 ms at (2, 5, 4096, 4096) and
+//   23.6 ms per evaluation.  So both products run as 3xTF32: each fp32
+//   operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
+//   hi·hi + hi·lo + lo·hi, summed in fp32, is the product within ~2^-21
+//   relative: three TF32 products (bound 1.52 ms per evaluation at 495
+//   TFLOP/s).  TF32 wgmma takes only K-major operands from shared memory,
+//   and V (keys x hd, hd contiguous) is MN-major for P V, so the kernel
+//   uses mma.sync m16n8k8, whose fragments it loads itself:
+//   - a 256-thread block owns (b, h, 128 queries), 16 per warp; cp.async
+//     copies the q tile once; k and v tiles (64 keys, 32 at hd 128) pass
+//     through registers, where each element is split once for the whole
+//     block (split in each warp, it was split eight times), and their hi
+//     and lo parts go
+//     to a two-stage ring in shared memory; the next tile's loads fly while
+//     this tile's products run, and one barrier a tile suffices.  fp32 rows
+//     are padded to hd + 4 floats, so the eight rows of an ldmatrix and the
+//     32 loads of a V fragment hit 32 banks; keys past Lk load as zeros and
+//     are scored -inf;
+//   - q and k fragments come by ldmatrix, which moves each float as two b16
+//     halves and so hands lane (g, t) row g, column t of an 8 x 4 float
+//     block: the tf32 A and B layouts.  Each warp splits its q fragment per
+//     k8 step;
+//   - the online softmax runs on the fp32 S fragment (row max and sum over
+//     a quad, exp2 with the scale folded in); P is not rounded, as the
+//     Pallas body's p.astype(v.dtype) is a no-op in fp32;
+//   - P never leaves registers: the S fragment gives lane (g, t) keys 2t
+//     and 2t + 1 of an n8 tile, the k8 A fragment wants columns t and t + 4,
+//     so each P V step reads its columns as keys in that permuted order and
+//     loads V's B fragment (plain 32-bit shared loads: ldmatrix.trans moves
+//     only 16-bit elements) from rows 2t and 2t + 1;
+//   - O is divided by the row sum at the end and stored with 8-byte stores.
+//   On an H100 80GB HBM3 at a 700 W power limit it takes 0.836 ms at
+//   (2, 5, 4096, 4096) (51 TFLOP/s) and 5.22 ms of device time per SD 2.1
+//   evaluation, against 1.34 and 8.23 ms for SDPA in fp32.  mma.sync
+//   m16n8k8 TF32 peaks at ~316 TFLOP/s on that card
+//   (scripts/mma_sync_rate.cu), so 3xTF32 on it cannot pass ~105 TFLOP/s
+//   of fp32 work; the split, the loads and the softmax take the rest.
 // * cross_attention_acc (K1, the DAAM capture) and cross_attention_probs
 //   (K5, replacing cross_attention_probs :405; body _cross_attn_kernel
 //   :347, the 'full'/'cond' capture behind save_heads) are memory bound.
@@ -88,24 +123,32 @@
 //     [uncond; cond]) blocks of the first B/2 samples skip it uniformly;
 //   - each warp stages its 16 output rows in its own rows of the q tile and
 //     stores O (B, Lq, H*hd) with 16-byte stores.
-//   fp32 stays on cross_attention_acc_kernel and cross_attention_probs_kernel,
-//   on the CUDA cores, by design: on the tensor cores fp32 would be TF32 and
-//   miss the 1e-5 accumulator and 1e-4 output gates.  They give each query
-//   one thread, stage k and v as fp32 and make two passes over the tokens;
-//   K5 stages its 64 P rows in shared memory and writes them as one span.
-//   On an H100 80GB HBM3 at a 700 W power limit the CUDA-core K1 took
-//   0.073 ms at (1, 5, 4096, 77) in bf16, 7% of its bound, before bf16
-//   moved to the tensor cores.
+//   fp32 K1 goes to cross_attention_tf32x3_kernel: the same block, chunks,
+//   softmax and acc epilogue (shared helpers), with fp32 tiles (rows of
+//   hd + 4 floats) and both products in 3xTF32 as in
+//   flash_attention_tf32x3_kernel.  Lk <= 80 stages everything at once as
+//   above; a longer Lk streams each 80-key chunk's k (pass 1), then its k,
+//   v and acc rows (pass 2), through the same buffers, so every Lk fits
+//   (at most 137 KB a block at hd 128).  Each warp splits the k and v
+//   fragments it loads: cp.async lands raw fp32, and hi and lo copies of k
+//   and v beside it would leave room for one block per SM instead of two.
+//   It takes 0.254 ms of device time per SD 2.1 evaluation (on the card
+//   above; bound 0.062 ms, the bytes), where the former CUDA-core kernel
+//   (one thread per query, two passes, Lk dependent read-modify-writes of
+//   acc each) took 0.81.
+//   fp32 K5 stays on cross_attention_probs_kernel, on the CUDA cores: each
+//   query one thread, k and v staged as fp32, two passes over the tokens,
+//   the block's 64 P rows staged in shared memory and written as one span.
 //
 // No kernel synchronizes with the host or allocates memory; the
 // Python wrapper (daam_tpu_torch/ops/kernels.py) checks shapes, strides and
 // types, allocates o, and raises on the error code each entry point returns.
 //
-// tests/torch_emulate/warp.h runs the CUDA-core kernels and
-// cross_attention_mma_kernel on the CPU: it defines DAAM_EMULATE, stands in
-// for the CUDA headers and hopper.cuh's cp.async, ldmatrix and mma.sync, and
-// defines the three macros below its own way.  The TMA and wgmma pieces
-// (flash_attention_wgmma_kernel) are left out there.
+// tests/torch_emulate/warp.h runs every kernel but the wgmma one on the
+// CPU: it defines DAAM_EMULATE, stands in for the CUDA headers and
+// hopper.cuh's cp.async, ldmatrix, mma.sync (bf16 and TF32) and TF32
+// rounding, and defines the three macros below its own way.  The TMA and
+// wgmma pieces (flash_attention_wgmma_kernel) are left out there.
 
 #include <math.h>
 #include <stdio.h>
@@ -174,104 +217,296 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as cvt.rna.tf32.f32 rounds it: half of the 13 dropped bits' range is added
+// to the magnitude, then they are cleared (infinities and NaNs keep their
+// class).  Two integer operations, which issue faster than the conversion
+// instruction; tests/torch_emulate/run_case.cpp holds them to cvt.rna's
+// definition.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 x), hi and lo rounded to TF32.  With both operands
+// split, hi·hi + hi·lo + lo·hi (3xTF32) is their fp32 product within
+// ~2^-21 relative; lo·lo, ~2^-22, is dropped.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// The four fp32 values of an ldmatrix fragment (raw bits), split.
+__device__ __forceinline__ void split_tf32(const uint32_t (&x)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// d += a b on the tensor cores in 3xTF32 (mma.sync m16n8k8, fp32 sums).
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  hopper::mma_m16n8k8_tf32(d, al, bh0, bh1);
+  hopper::mma_m16n8k8_tf32(d, ah, bl0, bl1);
+  hopper::mma_m16n8k8_tf32(d, ah, bh0, bh1);
+}
+
+// The A fragment of P V's k8 step over the 8 keys of score fragment s, split.
+// s gives lane (g, t) keys 2t and 2t + 1 of its n8 tile, and a k8 A
+// fragment wants columns t and t + 4, so the step reads its column t as key
+// 2t and its column t + 4 as key 2t + 1; the B fragment of V must take its
+// rows in the same order (b0 = V[2t][n], b1 = V[2t + 1][n], n = 8 jd + g).
+__device__ __forceinline__ void p_frag_tf32(const float (&s)[4], uint32_t (&ph)[4],
+                                            uint32_t (&pl)[4]) {
+  split_tf32(s[0], ph[0], pl[0]);  // (g, key 2t)
+  split_tf32(s[2], ph[1], pl[1]);  // (g + 8, key 2t)
+  split_tf32(s[1], ph[2], pl[2]);  // (g, key 2t + 1)
+  split_tf32(s[3], ph[3], pl[3]);  // (g + 8, key 2t + 1)
+}
+
+// A warp's O += P V over 8 keys (rows key0 .. key0 + 7 of Vs, fp32 rows of
+// STR floats, split here) in 3xTF32, P straight from its score fragment s.
+template <int HD, int STR>
+__device__ __forceinline__ void pv_tf32x3(float (&oacc)[HD / 8][4], const float (&s)[4],
+                                          const float* Vs, int key0, int g, int t) {
+  uint32_t ph[4], pl[4];
+  p_frag_tf32(s, ph, pl);
+  const float* vr = Vs + (key0 + 2 * t) * STR + g;
+#pragma unroll
+  for (int jd = 0; jd < HD / 8; ++jd) {
+    uint32_t vh0, vl0, vh1, vl1;
+    split_tf32(vr[8 * jd], vh0, vl0);
+    split_tf32(vr[STR + 8 * jd], vh1, vl1);
+    mma_tf32x3(oacc[jd], ph, pl, vh0, vh1, vl0, vl1);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// flash_attention
+// flash_attention, fp32, on the tensor cores (mma.sync, 3xTF32)
 // ---------------------------------------------------------------------------
 
-constexpr int FA_BQ = 64;   // queries per block
-constexpr int FA_TPQ = 4;   // threads per query
-constexpr int FA_BK = 32;   // keys staged per tile
-constexpr int FA_THREADS = FA_BQ * FA_TPQ;
+constexpr int FT_BQ = 128;       // queries per block: 16 per warp
+constexpr int FT_THREADS = 256;
 
-// fp32 only: bf16 runs on the tensor cores (flash_attention_wgmma_kernel).
+// fp32 rows of hd + 4 floats: the eight 16-byte rows an ldmatrix reads, and
+// a warp's 32 loads of a V fragment (rows 2t and 2t + 1, column g), each
+// fall in 32 different banks.  A stage of the ring holds a tile's k and v,
+// each split into its TF32 hi and lo parts: four arrays of BK rows.
 template <int HD>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int H,
-                       int Lq, int Lk, Strides qs, Strides ks, Strides vs,
-                       float scale) {
-  constexpr int C4 = HD / 16;  // float4 chunks per thread
-  __shared__ float4 Ks[FA_BK][HD / 4];
-  __shared__ float4 Vs[FA_BK][HD / 4];
+struct FtTile {
+  static constexpr int BK = HD == 128 ? 32 : 64;      // keys per tile
+  static constexpr int STR = HD + 4;
+  static constexpr int KV = BK * STR;                 // floats of one array
+  static constexpr int SMEM = (FT_BQ * STR + 2 * 4 * KV) * 4;  // q, two stages
+  static constexpr int LOADS = BK * HD / 4 / FT_THREADS;       // float4 of k (of v) a thread
+};
+
+template <int HD>
+__global__ void __launch_bounds__(FT_THREADS, 1)
+flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ o, int H,
+                              int Lq, int Lk, Strides qs, Strides ks, Strides vs,
+                              float scale_log2) {
+  using namespace hopper;
+  using T = FtTile<HD>;
+  constexpr int BK = T::BK, STR = T::STR, KV = T::KV;
+  constexpr int CH = HD / 4;  // 16-byte chunks of a row
+  DAAM_DYNAMIC_SMEM(float, ft_smem);
+  float* Qs = ft_smem;
+  float* KVs = Qs + FT_BQ * STR;  // stage s at KVs + 4 s KV: k hi, k lo, v hi, v lo
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
+  const int q0 = blockIdx.x * FT_BQ;
   const int tid = threadIdx.x;
-  const int r = tid % FA_TPQ;
-  const int qi = blockIdx.x * FA_BQ + tid / FA_TPQ;
-  const bool valid = qi < Lq;
-
-  // Thread r holds chunks c = r + FA_TPQ * i, i.e. dims 4c .. 4c + 3.
-  float4 qr[C4], acc[C4];
-  const float* qrow = q + b * qs.b + (long long)(valid ? qi : 0) * qs.l + h * qs.h;
-#pragma unroll
-  for (int i = 0; i < C4; ++i) {
-    qr[i] = load4(qrow + 4 * (r + FA_TPQ * i));
-    acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_tiles = (Lk + BK - 1) / BK;
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  float* ksf = reinterpret_cast<float*>(&Ks[0][0]);
-  float* vsf = reinterpret_cast<float*>(&Vs[0][0]);
 
-  for (int k0 = 0; k0 < Lk; k0 += FA_BK) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int e = tid; e < FA_BK * HD; e += FA_THREADS) {
-      const int row = e / HD;
-      const int col = e % HD;
-      const int key = k0 + row;
-      float kv = 0.f, vv = 0.f;
+  {  // q by cp.async, once; rows past Lq zero-filled
+    const float* qb = q + b * qs.b + h * qs.h;
+    for (int e = tid; e < FT_BQ * CH; e += FT_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool in = q0 + r < Lq;
+      cp_async16(smem_u32(Qs + r * STR + 4 * c), qb + (in ? q0 + r : 0) * qs.l + 4 * c,
+                 in ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+  // k and v tiles pass through registers: a thread holds T::LOADS 16-byte
+  // pieces of each (rows past Lk as zeros: their scores are set to -inf,
+  // and P = 0 must meet finite v), splits them once for the whole block and
+  // stores both parts; the next tile's loads fly while this one's products
+  // run.
+  float4 kr[T::LOADS], vr[T::LOADS];
+  auto fetch = [&](int tile) {
+#pragma unroll
+    for (int i = 0; i < T::LOADS; ++i) {
+      const int e = tid + i * FT_THREADS, r = e / CH, c = e % CH, key = tile * BK + r;
+      kr[i] = vr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (key < Lk) {
-        kv = kb[key * ks.l + col];
-        vv = vb[key * vs.l + col];
+        kr[i] = *reinterpret_cast<const float4*>(kb + key * ks.l + 4 * c);
+        vr[i] = *reinterpret_cast<const float4*>(vb + key * vs.l + 4 * c);
       }
-      ksf[e] = kv;
-      vsf[e] = vv;
     }
-    __syncthreads();
+  };
+  auto store_split = [&](int tile) {
+    float* st = KVs + (tile % 2) * 4 * KV;
+#pragma unroll
+    for (int i = 0; i < T::LOADS; ++i) {
+      const int e = tid + i * FT_THREADS, at = (e / CH) * STR + 4 * (e % CH);
+      const float4 x[2] = {kr[i], vr[i]};
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        uint4 hi, lo;
+        split_tf32(x[m].x, hi.x, lo.x);
+        split_tf32(x[m].y, hi.y, lo.y);
+        split_tf32(x[m].z, hi.z, lo.z);
+        split_tf32(x[m].w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(st + 2 * m * KV + at) = hi;
+        *reinterpret_cast<uint4*>(st + (2 * m + 1) * KV + at) = lo;
+      }
+    }
+  };
+  fetch(0);
 
-    float s[FA_BK];
-    float tile_max = -INFINITY;
+  // Fragment addresses of this lane.  q: matrices (rows 0-7 | 8-15) x
+  // (columns 8 kk + 0-3 | 4-7) of the warp's 16 rows give the A fragment of
+  // the kk-th k8 step (ldmatrix reads each float as two b16 halves, so a
+  // lane receives row lane / 4, column lane % 4).  k: matrices (keys 0-7 |
+  // 8-15 of a 16-key pair) x (the two column halves) give b0, b1 of two n8
+  // tiles.  v: rows 2t and 2t + 1 of an 8-key step, column g (p_frag_tf32).
+  const uint32_t q_lane = smem_u32(Qs + (warp * 16 + lane % 16) * STR + 4 * (lane / 16));
+  const int k_lane = (8 * (lane / 16) + lane % 8) * STR + 4 * ((lane / 8) % 2);
+  const int v_lane = 2 * t * STR + g;
+
+  float oacc[HD / 8][4];
 #pragma unroll
-    for (int j = 0; j < FA_BK; ++j) {
-      float part = 0.f;
+  for (int jd = 0; jd < HD / 8; ++jd)
 #pragma unroll
-      for (int i = 0; i < C4; ++i) part += dot4(qr[i], Ks[j][r + FA_TPQ * i]);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[j] = (k0 + j < Lk) ? part * scale : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
+    for (int e = 0; e < 4; ++e) oacc[jd][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8 (log2 domain)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+  cp_async_wait<0>();
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    store_split(tile);
+    if (tile + 1 < n_tiles) fetch(tile + 1);
+    // The stage is complete, and every warp is done with the tile that
+    // last used it (tile - 2: it passed this barrier's predecessor after).
+    __syncthreads();
+    const float* Kh = KVs + (tile % 2) * 4 * KV;
+    const float* Kl = Kh + KV;
+    const float* Vh = Kh + 2 * KV;
+    const float* Vl = Kh + 3 * KV;
+
+    // S = Q Kᵀ; s[j] is mma's D layout: rows g and g + 8 at keys
+    // 8 j + 2t + {0, 1} of the tile.
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      uint32_t qa[4], qh[4], ql[4];
+      ldmatrix_x4(qa, q_lane + 32 * kk);
+      split_tf32(qa, qh, ql);
+#pragma unroll
+      for (int jp = 0; jp < BK / 16; ++jp) {
+        uint32_t kh[4], kl[4];
+        ldmatrix_x4(kh, smem_u32(Kh + 16 * jp * STR + k_lane + 8 * kk));
+        ldmatrix_x4(kl, smem_u32(Kl + 16 * jp * STR + k_lane + 8 * kk));
+        mma_tf32x3(s[2 * jp], qh, ql, kh[0], kh[1], kl[0], kl[1]);
+        mma_tf32x3(s[2 * jp + 1], qh, ql, kh[2], kh[3], kl[2], kl[3]);
+      }
     }
-    // The first tile always holds key 0, so m_new is finite from here on and
-    // corr is exactly 0 on the first tile (m = -inf).
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = __expf(m - m_new);
-    l *= corr;
+    if ((tile + 1) * BK > Lk) {  // keys past Lk scored 0 on their zero rows
+      const int col0 = tile * BK + 2 * t;
 #pragma unroll
-    for (int i = 0; i < C4; ++i) {
-      acc[i].x *= corr;
-      acc[i].y *= corr;
-      acc[i].z *= corr;
-      acc[i].w *= corr;
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col0 + 8 * j + (e & 1) >= Lk) s[j][e] = -INFINITY;
+    }
+
+    // Online softmax over the tile, rows reduced across the 4 lanes of a
+    // quad.  Key 0 lies in the first tile, so the new max is finite and the
+    // first tile's correction is exp2(-inf) = 0.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
 #pragma unroll
-    for (int j = 0; j < FA_BK; ++j) {
-      const float p = __expf(s[j] - m_new);  // masked keys give exactly 0
-      l += p;
-#pragma unroll
-      for (int i = 0; i < C4; ++i) fma4(acc[i], p, Vs[j][r + FA_TPQ * i]);
+    for (int x = 1; x < 4; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
     }
-    m = m_new;
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int jd = 0; jd < HD / 8; ++jd) {
+      oacc[jd][0] *= c0;
+      oacc[jd][1] *= c0;
+      oacc[jd][2] *= c1;
+      oacc[jd][3] *= c1;
+    }
+    // Unnormalized P = exp(s - m) in fp32 (the Pallas body's p.astype(v.dtype)
+    // is no rounding in fp32), summed, and O += P V per 8 keys.
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      s[j][0] = ex2(fmaf(s[j][0], scale_log2, -mn0));
+      s[j][1] = ex2(fmaf(s[j][1], scale_log2, -mn0));
+      s[j][2] = ex2(fmaf(s[j][2], scale_log2, -mn1));
+      s[j][3] = ex2(fmaf(s[j][3], scale_log2, -mn1));
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      if (tile * BK + 8 * j >= Lk) continue;  // keys wholly past Lk
+      uint32_t ph[4], pl[4];
+      p_frag_tf32(s[j], ph, pl);
+      const int at = 8 * j * STR + v_lane;
+#pragma unroll
+      for (int jd = 0; jd < HD / 8; ++jd)
+        mma_tf32x3(oacc[jd], ph, pl, __float_as_uint(Vh[at + 8 * jd]),
+                   __float_as_uint(Vh[at + STR + 8 * jd]), __float_as_uint(Vl[at + 8 * jd]),
+                   __float_as_uint(Vl[at + STR + 8 * jd]));
+    }
   }
 
-  if (valid) {
-    const float inv = 1.f / l;
-    float* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
+  // O / l, (B, Lq, H*hd): a quad's four lanes store a row's 32 bytes of an
+  // n8 tile.
 #pragma unroll
-    for (int i = 0; i < C4; ++i) store4(orow + 4 * (r + FA_TPQ * i), acc[i], inv);
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r = q0 + warp * 16 + g;
+  const long long row = (long long)H * HD;
+  float* ob = o + (long long)b * Lq * row + h * HD + 2 * t;
+  if (r < Lq) {
+#pragma unroll
+    for (int jd = 0; jd < HD / 8; ++jd)
+      *reinterpret_cast<float2*>(ob + r * row + 8 * jd) =
+          make_float2(oacc[jd][0] * inv0, oacc[jd][1] * inv0);
+  }
+  if (r + 8 < Lq) {
+#pragma unroll
+    for (int jd = 0; jd < HD / 8; ++jd)
+      *reinterpret_cast<float2*>(ob + (r + 8) * row + 8 * jd) =
+          make_float2(oacc[jd][2] * inv1, oacc[jd][3] * inv1);
   }
 }
 
@@ -495,78 +730,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #endif  // DAAM_EMULATE
 
 // ---------------------------------------------------------------------------
-// cross_attention_acc and cross_attention_probs, fp32, on the CUDA cores
+// cross_attention_probs, fp32, on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int CA_THREADS = 64;  // queries per block, one thread each
-
-template <int HD>
-__global__ void __launch_bounds__(CA_THREADS)
-cross_attention_acc_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ acc, int H, int Lq, int Lk,
-                           Strides qs, Strides ks, Strides vs, float scale) {
-  constexpr int C4 = HD / 4;
-  DAAM_DYNAMIC_SMEM(float4, smem);
-  float4* Ks = smem;            // [Lk][HD / 4]
-  float4* Vs = smem + Lk * C4;  // [Lk][HD / 4]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int qi = blockIdx.x * CA_THREADS + tid;
-
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  float* ksf = reinterpret_cast<float*>(Ks);
-  float* vsf = reinterpret_cast<float*>(Vs);
-  for (int e = tid; e < Lk * HD; e += CA_THREADS) {
-    const int row = e / HD;
-    const int col = e % HD;
-    ksf[e] = kb[row * ks.l + col];
-    vsf[e] = vb[row * vs.l + col];
-  }
-  __syncthreads();
-  if (qi >= Lq) return;  // after the block's only barrier
-
-  float4 qr[C4];
-  const float* qrow = q + b * qs.b + (long long)qi * qs.l + h * qs.h;
-#pragma unroll
-  for (int c = 0; c < C4; ++c) qr[c] = load4(qrow + 4 * c);
-
-  // Pass 1: running max and sum of exp over the tokens.
-  float m = -INFINITY;
-  float l = 0.f;
-  for (int t = 0; t < Lk; ++t) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < C4; ++c) s += dot4(qr[c], Ks[t * C4 + c]);
-    s *= scale;
-    const float m_new = fmaxf(m, s);
-    l = l * __expf(m - m_new) + __expf(s - m_new);
-    m = m_new;
-  }
-  const float inv_l = 1.f / l;
-
-  // Pass 2: normalized P into the accumulator column and into P.V.
-  float4 oacc[C4];
-#pragma unroll
-  for (int c = 0; c < C4; ++c) oacc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  float* acc_col = acc + ((long long)b * H + h) * Lk * Lq + qi;
-  for (int t = 0; t < Lk; ++t) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < C4; ++c) s += dot4(qr[c], Ks[t * C4 + c]);
-    const float p = __expf(s * scale - m) * inv_l;
-    acc_col[(long long)t * Lq] += p;
-#pragma unroll
-    for (int c = 0; c < C4; ++c) fma4(oacc[c], p, Vs[t * C4 + c]);
-  }
-
-  float* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
-#pragma unroll
-  for (int c = 0; c < C4; ++c) store4(orow + 4 * c, oacc[c], 1.f);
-}
 
 template <typename PT, int HD>
 __global__ void __launch_bounds__(CA_THREADS)
@@ -708,6 +875,93 @@ __device__ __forceinline__ void ma_scores(float (&s)[MA_NT][4],
       s[j][e] = col + 8 * j + (e & 1) < Lk ? s[j][e] * scale_log2 : -INFINITY;
 }
 
+// Pass 1's step over one chunk of scores s (mma's D layout, log2 domain,
+// keys past Lk at -inf): the running maxima m0, m1 of rows g and g + 8,
+// reduced over the 4 lanes of a quad, and this thread's partial sums l0, l1
+// of exp2(s - m).  Key 0 lies in chunk 0, so the new max is finite and the
+// first correction is exp2(-inf) = 0.
+__device__ __forceinline__ void ma_row_stats(const float (&s)[MA_NT][4], float& m0,
+                                             float& m1, float& l0, float& l1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  l0 *= ex2(m0 - mn0);
+  l1 *= ex2(m1 - mn1);
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j) {
+    l0 += ex2(s[j][0] - mn0) + ex2(s[j][1] - mn0);
+    l1 += ex2(s[j][2] - mn1) + ex2(s[j][3] - mn1);
+  }
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// Scores to normalized fp32 P in place, given pass 1's maxima and the
+// inverses of the quad-reduced sums.
+__device__ __forceinline__ void ma_normalize(float (&s)[MA_NT][4], float m0, float m1,
+                                             float inv0, float inv1) {
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j) {
+    s[j][0] = ex2(s[j][0] - m0) * inv0;
+    s[j][1] = ex2(s[j][1] - m0) * inv0;
+    s[j][2] = ex2(s[j][2] - m1) * inv1;
+    s[j][3] = ex2(s[j][3] - m1) * inv1;
+  }
+}
+
+// K1's accumulator tile: acc rows c0 .. c0 + rows - 1 (rows = min(MA_KC,
+// Lk - c0)) of the block's 64 columns, acc_bh = acc[b, h, 0, q0], copied
+// into At ([key][query], row stride MA_ASTR) 16 bytes a copy (Lq % 4 == 0,
+// so a copy is wholly inside or past Lq), as one committed group.
+__device__ __forceinline__ void ma_load_acc(float* At, const float* acc_bh, int c0, int Lk,
+                                            int Lq, int q0, int tid) {
+  const int rows = min(MA_KC, Lk - c0);
+  for (int e = tid; e < rows * (MA_BQ / 4); e += MA_THREADS) {
+    const int r = e / (MA_BQ / 4), c = e % (MA_BQ / 4);
+    if (q0 + 4 * c < Lq)
+      hopper::cp_async16(hopper::smem_u32(At + r * MA_ASTR + 4 * c),
+                         acc_bh + (long long)(c0 + r) * Lq + 4 * c, 16);
+  }
+  hopper::cp_async_commit();
+}
+
+// acc += Pᵀ for the chunk at c0, P in mma's D layout (rows qr, qr + 8 of the
+// block at keys c0 + 8 j + 2t + {0, 1}): waits for the tile, adds P into it
+// (a warp's 32 adds of one fragment slot, 4 keys x 8 queries, hit 32 banks)
+// and writes it back with 16-byte stores.  Each acc element belongs to this
+// block alone: no atomics, and the sum is deterministic.
+__device__ __forceinline__ void ma_add_acc(float* At, float* acc_bh,
+                                           const float (&s)[MA_NT][4], int c0, int Lk,
+                                           int Lq, int q0, int qr, int t, int tid) {
+  const int rows = min(MA_KC, Lk - c0);
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // every thread's copies of the tile have landed
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1);
+      if (key < rows) At[key * MA_ASTR + qr + 8 * (e >> 1)] += s[j][e];
+    }
+  __syncthreads();
+  float* dst = acc_bh + (long long)c0 * Lq;
+  for (int e = tid; e < rows * (MA_BQ / 4); e += MA_THREADS) {
+    const int r = e / (MA_BQ / 4), c4 = e % (MA_BQ / 4);
+    if (q0 + 4 * c4 < Lq)
+      *reinterpret_cast<float4*>(dst + (long long)r * Lq + 4 * c4) =
+          *reinterpret_cast<const float4*>(At + r * MA_ASTR + 4 * c4);
+  }
+}
+
 // ACC: acc += Pᵀ (cross_attention_acc); otherwise P is written out as PT
 // (cross_attention_probs), skipping samples b < skip_b.
 template <int HD, typename PT, bool ACC>
@@ -762,21 +1016,9 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     cp_async_commit();
   }
-  // acc rows c0 .. c0 + rows - 1 of this block's 64 columns, 16 bytes a
-  // copy (Lq % 4 == 0, so a copy is wholly inside or past Lq).
   float* acc_bh = ACC ? acc + ((long long)b * H + h) * Lk * Lq + q0 : nullptr;
-  auto load_acc = [&](int c0) {
-    const int rows = min(MA_KC, Lk - c0);
-    for (int e = tid; e < rows * (MA_BQ / 4); e += MA_THREADS) {
-      const int r = e / (MA_BQ / 4), c = e % (MA_BQ / 4);
-      if (q0 + 4 * c < Lq)
-        cp_async16(smem_u32(At + r * MA_ASTR + 4 * c), acc_bh + (long long)(c0 + r) * Lq + 4 * c,
-                   16);
-    }
-    cp_async_commit();
-  };
   if constexpr (ACC) {
-    load_acc(0);  // group 1: lands while the scores and P.V run
+    ma_load_acc(At, acc_bh, 0, Lk, Lq, q0, tid);  // group 1: lands while the scores and P.V run
     cp_async_wait<1>();
   } else {
     cp_async_wait<0>();
@@ -795,29 +1037,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   for (int c = 0; c < n_chunks; ++c) {
     ma_scores<HD>(s, qf, Ks, c * MA_KC, lkp, Lk, scale_log2, lane);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < MA_NT; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-    }
-    // Key 0 lies in chunk 0, so the new max is finite and the first
-    // correction is exp2(-inf) = 0.
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    l0 *= ex2(m0 - mn0);
-    l1 *= ex2(m1 - mn1);
-#pragma unroll
-    for (int j = 0; j < MA_NT; ++j) {
-      l0 += ex2(s[j][0] - mn0) + ex2(s[j][1] - mn0);
-      l1 += ex2(s[j][2] - mn1) + ex2(s[j][3] - mn1);
-    }
-    m0 = mn0;
-    m1 = mn1;
+    ma_row_stats(s, m0, m1, l0, l1);
   }
 #pragma unroll
   for (int x = 1; x < 4; x <<= 1) {
@@ -841,16 +1061,11 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int c = 0; c < n_chunks; ++c) {
     const int c0 = c * MA_KC;
     if constexpr (ACC) {
-      if (c > 0) load_acc(c0);  // the tile was written back at the end of chunk c - 1
+      // the tile was written back at the end of chunk c - 1
+      if (c > 0) ma_load_acc(At, acc_bh, c0, Lk, Lq, q0, tid);
     }
     if (n_chunks > 1) ma_scores<HD>(s, qf, Ks, c0, lkp, Lk, scale_log2, lane);
-#pragma unroll
-    for (int j = 0; j < MA_NT; ++j) {
-      s[j][0] = ex2(s[j][0] - m0) * inv0;
-      s[j][1] = ex2(s[j][1] - m0) * inv0;
-      s[j][2] = ex2(s[j][2] - m1) * inv1;
-      s[j][3] = ex2(s[j][3] - m1) * inv1;
-    }
+    ma_normalize(s, m0, m1, inv0, inv1);
 #pragma unroll
     for (int u = 0; u < MA_NT / 2; ++u) {
       if (c0 + 16 * u < lkp) {
@@ -871,27 +1086,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     if constexpr (ACC) {
-      // The tile is [key][query] with a row stride of 68 floats, so a
-      // warp's 32 adds of one fragment slot (4 keys x 8 queries) hit 32
-      // banks.  Each acc element belongs to this block alone: no atomics.
-      const int rows = min(MA_KC, Lk - c0);
-      cp_async_wait<0>();
-      __syncthreads();  // every thread's copies of the tile have landed
-#pragma unroll
-      for (int j = 0; j < MA_NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = 8 * j + 2 * t + (e & 1);
-          if (key < rows) At[key * MA_ASTR + qr + 8 * (e >> 1)] += s[j][e];
-        }
-      __syncthreads();
-      float* dst = acc_bh + (long long)c0 * Lq;
-      for (int e = tid; e < rows * (MA_BQ / 4); e += MA_THREADS) {
-        const int r = e / (MA_BQ / 4), c4 = e % (MA_BQ / 4);
-        if (q0 + 4 * c4 < Lq)
-          *reinterpret_cast<float4*>(dst + (long long)r * Lq + 4 * c4) =
-              *reinterpret_cast<const float4*>(At + r * MA_ASTR + 4 * c4);
-      }
+      ma_add_acc(At, acc_bh, s, c0, Lk, Lq, q0, qr, t, tid);
       if (c + 1 < n_chunks) __syncthreads();  // before the next chunk's copies
     } else if (write_p) {
 #pragma unroll
@@ -942,18 +1137,239 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// cross_attention_acc, fp32, on the tensor cores (mma.sync, 3xTF32)
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of a block: the q tile and one chunk of k and of v
+// in fp32 rows of hd + 4 floats (a chunk's keys zero-filled to a multiple
+// of 16), then one chunk of acc rows.  At most 137 KB (hd 128), so every Lk
+// fits: past one chunk, the chunks stream through.
+inline long long mt_smem_bytes(int hd, long long Lk) {
+  const long long rows = Lk < MA_KC ? (Lk + 15) & ~15LL : MA_KC;
+  return (MA_BQ + 2 * rows) * (hd + 4) * 4 + (Lk < MA_KC ? Lk : MA_KC) * MA_ASTR * 4;
+}
+
+// ma_scores in 3xTF32 from fp32 tiles: the scores of keys c0 .. c0 + MA_KC -
+// 1 (rows 0 .. of Ks) for the warp's 16 queries, whose rows q_lane
+// addresses as for flash_attention_tf32x3_kernel; log2 domain, keys past Lk
+// at -inf, mma's D layout.
+template <int HD>
+__device__ __forceinline__ void mt_scores(float (&s)[MA_NT][4], uint32_t q_lane,
+                                          const float* Ks, int c0, int Lk, float scale_log2,
+                                          int lane) {
+  using namespace hopper;
+  constexpr int STR = HD + 4;
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  const float* k_lane = Ks + (8 * (lane / 16) + lane % 8) * STR + 4 * ((lane / 8) % 2);
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    uint32_t qa[4], qh[4], ql[4];
+    ldmatrix_x4(qa, q_lane + 32 * kk);
+    split_tf32(qa, qh, ql);
+#pragma unroll
+    for (int jp = 0; jp < MA_NT / 2; ++jp) {
+      if (c0 + 16 * jp < Lk) {
+        uint32_t kr[4], kh[4], kl[4];
+        ldmatrix_x4(kr, smem_u32(k_lane + 16 * jp * STR + 8 * kk));
+        split_tf32(kr, kh, kl);
+        mma_tf32x3(s[2 * jp], qh, ql, kh[0], kh[1], kl[0], kl[1]);
+        mma_tf32x3(s[2 * jp + 1], qh, ql, kh[2], kh[3], kl[2], kl[3]);
+      }
+    }
+  }
+  const int col = c0 + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = col + 8 * j + (e & 1) < Lk ? s[j][e] * scale_log2 : -INFINITY;
+}
+
+// cross_attention_mma_kernel's K1 in fp32: the same block, chunks, softmax
+// and acc epilogue, with both products in 3xTF32 and O in fp32.  At Lk <= 80
+// q, k, v and the acc tile land at once (two groups, the tile's landing
+// while the products run) and the one chunk's scores stay in registers; a
+// longer Lk streams each chunk's k (pass 1), then its k, v and acc tile
+// (pass 2) through the same buffers.
+template <int HD>
+__global__ void __launch_bounds__(MA_THREADS, HD == 128 ? 1 : 2)
+cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ o,
+                              float* __restrict__ acc, int H, int Lq, int Lk, Strides qs,
+                              Strides ks, Strides vs, float scale_log2) {
+  using namespace hopper;
+  constexpr int STR = HD + 4;  // fp32 row stride of the q, k and v tiles
+  constexpr int CH = HD / 4;   // 16-byte chunks of a row
+  DAAM_DYNAMIC_SMEM(float, mt_smem);
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * MA_BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qr = warp * 16 + g;  // block row of s[.][0..1]; s[.][2..3] is qr + 8
+  const int n_chunks = (Lk + MA_KC - 1) / MA_KC;
+  const int kv_rows = n_chunks > 1 ? MA_KC : (Lk + 15) & ~15;
+  float* Qs = mt_smem;
+  float* Ks = Qs + MA_BQ * STR;
+  float* Vs = Ks + kv_rows * STR;
+  float* At = Vs + kv_rows * STR;  // [chunk rows][MA_ASTR]
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  float* acc_bh = acc + ((long long)b * H + h) * Lk * Lq + q0;
+
+  // The keys of the chunk at c0 from src (k or v) into dst, rows past Lk
+  // zero-filled up to a multiple of 16 (P is 0 there, and 0 * V must stay 0).
+  auto load_keys = [&](float* dst, const float* src, long long stride, int c0) {
+    const int rows = min(kv_rows, (Lk - c0 + 15) & ~15);
+    for (int e = tid; e < rows * CH; e += MA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool in = c0 + r < Lk;
+      cp_async16(smem_u32(dst + r * STR + 4 * c), src + (in ? c0 + r : 0) * stride + 4 * c,
+                 in ? 16 : 0);
+    }
+  };
+  {  // q rows past Lq are zero-filled
+    const float* qb = q + b * qs.b + h * qs.h;
+    for (int e = tid; e < MA_BQ * CH; e += MA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool in = q0 + r < Lq;
+      cp_async16(smem_u32(Qs + r * STR + 4 * c), qb + (in ? q0 + r : 0) * qs.l + 4 * c,
+                 in ? 16 : 0);
+    }
+  }
+  if (n_chunks == 1) {
+    load_keys(Ks, kb, ks.l, 0);
+    load_keys(Vs, vb, vs.l, 0);
+    cp_async_commit();
+    ma_load_acc(At, acc_bh, 0, Lk, Lq, q0, tid);  // group 1: lands while the products run
+    cp_async_wait<1>();
+  } else {
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+  const uint32_t q_lane = smem_u32(Qs + (warp * 16 + lane % 16) * STR + 4 * (lane / 16));
+
+  // Pass 1: row max and sum of exp over the chunks.
+  float s[MA_NT][4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    if (n_chunks > 1) {
+      if (c > 0) __syncthreads();  // every warp is done with chunk c - 1's keys
+      load_keys(Ks, kb, ks.l, c * MA_KC);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    mt_scores<HD>(s, q_lane, Ks, c * MA_KC, Lk, scale_log2, lane);
+    ma_row_stats(s, m0, m1, l0, l1);
+  }
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+
+  // Pass 2, per chunk: normalized fp32 P; O += P V per 8 keys, P straight
+  // from the score fragment (pv_tf32x3); acc += Pᵀ.
+  float oacc[HD / 8][4];
+#pragma unroll
+  for (int jd = 0; jd < HD / 8; ++jd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[jd][e] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * MA_KC;
+    if (n_chunks > 1) {
+      __syncthreads();  // chunk c - 1's keys, values and acc tile are consumed
+      load_keys(Ks, kb, ks.l, c0);
+      load_keys(Vs, vb, vs.l, c0);
+      cp_async_commit();
+      ma_load_acc(At, acc_bh, c0, Lk, Lq, q0, tid);
+      cp_async_wait<1>();
+      __syncthreads();
+      mt_scores<HD>(s, q_lane, Ks, c0, Lk, scale_log2, lane);
+    }
+    ma_normalize(s, m0, m1, inv0, inv1);
+#pragma unroll
+    for (int j = 0; j < MA_NT; ++j)
+      if (c0 + 8 * j < Lk) pv_tf32x3<HD, STR>(oacc, s[j], Vs, 8 * j, g, t);
+    ma_add_acc(At, acc_bh, s, c0, Lk, Lq, q0, qr, t, tid);
+  }
+
+  // O: each warp stages its 16 rows in its own rows of the q tile (which
+  // only it read), then stores them with 16-byte stores.
+  float* Os = Qs + warp * 16 * STR;
+  __syncwarp();
+#pragma unroll
+  for (int jd = 0; jd < HD / 8; ++jd) {
+    *reinterpret_cast<float2*>(Os + g * STR + 8 * jd + 2 * t) =
+        make_float2(oacc[jd][0], oacc[jd][1]);
+    *reinterpret_cast<float2*>(Os + (g + 8) * STR + 8 * jd + 2 * t) =
+        make_float2(oacc[jd][2], oacc[jd][3]);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH, c = e % CH;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < Lq)
+      *reinterpret_cast<float4*>(o + ((long long)b * Lq + qi) * (H * HD) + h * HD + 4 * c) =
+          *reinterpret_cast<const float4*>(Os + r * STR + 4 * c);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
+constexpr float LOG2E = 1.4426950408889634f;  // the kernels work in exp2
+
+// Sets a kernel's dynamic shared memory limit to `bytes`, once per device.
+template <typename K>
+cudaError_t opt_in_smem(K kernel, int device, int bytes, bool (&done)[64]) {
+  if (device < 64 && done[device]) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err == cudaSuccess && device < 64) done[device] = true;
+  return err;
+}
+
 template <int HD>
-cudaError_t launch_flash(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int Lq, int Lk, Strides qs, Strides ks,
-                         Strides vs, float scale, cudaStream_t stream) {
-  dim3 grid((Lq + FA_BQ - 1) / FA_BQ, H, B);
-  DAAM_LAUNCH(grid, FA_THREADS, 0, stream, flash_attention_kernel<HD>)(
+cudaError_t launch_flash_tf32x3(int device, const void* q, const void* k, const void* v,
+                                void* o, int B, int H, int Lq, int Lk, Strides qs,
+                                Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  constexpr int smem = FtTile<HD>::SMEM;
+  static bool smem_set[64] = {};
+  cudaError_t err = opt_in_smem(flash_attention_tf32x3_kernel<HD>, device, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + FT_BQ - 1) / FT_BQ, H, B);
+  DAAM_LAUNCH(grid, FT_THREADS, smem, stream, flash_attention_tf32x3_kernel<HD>)(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, Lk, qs, ks,
-      vs, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), H, Lq, Lk, qs, ks, vs,
+      scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_cross_tf32x3(int device, const void* q, const void* k, const void* v,
+                                void* o, float* acc, int B, int H, int Lq, int Lk,
+                                Strides qs, Strides ks, Strides vs, float scale,
+                                cudaStream_t stream) {
+  static bool smem_set[64] = {};  // the opt-in to the largest block, at Lk >= 80
+  cudaError_t err = opt_in_smem(cross_attention_tf32x3_kernel<HD>, device,
+                                (int)mt_smem_bytes(HD, MA_KC), smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + MA_BQ - 1) / MA_BQ, H, B);
+  DAAM_LAUNCH(grid, MA_THREADS, mt_smem_bytes(HD, Lk), stream,
+              cross_attention_tf32x3_kernel<HD>)(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), acc, H, Lq, Lk, qs, ks, vs,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1021,40 +1437,15 @@ int launch_flash_wgmma(int device, const void* q, const void* k, const void* v,
   if (res == CUDA_SUCCESS) res = encode_view<HD>(encode, &tv, v, B, Lk, H, vs);
   if (res != CUDA_SUCCESS) return TENSOR_MAP_ERROR + res;
   const int smem = TcTile<HD>::SMEM;
-  static bool smem_set[64] = {};  // the opt-in, once per device
-  if (device >= 64 || !smem_set[device]) {
-    err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    if (device < 64) smem_set[device] = true;
-  }
+  static bool smem_set[64] = {};
+  err = opt_in_smem(flash_attention_wgmma_kernel<HD>, device, smem, smem_set);
+  if (err != cudaSuccess) return err;
   dim3 grid((Lq + TC_BQ - 1) / TC_BQ, H, B);
   flash_attention_wgmma_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Lq, Lk,
-      scale * 1.4426950408889634f);  // log2(e): the kernel works in exp2
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Lq, Lk, scale * LOG2E);
   return cudaGetLastError();
 }
 #endif  // DAAM_EMULATE
-
-template <int HD>
-cudaError_t launch_cross_acc(const void* q, const void* k, const void* v,
-                             void* o, float* acc, int B, int H, int Lq, int Lk,
-                             Strides qs, Strides ks, Strides vs, float scale,
-                             cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)Lk * HD * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cross_attention_acc_kernel<HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((Lq + CA_THREADS - 1) / CA_THREADS, H, B);
-  DAAM_LAUNCH(grid, CA_THREADS, smem, stream, cross_attention_acc_kernel<HD>)(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), acc, H, Lq, Lk, qs, ks, vs,
-      scale);
-  return cudaGetLastError();
-}
 
 template <typename PT, int HD>
 cudaError_t launch_cross_probs(const void* q, const void* k, const void* v,
@@ -1089,33 +1480,15 @@ cudaError_t launch_cross_mma(int device, const void* q, const void* k, const voi
   const long long smem = ma_smem_bytes(HD, Lk, ACC ? 0 : (int)sizeof(PT));
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   auto kernel = cross_attention_mma_kernel<HD, PT, ACC>;
-  static bool smem_set[64] = {};  // the opt-in to all of SMEM_MAX, once per device
-  if (device >= 64 || !smem_set[device]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           SMEM_MAX);
-    if (err != cudaSuccess) return err;
-    if (device < 64) smem_set[device] = true;
-  }
+  static bool smem_set[64] = {};  // the opt-in to all of SMEM_MAX
+  cudaError_t err = opt_in_smem(kernel, device, SMEM_MAX, smem_set);
+  if (err != cudaSuccess) return err;
   dim3 grid((Lq + MA_BQ - 1) / MA_BQ, H, B);
   DAAM_LAUNCH(grid, MA_THREADS, smem, stream, kernel)(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), acc,
-      static_cast<PT*>(p), H, Lq, Lk, skip_b, qs, ks, vs,
-      scale * 1.4426950408889634f);  // log2(e): the kernel works in exp2
+      static_cast<PT*>(p), H, Lq, Lk, skip_b, qs, ks, vs, scale * LOG2E);
   return cudaGetLastError();
-}
-
-cudaError_t cross_acc_dispatch(int hd, const void* q, const void* k, const void* v,
-                               void* o, float* acc, int B, int H, int Lq, int Lk,
-                               Strides qs, Strides ks, Strides vs, float scale,
-                               cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch_cross_acc<16>(q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, stream);
-    case 32: return launch_cross_acc<32>(q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, stream);
-    case 64: return launch_cross_acc<64>(q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, stream);
-    case 128: return launch_cross_acc<128>(q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <typename PT>
@@ -1151,22 +1524,24 @@ cudaError_t cross_mma_dispatch(int device, int hd, const void* q, const void* k,
 // Plain C interface, bound with ctypes.  Each returns the cudaError_t of its
 // launch (0 on success).
 
-// fp32 only, on the CUDA cores; bf16 goes to daam_flash_attention_wgmma.
-extern "C" int daam_flash_attention(int device, int hd, const void* q,
-                                    const void* k, const void* v, void* o,
-                                    int B, int H, int Lq, int Lk, int qsb,
-                                    int qsl, int qsh, int ksb, int ksl,
-                                    int ksh, int vsb, int vsl, int vsh,
-                                    float scale, void* stream) {
+// fp32 only, on the tensor cores in 3xTF32; every view's base must be
+// 16-byte aligned and its b, l, h strides multiples of 4 elements (16
+// bytes), as cp.async requires.  bf16 goes to daam_flash_attention_wgmma.
+extern "C" int daam_flash_attention_tf32x3(int device, int hd, const void* q,
+                                           const void* k, const void* v, void* o,
+                                           int B, int H, int Lq, int Lk, int qsb,
+                                           int qsl, int qsh, int ksb, int ksl,
+                                           int ksh, int vsb, int vsl, int vsh,
+                                           float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_flash<16>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 32: return launch_flash<32>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 64: return launch_flash<64>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 128: return launch_flash<128>(q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 16: return launch_flash_tf32x3<16>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 32: return launch_flash_tf32x3<32>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 64: return launch_flash_tf32x3<64>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 128: return launch_flash_tf32x3<128>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1194,18 +1569,27 @@ extern "C" int daam_flash_attention_wgmma(int device, int hd, const void* q,
 }
 #endif  // DAAM_EMULATE
 
-// fp32 only, on the CUDA cores; bf16 goes to daam_cross_attention_acc_mma.
-extern "C" int daam_cross_attention_acc(int device, int hd, const void* q,
-                                        const void* k, const void* v, void* o,
-                                        float* acc, int B, int H, int Lq, int Lk,
-                                        int qsb, int qsl, int qsh, int ksb, int ksl,
-                                        int ksh, int vsb, int vsl, int vsh,
-                                        float scale, void* stream) {
+// fp32 only, on the tensor cores in 3xTF32, under the view and accumulator
+// conditions of daam_cross_attention_acc_mma (in 16-byte units: multiples of
+// 4 floats); every Lk fits (mt_smem_bytes).  bf16 goes to
+// daam_cross_attention_acc_mma.
+extern "C" int daam_cross_attention_acc_tf32x3(int device, int hd, const void* q,
+                                               const void* k, const void* v, void* o,
+                                               float* acc, int B, int H, int Lq, int Lk,
+                                               int qsb, int qsl, int qsh, int ksb, int ksl,
+                                               int ksh, int vsb, int vsl, int vsh,
+                                               float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return cross_acc_dispatch(hd, q, k, v, o, acc, B, H, Lq, Lk, Strides{qsb, qsl, qsh},
-                            Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale,
-                            static_cast<cudaStream_t>(stream));
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_cross_tf32x3<16>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 32: return launch_cross_tf32x3<32>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 64: return launch_cross_tf32x3<64>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    case 128: return launch_cross_tf32x3<128>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // bf16 only, on the tensor cores; every view's base must be 16-byte aligned

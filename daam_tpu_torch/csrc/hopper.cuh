@@ -1,8 +1,8 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory barriers
 // (mbarrier), TMA tile loads, and warpgroup matrix multiplies (wgmma) with
 // their shared-memory matrix descriptors; and the warp-level set (cp.async
-// 16-byte copies, ldmatrix, mma.sync m16n8k16).  Only attention.cu
-// includes it.
+// 16-byte copies, ldmatrix, mma.sync m16n8k16 in bf16 and m16n8k8 in
+// TF32).  Only attention.cu includes it.
 
 #pragma once
 
@@ -305,6 +305,19 @@ __device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[
                                              uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D (16 x 8, fp32) += A (16 x 8, tf32, row) * B (8 x 8, tf32, col), one
+// warp.  With g = lane / 4 and t = lane % 4: a = {(g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4)}, b = {(k t, n g), (k t + 4, n g)}, d as for
+// mma_m16n8k16.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -41,10 +41,15 @@ _SMEM_MAX = 227 * 1024
 
 #: Kernel launches since the last :func:`reset_launches`, by launcher name.
 #: ``flash_attention_wgmma``, ``cross_attention_acc_mma`` and
-#: ``cross_attention_probs_mma`` count the launches of the bf16 route
-#: (tensor cores), which the launcher's own total counts too.
+#: ``cross_attention_probs_mma`` count the launches of the bf16 routes,
+#: ``flash_attention_tf32x3`` and ``cross_attention_acc_tf32x3`` those of
+#: the fp32 routes (all on the tensor cores); the launcher's own total counts
+#: them too.  fp32 ``cross_attention_probs`` (CUDA cores) has no count of
+#: its own.
 launches = {'flash_attention': 0, 'flash_attention_wgmma': 0,
+            'flash_attention_tf32x3': 0,
             'cross_attention_acc': 0, 'cross_attention_acc_mma': 0,
+            'cross_attention_acc_tf32x3': 0,
             'cross_attention_probs': 0, 'cross_attention_probs_mma': 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -104,9 +109,9 @@ def load_library() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     common = [i, i, ptr, ptr, ptr, ptr]  # device, hd, q, k, v, o
     dims = [i] * 4 + [i] * 9 + [ctypes.c_float, ptr]
-    for fn, extra in ((lib.daam_flash_attention, []),
+    for fn, extra in ((lib.daam_flash_attention_tf32x3, []),
                       (lib.daam_flash_attention_wgmma, []),
-                      (lib.daam_cross_attention_acc, [ptr]),
+                      (lib.daam_cross_attention_acc_tf32x3, [ptr]),
                       (lib.daam_cross_attention_acc_mma, [ptr]),
                       (lib.daam_cross_attention_probs, [ptr, i, i]),
                       (lib.daam_cross_attention_probs_mma, [ptr, i, i])):
@@ -152,9 +157,10 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 def tma_view_error(shape, strides, data_ptr: int,
                    itemsize: int) -> Optional[str]:
-    """Why a (B, L, H, hd) view cannot be a TMA source, or None if it can.
+    """Why a (B, L, H, hd) view cannot be a TMA or 16-byte cp.async source,
+    or None if it can.
 
-    TMA needs a 16-byte-aligned base and b, l, h strides that are positive
+    Both need a 16-byte-aligned base and b, l, h strides that are positive
     multiples of 16 bytes (the hd stride is 1).  Pure: shapes, strides in
     elements and the address as integers.
     """
@@ -166,20 +172,22 @@ def tma_view_error(shape, strides, data_ptr: int,
     return None
 
 
-def cross_route_error(views, Lq: int, acc_ptr=None) -> Optional[str]:
-    """Why the bf16 tensor-core ``cross_attention_acc`` (``acc_ptr`` given)
-    or ``cross_attention_probs`` kernel cannot take these operands, or None.
+def cross_route_error(views, Lq: int, acc_ptr=None,
+                      itemsize: int = 2) -> Optional[str]:
+    """Why a tensor-core ``cross_attention_acc`` kernel (``acc_ptr`` given:
+    bf16, or fp32 with ``itemsize`` 4) or the bf16 ``cross_attention_probs``
+    kernel cannot take these operands, or None.
 
-    ``views``: ``{name: (shape, strides, data_ptr)}`` of the bf16 q, k and v
+    ``views``: ``{name: (shape, strides, data_ptr)}`` of the q, k and v
     views, which the kernels copy in 16-byte pieces (the conditions of
     :func:`tma_view_error`).  The accumulator tile moves in 16-byte pieces
     too: acc's base must be 16-byte aligned and Lq a multiple of 4.  Pure:
     shapes, strides and addresses as integers.  (An Lk whose block does not
-    fit in shared memory is refused by the kernel's entry point, and the
-    launch raises.)
+    fit in shared memory is refused by the bf16 kernels' entry point, and
+    the launch raises; the fp32 kernel streams long Lk through.)
     """
     for name, (shape, strides, ptr) in views.items():
-        why = tma_view_error(shape, strides, ptr, 2)
+        why = tma_view_error(shape, strides, ptr, itemsize)
         if why:
             return f'{name}: {why}'
     if acc_ptr is not None:
@@ -193,10 +201,10 @@ def cross_route_error(views, Lq: int, acc_ptr=None) -> Optional[str]:
 def _route_check(name, q, k, v, Lq, **kw):
     why = cross_route_error({n: (t.shape, t.stride(), t.data_ptr())
                              for n, t in (('q', q), ('k', k), ('v', v))},
-                            Lq, **kw)
+                            Lq, itemsize=q.element_size(), **kw)
     if why:
-        raise ValueError(f'bf16 {name} runs on the tensor cores, which cannot '
-                         f'take this call: {why}')
+        raise ValueError(f'{q.dtype} {name} runs on the tensor cores, which '
+                         f'cannot take this call: {why}')
 
 
 def _args(q, k, v):
@@ -218,34 +226,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     ``q``: (B, Lq, H, hd), ``k``/``v``: (B, Lk, H, hd) views with a
     contiguous hd axis.  Returns (B, Lq, H·hd).
 
-    The kernel is chosen by dtype, by design: bf16 runs on the tensor cores
-    (``flash_attention_wgmma_kernel``: wgmma for both products, TMA loads),
-    which read the views through TMA and so need a 16-byte-aligned base and
-    b, l, h strides that are multiples of 16 bytes (:func:`tma_view_error`;
-    any other bf16 view raises).  fp32 runs on the CUDA cores
-    (``flash_attention_kernel``, any strides): on the tensor cores it would
-    be TF32.
+    The kernel is chosen by dtype; both run on the tensor cores.  bf16 takes
+    ``flash_attention_wgmma_kernel`` (wgmma for both products, TMA loads),
+    fp32 ``flash_attention_tf32x3_kernel`` (mma.sync for both products in
+    3xTF32: each operand split into two TF32 parts and three products
+    taken, which keeps fp32 accuracy; cp.async loads).  TMA and cp.async
+    both read in 16-byte pieces, so every view needs a 16-byte-aligned base
+    and b, l, h strides that are multiples of 16 bytes
+    (:func:`tma_view_error`; any other view raises).
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
-    tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores:
-        for name, t in (('q', q), ('k', k), ('v', v)):
-            why = tma_view_error(t.shape, t.stride(), t.data_ptr(),
-                                 t.element_size())
-            if why:
-                raise ValueError(f'{name}: bf16 flash_attention reads its '
-                                 f'inputs by TMA: {why}')
+    bf16 = q.dtype == torch.bfloat16
+    for name, t in (('q', q), ('k', k), ('v', v)):
+        why = tma_view_error(t.shape, t.stride(), t.data_ptr(), t.element_size())
+        if why:
+            raise ValueError(f'{name}: {q.dtype} flash_attention reads its inputs '
+                             f'by {"TMA" if bf16 else "16-byte cp.async"}: {why}')
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    launch = (lib.daam_flash_attention_wgmma if tensor_cores
-              else lib.daam_flash_attention)
+    launch = (lib.daam_flash_attention_wgmma if bf16
+              else lib.daam_flash_attention_tf32x3)
     err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), B, H, Lq, Lk, *strides, scale, stream)
     _raise_on(err, 'flash_attention')
     launches['flash_attention'] += 1
-    if tensor_cores:
-        launches['flash_attention_wgmma'] += 1
+    launches['flash_attention_wgmma' if bf16 else 'flash_attention_tf32x3'] += 1
     return o
 
 
@@ -257,12 +263,14 @@ def cross_attention_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention`; ``acc``: contiguous fp32 (B, H, Lk, Lq).
     Returns the attention output (B, Lq, H·hd).
 
-    The kernel is chosen by dtype, as for :func:`flash_attention`: bf16 runs
-    on the tensor cores (``cross_attention_mma_kernel``: mma.sync for both
-    products, 16-byte copies of the operands and of the acc tile), and
-    raises on a call it cannot take (:func:`cross_route_error`; an Lk whose
-    block passes 227 KB of shared memory fails at launch); fp32 runs on the
-    CUDA cores (``cross_attention_acc_kernel``).
+    The kernel is chosen by dtype; both run on the tensor cores with
+    16-byte copies of the operands and of the acc tile, and raise on a call
+    they cannot take (:func:`cross_route_error`).  bf16 takes
+    ``cross_attention_mma_kernel`` (mma.sync for both products; an Lk whose
+    block passes 227 KB of shared memory fails at launch), fp32
+    ``cross_attention_tf32x3_kernel`` (the same block in 3xTF32, as
+    :func:`flash_attention`; it streams a long Lk through in 80-key chunks,
+    so every Lk fits).
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
     if acc.dtype != torch.float32 or tuple(acc.shape) != (B, H, Lk, Lq) \
@@ -270,23 +278,19 @@ def cross_attention_acc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f'acc must be contiguous fp32 {(B, H, Lk, Lq)} on '
                          f'{q.device}, got {acc.dtype} {tuple(acc.shape)} '
                          f'on {acc.device}')
-    tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores:
-        _route_check('cross_attention_acc', q, k, v, Lq, acc_ptr=acc.data_ptr())
-    elif 2 * Lk * hd * 4 > _SMEM_MAX:
-        raise ValueError(f'Lk={Lk} x hd={hd} does not fit in shared memory')
+    bf16 = q.dtype == torch.bfloat16
+    _route_check('cross_attention_acc', q, k, v, Lq, acc_ptr=acc.data_ptr())
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    launch = (lib.daam_cross_attention_acc_mma if tensor_cores
-              else lib.daam_cross_attention_acc)
+    launch = (lib.daam_cross_attention_acc_mma if bf16
+              else lib.daam_cross_attention_acc_tf32x3)
     err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), acc.data_ptr(), B, H, Lq, Lk, *strides, scale,
                  stream)
     _raise_on(err, 'cross_attention_acc')
     launches['cross_attention_acc'] += 1
-    if tensor_cores:
-        launches['cross_attention_acc_mma'] += 1
+    launches['cross_attention_acc_mma' if bf16 else 'cross_attention_acc_tf32x3'] += 1
     return o
 
 
@@ -301,10 +305,11 @@ def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cond_only`` (CFG layout ``[uncond; cond]``) the rows of the first B/2
     samples of P are left unwritten.
 
-    Routed by the dtype of q, k and v as :func:`cross_attention_acc` is:
-    bf16 on the tensor cores (``cross_attention_mma_kernel``, raising on a
-    call :func:`cross_route_error` refuses), fp32 on the CUDA cores
-    (``cross_attention_probs_kernel``).
+    Routed by the dtype of q, k and v: bf16 on the tensor cores
+    (``cross_attention_mma_kernel``, raising on a call
+    :func:`cross_route_error` refuses), fp32 on the CUDA cores
+    (``cross_attention_probs_kernel``, any strides; (2·hd + 64)·Lk floats
+    must fit in 227 KB of shared memory).
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
     if probs_dtype not in _DTYPE_CODES:

@@ -6,8 +6,8 @@ K4's layout) are held against ``daam_tpu``'s jnp path and its Pallas kernels
 in interpret mode, in fp32 with atol 1e-5: both sides do the same fp32
 arithmetic and differ only in summation order; and K2's in bf16 with atol
 2e-2, the card's bf16 gate, since the two round P and O at other points.
-The kernels themselves run only on a CUDA card (``cuda`` marker); there they
-are held against the plain versions at every head dim.
+The kernels themselves run only on a CUDA card; ``tests/test_torch_cuda.py``
+holds them against the plain versions there at every head dim.
 """
 
 import numpy as np
@@ -262,14 +262,18 @@ def test_library_path_tracks_headers(tmp_path, monkeypatch):
 
 
 def test_launch_counters_include_the_tensor_core_route():
-    """reset_launches zeroes every counter, the tensor-core ones included."""
+    """reset_launches zeroes every counter, those of the bf16 and the fp32
+    tensor-core routes included."""
     for name in ('flash_attention_wgmma', 'cross_attention_acc_mma',
-                 'cross_attention_probs_mma'):
+                 'cross_attention_probs_mma', 'flash_attention_tf32x3',
+                 'cross_attention_acc_tf32x3'):
         kernels.launches[name] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
+                                     'flash_attention_tf32x3',
                                      'cross_attention_acc',
                                      'cross_attention_acc_mma',
+                                     'cross_attention_acc_tf32x3',
                                      'cross_attention_probs',
                                      'cross_attention_probs_mma'}
     assert not any(kernels.launches.values())
@@ -327,6 +331,25 @@ def test_cross_route_error_views(layout, offset, ok):
             assert why.startswith('q: ')
 
 
+@pytest.mark.parametrize('layout, offset, ok', [
+    ('head_major', 0, True), ('packed', 0, True),
+    ('packed', 4, True),                            # q[bc:] style: 16 bytes in
+    ('packed', 2, False),                           # base 8 bytes off 16
+    ('padded_rows', 0, False)])                     # row stride 321 floats
+def test_fp32_views_of_the_tensor_core_routes(layout, offset, ok):
+    """fp32 K1 and K2 copy q, k and v in 16-byte pieces too: 4 floats make
+    16 bytes, so the views of the paths pass and a misaligned base or row
+    stride is named."""
+    q = _view_of((1, 64, 5, 64), layout, torch.float32, offset=offset)
+    k = _view_of((1, 77, 5, 64), 'packed', torch.float32)
+    why = kernels.tma_view_error(q.shape, q.stride(), q.data_ptr(), 4)
+    assert (why is None) == ok, why
+    why = kernels.cross_route_error(_views(q, k, k), 64, acc_ptr=0, itemsize=4)
+    assert (why is None) == ok, why
+    if not ok:
+        assert why.startswith('q: ')
+
+
 def test_cross_route_error_accumulator():
     """acc moves in 16-byte pieces: an aligned base and Lq % 4 == 0; P has
     no such rule."""
@@ -337,93 +360,3 @@ def test_cross_route_error_accumulator():
     assert 'aligned' in kernels.cross_route_error(views, 64, acc_ptr=4100)
     assert 'Lq % 4' in kernels.cross_route_error(views, 62, acc_ptr=4096)
     assert kernels.cross_route_error(views, 62) is None
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device and nvcc (the kernels run only there)')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('hd', kernels.HEAD_DIMS)
-@pytest.mark.parametrize('Lk', [77, 600])
-def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
-    B, H, Lq = 2, 3, 100
-    q, k, v = (_packed_view(t).to(cuda_device)
-               for t in _qkv(B, H, Lq, Lk, hd, seed=hd))
-    n = dict(kernels.launches)
-    torch.testing.assert_close(kernels.flash_attention(q, k, v),
-                               A.flash_attention_plain(q, k, v),
-                               rtol=0, atol=1e-4)
-    # fp32 K1 stages k and v as fp32: 2·Lk·hd floats must fit in 227 KB
-    lk_acc = min(Lk, 227 * 1024 // (8 * hd))
-    q1, k1, v1 = (_packed_view(t).to(cuda_device)
-                  for t in _qkv(B, H, Lq, lk_acc, hd, seed=hd + 2))
-    acc = torch.rand(B, H, lk_acc, Lq, device=cuda_device)
-    acc_plain = acc.clone()
-    out = kernels.cross_attention_acc(q1, k1, v1, acc)
-    torch.testing.assert_close(
-        out, A.cross_attention_acc_plain(q1, k1, v1, acc_plain), rtol=0, atol=1e-4)
-    torch.testing.assert_close(acc, acc_plain, rtol=0, atol=1e-5)
-    assert kernels.launches['flash_attention'] == n['flash_attention'] + 1
-    assert kernels.launches['cross_attention_acc'] == n['cross_attention_acc'] + 1
-    assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma']
-    assert kernels.launches['cross_attention_acc_mma'] == n['cross_attention_acc_mma']
-
-    # bf16: K2 on the tensor cores, at this head dim, both layouts; the
-    # bf16 gate is 2e-2.
-    n = dict(kernels.launches)
-    for view in (_packed_view, _head_major_view):
-        qb, kb, vb = (view(t).to(cuda_device, torch.bfloat16)
-                      for t in _qkv(B, H, Lq, Lk, hd, seed=hd + 1))
-        torch.testing.assert_close(kernels.flash_attention(qb, kb, vb).float(),
-                                   A.flash_attention_plain(qb, kb, vb).float(),
-                                   rtol=0, atol=2e-2)
-    assert kernels.launches['flash_attention'] == n['flash_attention'] + 2
-    assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma'] + 2
-    with pytest.raises(ValueError, match='TMA'):
-        padded = torch.zeros(B, Lq, H * hd + 8, device=cuda_device,
-                             dtype=torch.bfloat16)[..., 1:H * hd + 1]
-        kernels.flash_attention(padded.unflatten(-1, (H, hd)), kb, vb)
-
-    # bf16 K1 and K5 on the tensor cores, at this head dim, both layouts,
-    # two calls into one accumulator, P in both types with cond_only; a block
-    # holds q, k, v and its fp32 P span in 227 KB, which 256 keys fit at
-    # every head dim
-    lk_mma = min(Lk, 256)
-    n = dict(kernels.launches)
-    acc = torch.rand(B, H, lk_mma, Lq, device=cuda_device)
-    acc_plain = acc.clone()
-    for view in (_packed_view, _head_major_view):
-        qb, kb, vb = (view(t).to(cuda_device, torch.bfloat16)
-                      for t in _qkv(B, H, Lq, lk_mma, hd, seed=hd + 3))
-        torch.testing.assert_close(
-            kernels.cross_attention_acc(qb, kb, vb, acc).float(),
-            A.cross_attention_acc_plain(qb, kb, vb, acc_plain).float(),
-            rtol=0, atol=2e-2)
-        for pdt, cond_only in ((torch.float32, False), (torch.bfloat16, True)):
-            o, p = kernels.cross_attention_probs(qb, kb, vb, cond_only, pdt)
-            ro, rp = A.cross_attention_probs_plain(qb, kb, vb, cond_only, pdt)
-            rows = slice(B // 2, None) if cond_only else slice(None)
-            torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=2e-2)
-            torch.testing.assert_close(p[rows].float(), rp[rows].float(), rtol=0,
-                                       atol=1e-5 if pdt == torch.float32 else 1 / 128)
-    torch.testing.assert_close(acc, acc_plain, rtol=0, atol=1e-5)
-    for name, count in (('cross_attention_acc', 2), ('cross_attention_probs', 4)):
-        assert kernels.launches[name] == n[name] + count
-        assert kernels.launches[name + '_mma'] == n[name + '_mma'] + count
-    with pytest.raises(ValueError, match='tensor cores'):  # Lq % 4 != 0
-        kernels.cross_attention_acc(qb[:, :Lq - 2], kb, vb, torch.zeros(
-            B, H, lk_mma, Lq - 2, device=cuda_device))
-    # the entry point refuses a block past 227 KB of shared memory
-    kl = torch.zeros(B, 4096, H, hd, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(RuntimeError, match='launch failed'):
-        kernels.cross_attention_probs(qb, kl, kl)

@@ -16,7 +16,7 @@
 * The port's own analogues of ``tests/test_heads_io.py`` and
   ``tests/test_pipeline_trace.py:125-150``.
 
-The kernel itself runs only on a CUDA card (``cuda`` marker).
+The kernel itself runs only on a CUDA card: ``tests/test_torch_cuda.py``.
 """
 
 import importlib
@@ -37,7 +37,6 @@ from daam_tpu_torch import StableDiffusionPipeline, release_heads, set_seed, tra
 from daam_tpu_torch.models import weights as W
 from daam_tpu_torch.models.configs import get_pipeline_config
 from daam_tpu_torch.ops import attention as A
-from daam_tpu_torch.ops import kernels
 
 from test_e2e_fidelity_torch import _assert_close, _spearman
 from test_torch_attention import _head_major_view, _merged, _packed_view, _qkv
@@ -465,37 +464,3 @@ def test_layer_heads_and_mid_block_located(pipe):
     assert tc.layer_names == ['up-attn-0', 'up-attn-1', 'down-attn-0',
                               'mid-attn-0']
     assert tc.layer_heads == [2, 2, 2, 4]
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device and nvcc (the kernels run only there)')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device('cuda')
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize('hd', kernels.HEAD_DIMS)
-@pytest.mark.parametrize('Lk', [77, 13])
-@pytest.mark.parametrize('probs_dtype', [torch.float32, torch.bfloat16])
-def test_cross_attention_probs_kernel_matches_plain_on_card(hd, Lk, probs_dtype,
-                                                            cuda_device):
-    B, H, Lq = 4, 3, 100
-    q, k, v = (_packed_view(t).to(cuda_device)
-               for t in _qkv(B, H, Lq, Lk, hd, seed=hd + Lk))
-    n = kernels.launches['cross_attention_probs']
-    for cond_only in (False, True):
-        out, p = kernels.cross_attention_probs(q, k, v, cond_only, probs_dtype)
-        ref_out, ref_p = A.cross_attention_probs_plain(q, k, v, cond_only,
-                                                       probs_dtype)
-        torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-4)
-        rows = slice(B // 2, None) if cond_only else slice(None)
-        atol = 1e-5 if probs_dtype == torch.float32 else 1 / 128
-        torch.testing.assert_close(p[rows].float(), ref_p[rows].float(),
-                                   rtol=0, atol=atol)
-    assert kernels.launches['cross_attention_probs'] == n + 2

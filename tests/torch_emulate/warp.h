@@ -3,8 +3,10 @@
 // and indexing run on a machine without a GPU
 // (tests/test_torch_kernel_emulation.py): one std::thread per CUDA thread,
 // pthread barriers for __syncthreads and __syncwarp, and exchange buffers
-// for the warp collectives (__shfl_xor_sync, ldmatrix, mma.sync m16n8k16),
-// whose element layouts follow the PTX ISA.  cp.async copies at once;
+// for the warp collectives (__shfl_xor_sync, ldmatrix, mma.sync m16n8k16 in
+// bf16 and m16n8k8 in TF32, and cvt.rna.tf32.f32 as a reference), whose
+// element layouts
+// follow the PTX ISA.  cp.async copies at once;
 // shared memory is filled with 0xff bytes (NaN as bf16 or float) and every
 // cp.async or ldmatrix address, and a canary past the block's dynamic
 // shared memory, is checked.  Included before attention.cu, it defines
@@ -37,8 +39,12 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 struct uint3s { unsigned x, y, z; };
 extern thread_local uint3s threadIdx, blockIdx;
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
 struct __nv_bfloat16 { unsigned short v; };
 struct __nv_bfloat162 { __nv_bfloat16 a, b; };
 inline float __bfloat162float(__nv_bfloat16 h) { uint32_t u = (uint32_t)h.v << 16; float f; memcpy(&f, &u, 4); return f; }
@@ -85,6 +91,19 @@ inline float __shfl_xor_sync(unsigned, float x, int m) {
 }
 inline size_t __cvta_generic_to_shared(const void* p) { return (const uint8_t*)p - emu_blk->smem; }
 
+// cvt.rna.tf32.f32 by its definition, on the value: to 10 mantissa bits,
+// to nearest, ties away from zero; infinity and NaN pass through.  The
+// kernels' tf32_round computes it with integer operations; run_case tf32
+// holds the two equal.
+inline uint32_t emu_cvt_rna_tf32(float x) {
+  if (!std::isfinite(x)) return __float_as_uint(x);
+  const float mag = std::fabs(x);
+  int e;
+  std::frexp(mag, &e);  // mag = m 2^e, m in [0.5, 1)
+  const float ulp = std::ldexp(1.f, std::max(e - 11, -136));  // 10 bits after the leading one
+  const float r = (float)(std::floor((double)mag / ulp + 0.5) * ulp);  // ties away
+  return __float_as_uint(std::copysign(r, x));
+}
 namespace hopper {
 inline uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 inline void cp_async16(uint32_t dst, const void* src, uint32_t n) {
@@ -141,6 +160,32 @@ inline void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uin
   for (int i = 0; i < 4; ++i) {
     float acc = 0.f;
     for (int k = 0; k < 16; ++k) acc += A[rr[i]][k] * B[k][cc[i]];
+    d[i] += acc;
+  }
+}
+// An operand register as the tensor core reads TF32: the low 13 bits are
+// ignored (a value the kernel did not round arrives truncated).
+inline float emu_tf32(uint32_t v) { return __uint_as_float(v & 0xffffe000u); }
+inline void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  int lane = emu_tid() % 32;
+  uint64_t* s = emu_slot(lane);
+  for (int i = 0; i < 4; ++i) s[i] = a[i];
+  s[4] = b0; s[5] = b1;
+  __syncwarp();
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    int g = l / 4, t = l % 4;
+    uint64_t* x = emu_slot(l);
+    A[g][t] = emu_tf32((uint32_t)x[0]); A[g + 8][t] = emu_tf32((uint32_t)x[1]);
+    A[g][t + 4] = emu_tf32((uint32_t)x[2]); A[g + 8][t + 4] = emu_tf32((uint32_t)x[3]);
+    B[t][g] = emu_tf32((uint32_t)x[4]); B[t + 4][g] = emu_tf32((uint32_t)x[5]);
+  }
+  __syncwarp();
+  int g = lane / 4, t = lane % 4;
+  int rr[4] = {g, g, g + 8, g + 8}, cc[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  for (int i = 0; i < 4; ++i) {
+    float acc = 0.f;  // a product of two TF32 values is exact in fp32
+    for (int k = 0; k < 8; ++k) acc += A[rr[i]][k] * B[k][cc[i]];
     d[i] += acc;
   }
 }
