@@ -7,7 +7,8 @@ head-replay transplant, the traced SDXL slice, timings.
     python3 chip_smoke.py --profile       # also a torch.profiler table of a
                                           # traced call of each full-width model
     python3 chip_smoke.py --kernel-times  # the build, phase 6b's kernel times and
-                                          # phase 9's fp32 s/step only
+                                          # phase 9's fp32 s/step (traced,
+                                          # untraced, save, load) only
 
 ``--kernel-times`` checks nothing beyond the build and prints no result
 line; a copy of this script placed in another checkout times that
@@ -19,10 +20,11 @@ Phases, each of which raises (exit code != 0) when a check fails, in the
 order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
-   each kernel's registers and spills, and fail if a tensor-core kernel
+   each kernel's registers and spills, and fail if a kernel
    (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``,
-   ``flash_attention_tf32x3_kernel``, ``cross_attention_tf32x3_kernel``) is
-   missing or spills.
+   ``flash_attention_tf32x3_kernel``, ``cross_attention_tf32x3_kernel``; the
+   cross-attention ones with the acc and both P epilogues) is missing or
+   spills.
 2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
    version on the same inputs, in both layouts (head-major view and the
    (B, L, H·hd) projection output), in bf16 and fp32 at every head dim of
@@ -31,13 +33,12 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
    ``cross_attention_acc`` at every shape of ``K1_SHAPES`` and
    ``SDXL_K1_SHAPES``, at the ragged Lq = 100 and at Lk = 200 (three 80-key
    chunks), called twice into the same accumulator;
-   ``cross_attention_probs`` at every shape of ``K5_SHAPES``, at the ragged
-   Lq = 37 and at Lk = 200, with and without ``cond_only``, P in fp32 and
-   bf16 (P compared on the rows it writes), in bf16 at every head dim and
-   at ``SDXL_K5_SHAPES``, in fp32 (its CUDA-core kernel) at hd 64.  Every
-   case must have run on its dtype's route (the ``*_wgmma`` and ``*_mma``
-   counters for bf16, ``*_tf32x3`` for fp32 K1 and K2).  TF32 is off for
-   the fp32 plain versions.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5
+   ``cross_attention_probs`` at every shape of ``K5_SHAPES`` and
+   ``SDXL_K5_SHAPES``, at the ragged Lq = 37 and at Lk = 200, with and
+   without ``cond_only``, P in fp32 and bf16 (P compared on the rows it
+   writes).  Every case must have run on its dtype's route (the ``*_wgmma``
+   and ``*_mma`` counters for bf16, ``*_tf32x3`` for fp32).  TF32 is off
+   for the fp32 plain versions.  Max abs error ≤ 1e-4 (fp32 outputs), ≤ 1e-5
    (fp32 P and the fp32 accumulator, whatever the inputs' type: both are
    built from fp32 P), ≤ 1/128 (bf16 P), ≤ 2e-2 (bf16 outputs); Spearman ≥
    0.999.  Each bf16 output of the three kernels must lie closer (mean abs
@@ -62,7 +63,8 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
    (counters: 16 × 10 flash_attention on the bf16 route, nothing else),
    whose per-token heat maps must match the save run's at Spearman ≥ 0.999;
    and a ``load_heads`` run of a second prompt, whose image must differ
-   from a fresh run of that prompt.
+   from a fresh run of that prompt.  Each run prints its s/step and its
+   slowest step.
 6. (a) Seconds per step of v2-1-base bf16 traced and untraced (host clock,
    synchronized per step, warm runs in turns) and of the save and load
    runs.  (b) Run right after phase 8, before any pipeline is profiled:
@@ -92,31 +94,36 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
    cross_attention_probs.  Then one traced step through the kernels and one
    with ``set_kernel_mode('torch')``, from the same latents, whose global
    heat maps must agree at per-token Spearman ≥ 0.99; then its seconds per
-   step traced and untraced.  Then the pipeline is rebuilt in fp32 (13.7 GB
-   of weights) and the one-step comparison repeated with TF32 off, at
-   Spearman ≥ 0.999, its kernel step's counters 60 cross_attention_acc and
-   140 flash_attention, all on the fp32 route.  The SDXL save run (~0.5 GB
-   of bf16 P a step) is not driven here; phase 5 holds the replay path.
+   step traced and untraced.  After the one-step comparison, the
+   transplant as in phase 5 at 2 steps (70 × 2 cross_attention_probs and
+   70 × 2 flash_attention in the save run, 70 layers of (2, 2, H, h·w, 77)
+   bf16, ~0.5 GB a step on the host; 70 × 2 flash_attention in the load
+   run; maps Spearman ≥ 0.999; no second prompt).  Then the pipeline is
+   rebuilt in fp32 (13.7 GB of weights) and the one-step comparison
+   repeated with TF32 off, at Spearman ≥ 0.999, its kernel step's counters
+   60 cross_attention_acc and 140 flash_attention, all on the fp32 route,
+   and the transplant repeated on the fp32 route.
 8. ``tests/test_torch_cuda.py`` (the kernels against their plain versions,
    JAX-free) in a subprocess, ``python -m pytest --noconftest``: exit 0
    and at least one pass.
 9. What ``daam-torch`` runs by default: ``v2-1-base`` in fp32, 512², 10
    traced steps, checked as in phase 4, with 15 × 10 cross_attention_acc
    and 32 × 10 flash_attention launches, every one on the 3xTF32 route;
-   a ``save_heads`` run (16 × 10 cross_attention_probs on the CUDA cores,
-   16 × 10 flash_attention on the 3xTF32 route); its seconds per step
-   traced and untraced.
+   the transplant as in phase 5 on the 3xTF32 route (what ``--save-heads``
+   and ``--load-heads`` run; no second prompt); its seconds per step
+   traced and untraced, and of the save and load runs as in phase 6a.
 
-The whole run takes ~3–4 min of command time on one H100.
+The whole run takes ~2–3 min of command time on one H100.
 
 Before the card's name and power limit, ``{"sdxl_kernels": [...]}`` gives
 the same keys as the next line for SDXL's path: launches from phase 7
 (the bf16 run's; the fp32 step's for the fp32 entries;
-cross_attention_probs: 0) and times per SDXL evaluation
-(cross_attention_probs: per evaluation of an SDXL save run).
-The line before the last is ``{"kernels": [...]}``: per kernel and dtype
-(the fp32 entries named ``flash_attention_tf32x3``,
-``cross_attention_acc_tf32x3`` and ``cross_attention_probs_fp32``), its
+cross_attention_probs: the 2-step save run's of each dtype) and times per
+SDXL evaluation (cross_attention_probs: per evaluation of an SDXL save
+run).  The line before the last is ``{"kernels": [...]}``: per kernel and
+dtype (the fp32 entries named by their counters,
+``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
+``cross_attention_probs_tf32x3``), its
 launches in its path's run (phase 4 or 9, or the phase-5 or phase-9 save
 run for cross_attention_probs), the largest max-abs error of phase 2, and,
 per UNet evaluation of its path (each shape's number × its launches per
@@ -144,17 +151,19 @@ K1_PER_EVAL, K2_PER_EVAL = 15, 32
 # Per UNet evaluation of the save run: every attn2 (the mid block's too)
 # through cross_attention_probs, every attn1 through flash_attention.
 K5_PER_EVAL, K2_PER_EVAL_REPLAY = 16, 16
-N_LAYERS = 16
 # xl-base-1.0 at 1024² (128² latent), hd 64: 10 transformer blocks at 4096
 # queries × 10 heads (level 1) and 60 at 1024 × 20 (level 2, the mid
-# block's 10 included); the trace captures the 60 outside the mid block.
+# block's 10 included); the trace captures the 60 outside the mid block,
+# the save run all 70.
 SDXL_K1_PER_EVAL, SDXL_K2_PER_EVAL = 60, 140
+SDXL_K5_PER_EVAL, SDXL_K2_PER_EVAL_REPLAY = 70, 70
+SDXL_REPLAY_STEPS = 2  # its save and load runs: ~0.5 GB of bf16 P a step
 SDXL_K2_SHAPES = [((2, 10, 4096, 4096), 10), ((2, 20, 1024, 1024), 60),
                   ((1, 10, 4096, 77), 10), ((1, 20, 1024, 77), 50),
                   ((2, 20, 1024, 77), 10)]
 SDXL_K1_SHAPES = [((1, 10, 4096, 77), 10), ((1, 20, 1024, 77), 50)]
-# per evaluation of an SDXL save run (not driven here: ~0.5 GB of bf16 P a
-# step), every attn2 through cross_attention_probs
+# per evaluation of an SDXL save run, every attn2 through
+# cross_attention_probs
 SDXL_K5_SHAPES = [((2, 10, 4096, 77), 10), ((2, 20, 1024, 77), 60)]
 SDXL_TILES = (9, 4, 64, 64)  # one decoder call: 3 × 3 tiles of 64² latents
 # (B, H, Lq, Lk) of every launch of one UNet evaluation at 512², hd 64,
@@ -173,6 +182,13 @@ EXTRA_SHAPES = {'cross_attention_acc': [(1, 5, 100, 77), (1, 5, 128, 200)],
                 'cross_attention_probs': [(2, 5, 37, 77), (2, 5, 100, 200)]}
 HD = 64
 DTYPES = ('bf16', 'fp32')
+#: The launch counter of each kernel's route, by dtype.
+ROUTE = {'bf16': {'flash_attention': 'flash_attention_wgmma',
+                  'cross_attention_acc': 'cross_attention_acc_mma',
+                  'cross_attention_probs': 'cross_attention_probs_mma'},
+         'fp32': {'flash_attention': 'flash_attention_tf32x3',
+                  'cross_attention_acc': 'cross_attention_acc_tf32x3',
+                  'cross_attention_probs': 'cross_attention_probs_tf32x3'}}
 # H100 SXM (NVIDIA's data sheet)
 BF16_PEAK_TFLOPS = 989.0  # dense
 TF32_PEAK_TFLOPS = 495.0  # dense
@@ -185,9 +201,11 @@ def check(ok: bool, msg: str):
         raise RuntimeError(f'check failed: {msg}')
 
 
-def expected(kernels, **counts) -> dict:
-    """Launch counts of a run: the named ones, every other counter 0."""
-    return {**dict.fromkeys(kernels.launches, 0), **counts}
+def expected(kernels, dtype: str, **counts) -> dict:
+    """Launch counts of a run in ``dtype``: each named kernel's total and
+    its route's counter at the given count, every other counter 0."""
+    routed = {ROUTE[dtype][name]: n for name, n in counts.items()}
+    return {**dict.fromkeys(kernels.launches, 0), **counts, **routed}
 
 
 def check_traced(out, tc, side: int, label: str):
@@ -349,11 +367,7 @@ def parity(kernels, A):
                     # the plain version rounds normalized P before PV
                     check_rounding('cross_attention_acc', o, r,
                                    cross_reference(q, k, v, False))
-            # fp32 K5 keeps its CUDA-core kernel, checked at hd 64 (its
-            # block stages 2·Lk·hd + 64·Lk floats: Lk = 200 passes 227 KB at
-            # hd 128)
-            probs_cases = (cases(k5_shapes) + sdxl['cross_attention_probs'] if bf16
-                           else cases(k5_shapes, (HD,)))
+            probs_cases = cases(k5_shapes) + sdxl['cross_attention_probs']
             for hd, shape in probs_cases:
                 B = shape[0]
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
@@ -383,19 +397,12 @@ def parity(kernels, A):
                             check_rounding('cross_attention_probs', o, r,
                                            cross_reference(q, k, v, False))
             # every launch took its dtype's route: bf16 the wgmma and mma
-            # kernels, fp32 the 3xTF32 kernels (K1, K2) and the CUDA-core K5
-            for name, n, route_bf16 in (
-                    ('flash_attention_wgmma', len(flash_cases), True),
-                    ('cross_attention_acc_mma', 2 * len(acc_cases), True),
-                    ('cross_attention_probs_mma', 4 * len(probs_cases), True),
-                    ('flash_attention_tf32x3', len(flash_cases), False),
-                    ('cross_attention_acc_tf32x3', 2 * len(acc_cases), False)):
-                got = kernels.launches[name] - before[name]
-                check(got == (n if route_bf16 == bf16 else 0),
-                      f'{got} {dtype} {layout} launches counted by {name}')
-            got = kernels.launches['cross_attention_probs'] - before['cross_attention_probs']
-            check(got == 4 * len(probs_cases),
-                  f'{got} {dtype} {layout} cross_attention_probs launches')
+            # kernels, fp32 the 3xTF32 kernels
+            want = expected(kernels, dname, flash_attention=len(flash_cases),
+                            cross_attention_acc=2 * len(acc_cases),
+                            cross_attention_probs=4 * len(probs_cases))
+            got = {name: n - before[name] for name, n in kernels.launches.items()}
+            check(got == want, f'{dtype} {layout} launch counts {got}')
     return worst
 
 
@@ -664,65 +671,76 @@ def _kernel_times(kernels, A, model, dtype):
     return totals
 
 
-def transplant(pipe, trace, kernels):
-    """Phase 5: save_heads -> load_heads at full width; returns the save
-    run's launch counts."""
+def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
+               k5: int = K5_PER_EVAL, k2: int = K2_PER_EVAL_REPLAY,
+               other_prompt: bool = True) -> dict:
+    """A save_heads -> load_heads pair at full width, ``steps`` steps each
+    (phases 5, 7 and 9), with the per-step time and slowest step of each
+    run: the save run's counters (``k5`` cross_attention_probs and ``k2``
+    flash_attention launches per evaluation on the ``dtype`` route, nothing
+    else) and its buffer (``k5`` layers of (steps, 2, H, h·w, 77) bf16,
+    finite, rows summing to 1 within 1e-2); the load run of the same prompt
+    (``k2`` flash_attention per evaluation and nothing else), whose
+    per-token heat maps must match the save run's at Spearman ≥ 0.999; with
+    ``other_prompt``, a load run of a second prompt, whose image must differ
+    from a fresh run of it.  Returns the save run's launch counts."""
     import numpy as np
     import torch
+    from daam_tpu_torch.trace import release_heads
+
+    data_dir = f'smoke {label}'
 
     def run(prompt, **trace_kwargs):
         kernels.reset_launches()
-        out, steps, tc = timed_call(pipe, True, trace, prompt=prompt,
-                                    data_dir='smoke', **trace_kwargs)
+        out, times, tc = timed_call(pipe, True, trace, steps=steps, prompt=prompt,
+                                    data_dir=data_dir, **trace_kwargs)
         launches = dict(kernels.launches)
-        print(f'{list(trace_kwargs)[0]} run {prompt!r}: launches {launches}, '
-              f'{sum(steps):.3f} s for {STEPS} steps')
+        print(f'{label} {list(trace_kwargs)[0]} run {prompt!r}: launches {launches}, '
+              f'{sum(times) / steps:.5f} s/step over {steps} steps, slowest step '
+              f'{max(times):.5f} s')
         return out.images[0], tc, launches
 
-    image_s, tc_s, save_launches = run(PROMPT, save_heads=True,
-                                       persist_heads=False)
-    check(save_launches == expected(
-        kernels, cross_attention_probs=K5_PER_EVAL * STEPS,
-        cross_attention_probs_mma=K5_PER_EVAL * STEPS,
-        flash_attention=K2_PER_EVAL_REPLAY * STEPS,
-        flash_attention_wgmma=K2_PER_EVAL_REPLAY * STEPS),
-          f'save run launch counts {save_launches}')
-    buf = tc_s.replay_buffer(STEPS)
-    check(len(buf) == N_LAYERS, f'{len(buf)} layers in the replay buffer')
+    image_s, tc_s, save_launches = run(PROMPT, save_heads=True, persist_heads=False)
+    check(save_launches == expected(kernels, dtype, cross_attention_probs=k5 * steps,
+                                    flash_attention=k2 * steps),
+          f'{label} save run launch counts {save_launches}')
+    buf = tc_s.replay_buffer(steps)
+    check(len(buf) == k5, f'{label}: {len(buf)} layers in the replay buffer')
     nbytes = 0
     latent = pipe.config.image_size // pipe.vae_scale_factor
     for name, arr in buf.items():
         info = pipe._layout[name]
         hw = (latent // info.downscale) ** 2
-        check(tuple(arr.shape) == (STEPS, 2, info.heads, hw, 77)
+        check(tuple(arr.shape) == (steps, 2, info.heads, hw, 77)
               and arr.dtype == torch.bfloat16, f'{name}: {tuple(arr.shape)}')
         a = arr.to(pipe.device).float()
         row_err = (a.sum(-1) - 1).abs().max().item()
         check(bool(torch.isfinite(a).all()) and row_err <= 1e-2,
               f'{name}: finite rows summing to 1 (max err {row_err:.3e})')
         nbytes += arr.numel() * arr.element_size()
-    print(f'replay buffer: {len(buf)} layers, {nbytes / STEPS / 1e6:.1f} MB of '
-          f'bf16 per step, rows sum to 1 within 1e-2')
+    print(f'{label} replay buffer: {len(buf)} layers, {nbytes / steps / 1e6:.1f} MB '
+          f'of bf16 per step, rows sum to 1 within 1e-2')
 
     image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
-    check(load_launches == expected(kernels, flash_attention=K2_PER_EVAL_REPLAY * STEPS,
-                                    flash_attention_wgmma=K2_PER_EVAL_REPLAY * STEPS),
-          f'load run launch counts {load_launches}')
+    check(load_launches == expected(kernels, dtype, flash_attention=k2 * steps),
+          f'{label} load run launch counts {load_launches}')
     map_s = tc_s.compute_global_heat_map().heat_maps
     map_l = tc_l.compute_global_heat_map().heat_maps
     rhos = [spearman(map_l[t], map_s[t]) for t in range(map_s.shape[0])]
-    print(f'load vs save run, same prompt: per-token heat-map spearman min '
+    print(f'{label} load vs save run, same prompt: per-token heat-map spearman min '
           f'{min(rhos):.6f} over {len(rhos)} tokens; image max_abs_err '
           f'{float(abs(image_l - image_s).max()):.3e}')
-    check(min(rhos) >= 0.999, 'replayed heat maps match the saved run')
+    check(min(rhos) >= 0.999, f'{label} replayed heat maps match the saved run')
 
-    image_t, _, _ = run(PROMPT2, load_heads=True)
-    fresh, _, _ = timed_call(pipe, False, trace, prompt=PROMPT2)
-    diff = float(abs(image_t - fresh.images[0]).mean())
-    print(f'transplant into {PROMPT2!r} vs a fresh run of it: mean abs diff '
-          f'{diff:.4e}')
-    check(bool(np.isfinite(image_t).all()) and diff > 1e-3,
-          'the transplanted image differs from a fresh run')
+    if other_prompt:
+        image_t, _, _ = run(PROMPT2, load_heads=True)
+        fresh, _, _ = timed_call(pipe, False, trace, steps=steps, prompt=PROMPT2)
+        diff = float(abs(image_t - fresh.images[0]).mean())
+        print(f'{label} transplant into {PROMPT2!r} vs a fresh run of it: mean abs '
+              f'diff {diff:.4e}')
+        check(bool(np.isfinite(image_t).all()) and diff > 1e-3,
+              'the transplanted image differs from a fresh run')
+    release_heads(data_dir)
     return save_launches
 
 
@@ -750,21 +768,32 @@ def v2_step_times(pipe, trace, A):
         A.set_kernel_mode('auto')
     print(f's/step traced, plain attention instead of the kernels: '
           f'{sum(steps[1:]) / len(steps[1:]):.5f}')
+    replay_step_times(pipe, trace, 'v2-1-base 512^2 bf16')
+
+
+def replay_step_times(pipe, trace, label):
+    """Seconds per step of the save and load runs: two warm runs of each in
+    turns, each without its first step; and the slowest step, which holds
+    the save run's host copy."""
+    from daam_tpu_torch.trace import release_heads
+
     replay_steps = {'save_heads': [], 'load_heads': []}
     for _ in range(2):
         for flag in replay_steps:
-            _, steps, _ = timed_call(pipe, True, trace, data_dir='smoke',
+            _, steps, _ = timed_call(pipe, True, trace, data_dir='smoke steps',
                                      persist_heads=False, **{flag: True})
             replay_steps[flag] += steps[1:]
-    print('s/step v2-1-base 512^2 bf16, head replay: ' + ' '.join(
+    release_heads('smoke steps')
+    print(f's/step {label}, head replay: ' + ' '.join(
         f'{flag}={sum(v) / len(v):.5f} (slowest step {max(v):.5f})'
         for flag, v in replay_steps.items()))
 
 
 def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
-    """Phase 7: xl-base-1.0 at full width in bf16, then one step in fp32;
-    returns the launch counts of the bf16 traced run and of the fp32
-    kernel step."""
+    """Phase 7: xl-base-1.0 at full width in bf16, then one step in fp32,
+    each with its save -> load transplant; returns the launch counts of the
+    bf16 traced run and of the fp32 kernel step, cross_attention_probs's
+    from the save run of the same dtype."""
     import torch
 
     t0 = time.perf_counter()
@@ -798,12 +827,11 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
     print(f'xl-base-1.0 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
     check_traced(out, tc, 1024, 'xl-base-1.0')
     check(decodes == [SDXL_TILES], f'tiled VAE decode: decoder calls {decodes}')
-    check(launches == expected(kernels, cross_attention_acc=SDXL_K1_PER_EVAL * STEPS,
-                               cross_attention_acc_mma=SDXL_K1_PER_EVAL * STEPS,
-                               flash_attention=SDXL_K2_PER_EVAL * STEPS,
-                               flash_attention_wgmma=SDXL_K2_PER_EVAL * STEPS),
+    check(launches == expected(kernels, 'bf16', cross_attention_acc=SDXL_K1_PER_EVAL * STEPS,
+                               flash_attention=SDXL_K2_PER_EVAL * STEPS),
           f'xl-base-1.0 launch counts {launches}')
     one_step_maps(pipe, trace, kernels, A, 'bf16', 0.99)
+    launches['cross_attention_probs'] = sdxl_transplant(pipe, trace, kernels, 'bf16')
 
     step_times(pipe, trace, 'xl-base-1.0 1024^2 bf16')
     latents = torch.randn(1, 4, 128, 128, device=pipe.device)
@@ -835,15 +863,24 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
         launches_fp32 = one_step_maps(pipe, trace, kernels, A, 'fp32', 0.999)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    check(launches_fp32 == expected(kernels, cross_attention_acc=SDXL_K1_PER_EVAL,
-                                    cross_attention_acc_tf32x3=SDXL_K1_PER_EVAL,
-                                    flash_attention=SDXL_K2_PER_EVAL,
-                                    flash_attention_tf32x3=SDXL_K2_PER_EVAL),
+    check(launches_fp32 == expected(kernels, 'fp32', cross_attention_acc=SDXL_K1_PER_EVAL,
+                                    flash_attention=SDXL_K2_PER_EVAL),
           f'xl-base-1.0 fp32 step launch counts {launches_fp32}')
+    launches_fp32['cross_attention_probs'] = sdxl_transplant(pipe, trace, kernels, 'fp32')
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     return launches, launches_fp32
+
+
+def sdxl_transplant(pipe, trace, kernels, dtype: str) -> int:
+    """SDXL's save -> load pair, SDXL_REPLAY_STEPS steps each (about 1 GB
+    of bf16 P reaches the host); returns the save run's
+    cross_attention_probs launches."""
+    save = transplant(pipe, trace, kernels, f'xl-base-1.0 {dtype}', dtype,
+                      steps=SDXL_REPLAY_STEPS, k5=SDXL_K5_PER_EVAL,
+                      k2=SDXL_K2_PER_EVAL_REPLAY, other_prompt=False)
+    return save['cross_attention_probs']
 
 
 def one_step_maps(pipe, trace, kernels, A, label: str, gate: float) -> dict:
@@ -872,10 +909,11 @@ def one_step_maps(pipe, trace, kernels, A, label: str, gate: float) -> dict:
 
 def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
     """Phase 9: what ``daam-torch "A dog runs across the field."`` runs by
-    default, v2-1-base in fp32 at 512²: a traced 10-step run (every K1 and
-    K2 launch on the 3xTF32 kernels), a save_heads run (fp32 K5 on the CUDA
-    cores), and seconds per step traced and untraced.  Returns the launch
-    counts of the traced run, K5's from the save run."""
+    default, v2-1-base in fp32 at 512²: a traced 10-step run, then the
+    save -> load transplant (``--save-heads``, ``--load-heads``), every K1,
+    K2 and K5 launch on the 3xTF32 kernels; seconds per step traced and
+    untraced, and of the save and load runs.  Returns the launch counts of
+    the traced run, K5's from the save run."""
     import torch
 
     t0 = time.perf_counter()
@@ -889,22 +927,14 @@ def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
     print(f'fp32 main path launches: {launches}')
     print(f'fp32 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
     check_traced(out, tc, 512, 'v2-1-base fp32')
-    check(launches == expected(kernels, cross_attention_acc=K1_PER_EVAL * STEPS,
-                               cross_attention_acc_tf32x3=K1_PER_EVAL * STEPS,
-                               flash_attention=K2_PER_EVAL * STEPS,
-                               flash_attention_tf32x3=K2_PER_EVAL * STEPS),
+    check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
+                               flash_attention=K2_PER_EVAL * STEPS),
           f'fp32 launch counts {launches}')
-    kernels.reset_launches()
-    timed_call(pipe, True, trace, data_dir='smoke-fp32', save_heads=True,
-               persist_heads=False)
-    save = dict(kernels.launches)
-    print(f'fp32 save_heads run launches: {save}')
-    check(save == expected(kernels, cross_attention_probs=K5_PER_EVAL * STEPS,
-                           flash_attention=K2_PER_EVAL_REPLAY * STEPS,
-                           flash_attention_tf32x3=K2_PER_EVAL_REPLAY * STEPS),
-          f'fp32 save run launch counts {save}')
-    launches['cross_attention_probs'] = save['cross_attention_probs']
+    launches['cross_attention_probs'] = transplant(
+        pipe, trace, kernels, 'v2-1-base fp32', 'fp32',
+        other_prompt=False)['cross_attention_probs']
     step_times(pipe, trace, 'v2-1-base 512^2 fp32')
+    replay_step_times(pipe, trace, 'v2-1-base 512^2 fp32')
     del pipe, tc, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -997,15 +1027,16 @@ def main(argv=None):
                 kernel_times(kernels, A, model, dtype)
         pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
         step_times(pipe, trace, 'v2-1-base 512^2 fp32')
+        replay_step_times(pipe, trace, 'v2-1-base 512^2 fp32')
         print(smi)
         return
-    # one per head dim, but cross_attention_mma_kernel: acc, and P in fp32
+    # one per head dim, but the cross-attention kernels: acc, and P in fp32
     # and bf16, per head dim
     n_hd = len(kernels.HEAD_DIMS)
     for family, count in (('flash_attention_wgmma_kernel', n_hd),
                           ('cross_attention_mma_kernel', 3 * n_hd),
                           ('flash_attention_tf32x3_kernel', n_hd),
-                          ('cross_attention_tf32x3_kernel', n_hd)):
+                          ('cross_attention_tf32x3_kernel', 3 * n_hd)):
         tensor_core = [n for n in report if family in n]
         check(len(tensor_core) == count,
               f'ptxas reports {len(tensor_core)} kernels {family}, not {count}')
@@ -1043,15 +1074,13 @@ def main(argv=None):
     print(f'main path launches: {launches}')
     print(f'first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
     check_traced(out, tc, 512, 'v2-1-base bf16')
-    check(launches == expected(kernels, cross_attention_acc=K1_PER_EVAL * STEPS,
-                               cross_attention_acc_mma=K1_PER_EVAL * STEPS,
-                               flash_attention=K2_PER_EVAL * STEPS,
-                               flash_attention_wgmma=K2_PER_EVAL * STEPS),
+    check(launches == expected(kernels, 'bf16', cross_attention_acc=K1_PER_EVAL * STEPS,
+                               flash_attention=K2_PER_EVAL * STEPS),
           f'launch counts {launches}')
 
     # 5. the transplant at full width
     launches['cross_attention_probs'] = transplant(
-        pipe, trace, kernels)['cross_attention_probs']
+        pipe, trace, kernels, 'v2-1-base bf16', 'bf16')['cross_attention_probs']
 
     # 6a. step timings
     v2_step_times(pipe, trace, A)
@@ -1068,24 +1097,22 @@ def main(argv=None):
     sdxl_launches, sdxl_launches_fp32 = sdxl_full_width(
         StableDiffusionPipeline, trace, kernels, A, args.profile)
 
-    route = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
-             'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
-             'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
-    # the fp32 routes as entries of their own, named by their launch counter
-    # (fp32 cross_attention_probs, on the CUDA cores, has none)
-    fp32_name = {'flash_attention': 'flash_attention_tf32x3',
-                 'cross_attention_acc': 'cross_attention_acc_tf32x3',
-                 'cross_attention_probs': 'cross_attention_probs_fp32'}
+    replaces = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
+                'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
+                'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
 
     def kernel_lines(model, launches, launches_fp32):
         lines = []
         for dtype, counts in (('bf16', launches), ('fp32', launches_fp32)):
             for name in ('cross_attention_acc', 'flash_attention', 'cross_attention_probs'):
                 t = totals[model, dtype][name]
+                # the fp32 routes as entries of their own, named by their
+                # launch counter
                 lines.append({
-                    'name': name if dtype == 'bf16' else fp32_name[name], 'dtype': dtype,
-                    'route': 'cuda', 'source': 'daam_tpu_torch/csrc/attention.cu',
-                    'replaces': route[name], 'launches': counts[name],
+                    'name': name if dtype == 'bf16' else ROUTE[dtype][name],
+                    'dtype': dtype, 'route': 'cuda',
+                    'source': 'daam_tpu_torch/csrc/attention.cu',
+                    'replaces': replaces[name], 'launches': counts[name],
                     'max_abs_err': worst[name, dtype], 'ms': t['ms'],
                     'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
                     'bound_ms': t['bound_ms'], 'bound_by': max(t['by'], key=t['by'].get),
@@ -1093,7 +1120,7 @@ def main(argv=None):
                     'library_ms': t['library_ms']})
         return lines
     # per SDXL evaluation; cross_attention_probs per evaluation of an SDXL
-    # save run, which phase 7 does not drive (launches 0)
+    # save run, its launches from phase 7's save runs
     print(json.dumps({'sdxl_kernels': kernel_lines('xl-base-1.0', sdxl_launches,
                                                    sdxl_launches_fp32)}))
     print(smi)

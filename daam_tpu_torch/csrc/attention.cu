@@ -123,22 +123,20 @@
 //     [uncond; cond]) blocks of the first B/2 samples skip it uniformly;
 //   - each warp stages its 16 output rows in its own rows of the q tile and
 //     stores O (B, Lq, H*hd) with 16-byte stores.
-//   fp32 K1 goes to cross_attention_tf32x3_kernel: the same block, chunks,
-//   softmax and acc epilogue (shared helpers), with fp32 tiles (rows of
-//   hd + 4 floats) and both products in 3xTF32 as in
-//   flash_attention_tf32x3_kernel.  Lk <= 80 stages everything at once as
-//   above; a longer Lk streams each 80-key chunk's k (pass 1), then its k,
-//   v and acc rows (pass 2), through the same buffers, so every Lk fits
-//   (at most 137 KB a block at hd 128).  Each warp splits the k and v
-//   fragments it loads: cp.async lands raw fp32, and hi and lo copies of k
-//   and v beside it would leave room for one block per SM instead of two.
-//   It takes 0.254 ms of device time per SD 2.1 evaluation (on the card
-//   above; bound 0.062 ms, the bytes), where the former CUDA-core kernel
-//   (one thread per query, two passes, Lk dependent read-modify-writes of
-//   acc each) took 0.81.
-//   fp32 K5 stays on cross_attention_probs_kernel, on the CUDA cores: each
-//   query one thread, k and v staged as fp32, two passes over the tokens,
-//   the block's 64 P rows staged in shared memory and written as one span.
+//   fp32 K1 and K5 go to cross_attention_tf32x3_kernel, one kernel with the
+//   same two epilogues: the same block, chunks and softmax (shared
+//   helpers), with fp32 tiles (rows of hd + 4 floats) and both products in
+//   3xTF32 as in flash_attention_tf32x3_kernel; P enters P.V unrounded, as
+//   the Pallas body's p.astype(v.dtype) is a no-op in fp32 (:361, :369).
+//   Lk <= 80 stages everything at once as above, K5's P span where K1's acc
+//   tile goes (64 rows of Lk floats and the lead fit in its Lk rows of 68);
+//   a longer Lk streams each 80-key chunk's k (pass 1), then its k, v and
+//   acc rows (pass 2), through the same buffers, and K5 stages and writes
+//   each chunk's columns of P in turn, so every Lk fits (at most 137 KB a
+//   block at hd 128).  Each warp splits the k and v fragments it loads:
+//   cp.async lands raw fp32, and hi and lo copies of k and v beside it
+//   would leave room for one block per SM instead of two.
+//   TODO(times)
 //
 // No kernel synchronizes with the host or allocates memory; the
 // Python wrapper (daam_tpu_torch/ops/kernels.py) checks shapes, strides and
@@ -154,6 +152,7 @@
 #include <stdio.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #ifndef DAAM_EMULATE
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
@@ -183,28 +182,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 struct Strides {
   long long b, l, h;
 };
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float p, float4 v) {
-  acc.x += p * v.x;
-  acc.y += p * v.y;
-  acc.z += p * v.z;
-  acc.w += p * v.w;
-}
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v, float s) {
-  p[0] = v.x * s;
-  p[1] = v.y * s;
-  p[2] = v.z * s;
-  p[3] = v.w * s;
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -730,92 +707,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #endif  // DAAM_EMULATE
 
 // ---------------------------------------------------------------------------
-// cross_attention_probs, fp32, on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int CA_THREADS = 64;  // queries per block, one thread each
-
-template <typename PT, int HD>
-__global__ void __launch_bounds__(CA_THREADS)
-cross_attention_probs_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, float* __restrict__ o,
-                             PT* __restrict__ p, int H, int Lq, int Lk,
-                             int skip_b, Strides qs, Strides ks, Strides vs,
-                             float scale) {
-  constexpr int C4 = HD / 4;
-  DAAM_DYNAMIC_SMEM(float4, smem);
-  float4* Ks = smem;                                   // [Lk][HD / 4]
-  float4* Vs = smem + Lk * C4;                         // [Lk][HD / 4]
-  float* Ps = reinterpret_cast<float*>(smem + 2 * Lk * C4);  // [64][Lk]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * CA_THREADS;
-  const int qi = q0 + tid;
-  const bool valid = qi < Lq;
-
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-  float* ksf = reinterpret_cast<float*>(Ks);
-  float* vsf = reinterpret_cast<float*>(Vs);
-  for (int e = tid; e < Lk * HD; e += CA_THREADS) {
-    const int row = e / HD;
-    const int col = e % HD;
-    ksf[e] = kb[row * ks.l + col];
-    vsf[e] = vb[row * vs.l + col];
-  }
-  __syncthreads();
-
-  if (valid) {
-    float4 qr[C4];
-    const float* qrow = q + b * qs.b + (long long)qi * qs.l + h * qs.h;
-#pragma unroll
-    for (int c = 0; c < C4; ++c) qr[c] = load4(qrow + 4 * c);
-
-    // Pass 1: running max and sum of exp over the tokens.
-    float m = -INFINITY;
-    float l = 0.f;
-    for (int t = 0; t < Lk; ++t) {
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < C4; ++c) s += dot4(qr[c], Ks[t * C4 + c]);
-      s *= scale;
-      const float m_new = fmaxf(m, s);
-      l = l * __expf(m - m_new) + __expf(s - m_new);
-      m = m_new;
-    }
-    const float inv_l = 1.f / l;
-
-    // Pass 2: normalized P into the staging row and into P.V.
-    float4 oacc[C4];
-#pragma unroll
-    for (int c = 0; c < C4; ++c) oacc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    float* prow = Ps + tid * Lk;
-    for (int t = 0; t < Lk; ++t) {
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < C4; ++c) s += dot4(qr[c], Ks[t * C4 + c]);
-      const float pt = __expf(s * scale - m) * inv_l;
-      prow[t] = pt;
-#pragma unroll
-      for (int c = 0; c < C4; ++c) fma4(oacc[c], pt, Vs[t * C4 + c]);
-    }
-
-    float* orow = o + ((long long)b * Lq + qi) * (H * HD) + h * HD;
-#pragma unroll
-    for (int c = 0; c < C4; ++c) store4(orow + 4 * c, oacc[c], 1.f);
-  }
-
-  if (b < skip_b) return;  // block-uniform: no thread waits at the barrier
-  __syncthreads();
-  // The block's rows q0 .. q0 + rows - 1 are one contiguous span of P.
-  const int n = min(CA_THREADS, Lq - q0) * Lk;
-  PT* span = p + (((long long)b * H + h) * Lq + q0) * Lk;
-  for (int e = tid; e < n; e += CA_THREADS) span[e] = from_f<PT>(Ps[e]);
-}
-
-// ---------------------------------------------------------------------------
 // cross_attention_acc and cross_attention_probs, bf16, on the tensor cores
 // ---------------------------------------------------------------------------
 
@@ -962,6 +853,46 @@ __device__ __forceinline__ void ma_add_acc(float* At, float* acc_bh,
   }
 }
 
+// K5's staging of a chunk's normalized P, in mma's D layout (rows qr, qr + 8
+// of the block at keys 8 j + 2t + {0, 1} of the chunk), as PT at
+// dst[row * stride + key] for the block's rows below `rows` and the chunk's
+// keys below `keys`.
+template <typename PT>
+__device__ __forceinline__ void ma_stage_p(PT* dst, const float (&s)[MA_NT][4], int stride,
+                                           int keys, int rows, int qr, int t) {
+#pragma unroll
+  for (int j = 0; j < MA_NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1);
+      const int row = qr + 8 * (e >> 1);
+      if (key < keys && row < rows) dst[row * stride + key] = from_f<PT>(s[j][e]);
+    }
+}
+
+// The offset mod 16 bytes, in elements, of a P span: staged at Ps + lead,
+// the span and its staging copy agree mod 16 bytes.
+template <typename PT>
+__device__ __forceinline__ int ma_lead(const PT* span) {
+  return (int)((reinterpret_cast<uintptr_t>(span) / sizeof(PT)) % (16 / sizeof(PT)));
+}
+
+// K5's block rows of P are one contiguous span of n elements: written from
+// its staging copy Ps[lead ..] with 16-byte stores, and scalar ones for the
+// head before the first 16-byte boundary and for the tail.
+template <typename PT>
+__device__ __forceinline__ void ma_store_span(PT* span, const PT* Ps, int lead, int n,
+                                              int tid) {
+  constexpr int VEC = 16 / sizeof(PT);
+  const int head = min(n, (VEC - lead) % VEC);
+  const int nvec = (n - head) / VEC;
+  for (int i = tid; i < head; i += MA_THREADS) span[i] = Ps[lead + i];
+  for (int i = tid; i < nvec; i += MA_THREADS)
+    *reinterpret_cast<uint4*>(span + head + i * VEC) =
+        *reinterpret_cast<const uint4*>(Ps + lead + head + i * VEC);
+  for (int i = head + nvec * VEC + tid; i < n; i += MA_THREADS) span[i] = Ps[lead + i];
+}
+
 // ACC: acc += Pᵀ (cross_attention_acc); otherwise P is written out as PT
 // (cross_attention_probs), skipping samples b < skip_b.
 template <int HD, typename PT, bool ACC>
@@ -976,7 +907,6 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   using bf16 = __nv_bfloat16;
   constexpr int STR = HD + 8;  // bf16 row stride of the q, k and v tiles
   constexpr int CH = HD / 8;   // 16-byte chunks of a row
-  constexpr int VEC = 16 / sizeof(PT);
   DAAM_DYNAMIC_SMEM(uint8_t, ma_smem);
 
   const int b = blockIdx.z;
@@ -1056,8 +986,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) oacc[jd][e] = 0.f;
   const bool write_p = !ACC && b >= skip_b;  // uniform over the block
   PT* span = ACC ? nullptr : p + (((long long)b * H + h) * Lq + q0) * Lk;
-  // Ps[lead + i] holds span[i]: smem and device memory then agree mod 16 bytes.
-  const int lead = ACC ? 0 : (int)((reinterpret_cast<uintptr_t>(span) / sizeof(PT)) % VEC);
+  const int lead = ACC ? 0 : ma_lead(span);  // Ps[lead + i] holds span[i]
   for (int c = 0; c < n_chunks; ++c) {
     const int c0 = c * MA_KC;
     if constexpr (ACC) {
@@ -1089,14 +1018,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       ma_add_acc(At, acc_bh, s, c0, Lk, Lq, q0, qr, t, tid);
       if (c + 1 < n_chunks) __syncthreads();  // before the next chunk's copies
     } else if (write_p) {
-#pragma unroll
-      for (int j = 0; j < MA_NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = c0 + 8 * j + 2 * t + (e & 1);
-          const int row = qr + 8 * (e >> 1);
-          if (key < Lk && q0 + row < Lq) Ps[lead + row * Lk + key] = from_f<PT>(s[j][e]);
-        }
+      ma_stage_p(Ps + lead + c0, s, Lk, Lk - c0, Lq - q0, qr, t);
     }
   }
 
@@ -1120,30 +1042,23 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
           *reinterpret_cast<const uint4*>(Os + r * STR + 8 * c);
   }
 
-  // P: the block's rows are one contiguous span of n elements; 16-byte
-  // stores, with scalar ones for the head before the first 16-byte boundary
-  // and for the tail.
   if (write_p) {
     __syncthreads();
-    const int n = min(MA_BQ, Lq - q0) * Lk;
-    const int head = min(n, (VEC - lead) % VEC);
-    const int nvec = (n - head) / VEC;
-    for (int i = tid; i < head; i += MA_THREADS) span[i] = Ps[lead + i];
-    for (int i = tid; i < nvec; i += MA_THREADS)
-      *reinterpret_cast<uint4*>(span + head + i * VEC) =
-          *reinterpret_cast<const uint4*>(Ps + lead + head + i * VEC);
-    for (int i = head + nvec * VEC + tid; i < n; i += MA_THREADS) span[i] = Ps[lead + i];
+    ma_store_span(span, Ps, lead, min(MA_BQ, Lq - q0) * Lk, tid);
   }
 }
 
 // ---------------------------------------------------------------------------
-// cross_attention_acc, fp32, on the tensor cores (mma.sync, 3xTF32)
+// cross_attention_acc and cross_attention_probs, fp32, on the tensor cores
+// (mma.sync, 3xTF32)
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory of a block: the q tile and one chunk of k and of v
 // in fp32 rows of hd + 4 floats (a chunk's keys zero-filled to a multiple
-// of 16), then one chunk of acc rows.  At most 137 KB (hd 128), so every Lk
-// fits: past one chunk, the chunks stream through.
+// of 16), then the epilogue's tile of min(Lk, 80) rows of 68 floats: K1's
+// chunk of acc rows, or K5's P, which needs less (64 rows of min(Lk, 80)
+// values and up to 16 bytes of lead).  At most 137 KB (hd 128), so every
+// Lk fits: past one chunk, the chunks stream through.
 inline long long mt_smem_bytes(int hd, long long Lk) {
   const long long rows = Lk < MA_KC ? (Lk + 15) & ~15LL : MA_KC;
   return (MA_BQ + 2 * rows) * (hd + 4) * 4 + (Lk < MA_KC ? Lk : MA_KC) * MA_ASTR * 4;
@@ -1188,18 +1103,24 @@ __device__ __forceinline__ void mt_scores(float (&s)[MA_NT][4], uint32_t q_lane,
       s[j][e] = col + 8 * j + (e & 1) < Lk ? s[j][e] * scale_log2 : -INFINITY;
 }
 
-// cross_attention_mma_kernel's K1 in fp32: the same block, chunks, softmax
-// and acc epilogue, with both products in 3xTF32 and O in fp32.  At Lk <= 80
-// q, k, v and the acc tile land at once (two groups, the tile's landing
-// while the products run) and the one chunk's scores stay in registers; a
-// longer Lk streams each chunk's k (pass 1), then its k, v and acc tile
-// (pass 2) through the same buffers.
-template <int HD>
+// cross_attention_mma_kernel in fp32: the same block, chunks, softmax and
+// epilogues (ACC: acc += Pᵀ; otherwise P written out as PT, skipping
+// samples b < skip_b), with both products in 3xTF32 and O in fp32.  P is
+// normalized in fp32 and enters P V unrounded, as the Pallas body's
+// p.astype(v.dtype) is a no-op in fp32.  At Lk <= 80 q, k, v (and K1's acc
+// tile, in a second group that lands while the products run) arrive at
+// once and the one chunk's scores stay in registers; K5 stages the block's
+// P span in the tile's place and writes it with 16-byte stores.  A longer
+// Lk streams each chunk's k (pass 1), then its k and v and K1's acc tile
+// (pass 2) through the same buffers; K5 then stages and writes each chunk's
+// P columns in turn.
+template <int HD, typename PT, bool ACC>
 __global__ void __launch_bounds__(MA_THREADS, HD == 128 ? 1 : 2)
 cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, float* __restrict__ o,
-                              float* __restrict__ acc, int H, int Lq, int Lk, Strides qs,
-                              Strides ks, Strides vs, float scale_log2) {
+                              float* __restrict__ acc, PT* __restrict__ p, int H, int Lq,
+                              int Lk, int skip_b, Strides qs, Strides ks, Strides vs,
+                              float scale_log2) {
   using namespace hopper;
   constexpr int STR = HD + 4;  // fp32 row stride of the q, k and v tiles
   constexpr int CH = HD / 4;   // 16-byte chunks of a row
@@ -1217,10 +1138,11 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
   float* Qs = mt_smem;
   float* Ks = Qs + MA_BQ * STR;
   float* Vs = Ks + kv_rows * STR;
-  float* At = Vs + kv_rows * STR;  // [chunk rows][MA_ASTR]
+  float* At = Vs + kv_rows * STR;         // ACC: [chunk rows][MA_ASTR]
+  PT* Ps = reinterpret_cast<PT*>(At);     // else: P, the span or a chunk's rows
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
-  float* acc_bh = acc + ((long long)b * H + h) * Lk * Lq + q0;
+  float* acc_bh = ACC ? acc + ((long long)b * H + h) * Lk * Lq + q0 : nullptr;
 
   // The keys of the chunk at c0 from src (k or v) into dst, rows past Lk
   // zero-filled up to a multiple of 16 (P is 0 there, and 0 * V must stay 0).
@@ -1245,11 +1167,12 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
   if (n_chunks == 1) {
     load_keys(Ks, kb, ks.l, 0);
     load_keys(Vs, vb, vs.l, 0);
-    cp_async_commit();
+  }
+  cp_async_commit();  // group 0: q, and at Lk <= 80 all of k and v
+  if (ACC && n_chunks == 1) {
     ma_load_acc(At, acc_bh, 0, Lk, Lq, q0, tid);  // group 1: lands while the products run
     cp_async_wait<1>();
   } else {
-    cp_async_commit();
     cp_async_wait<0>();
   }
   __syncthreads();
@@ -1277,21 +1200,30 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
 
   // Pass 2, per chunk: normalized fp32 P; O += P V per 8 keys, P straight
-  // from the score fragment (pv_tf32x3); acc += Pᵀ.
+  // from the score fragment (pv_tf32x3); then acc += Pᵀ, or P staged.
   float oacc[HD / 8][4];
 #pragma unroll
   for (int jd = 0; jd < HD / 8; ++jd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[jd][e] = 0.f;
+  const bool write_p = !ACC && b >= skip_b;  // uniform over the block
+  const int rows = min(MA_BQ, Lq - q0);
+  PT* span = ACC ? nullptr : p + (((long long)b * H + h) * Lq + q0) * Lk;
+  // At Lk <= 80 Ps[lead + i] holds span[i]
+  const int lead = !ACC && n_chunks == 1 ? ma_lead(span) : 0;
   for (int c = 0; c < n_chunks; ++c) {
     const int c0 = c * MA_KC;
     if (n_chunks > 1) {
-      __syncthreads();  // chunk c - 1's keys, values and acc tile are consumed
+      __syncthreads();  // chunk c - 1's keys, values and epilogue tile are consumed
       load_keys(Ks, kb, ks.l, c0);
       load_keys(Vs, vb, vs.l, c0);
       cp_async_commit();
-      ma_load_acc(At, acc_bh, c0, Lk, Lq, q0, tid);
-      cp_async_wait<1>();
+      if (ACC) {
+        ma_load_acc(At, acc_bh, c0, Lk, Lq, q0, tid);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
       __syncthreads();
       mt_scores<HD>(s, q_lane, Ks, c0, Lk, scale_log2, lane);
     }
@@ -1299,7 +1231,20 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll
     for (int j = 0; j < MA_NT; ++j)
       if (c0 + 8 * j < Lk) pv_tf32x3<HD, STR>(oacc, s[j], Vs, 8 * j, g, t);
-    ma_add_acc(At, acc_bh, s, c0, Lk, Lq, q0, qr, t, tid);
+    if constexpr (ACC) {
+      ma_add_acc(At, acc_bh, s, c0, Lk, Lq, q0, qr, t, tid);
+    } else if (write_p && n_chunks == 1) {
+      ma_stage_p(Ps + lead, s, Lk, Lk, rows, qr, t);
+    } else if (write_p) {
+      // the chunk's columns of P: rows of cw keys, Lk apart in P
+      const int cw = min(MA_KC, Lk - c0);
+      ma_stage_p(Ps, s, cw, cw, rows, qr, t);
+      __syncthreads();
+      for (int e = tid; e < rows * cw; e += MA_THREADS) {
+        const int r = e / cw, col = e % cw;
+        span[(long long)r * Lk + c0 + col] = Ps[r * cw + col];
+      }
+    }
   }
 
   // O: each warp stages its 16 rows in its own rows of the q tile (which
@@ -1320,6 +1265,11 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     if (qi < Lq)
       *reinterpret_cast<float4*>(o + ((long long)b * Lq + qi) * (H * HD) + h * HD + 4 * c) =
           *reinterpret_cast<const float4*>(Os + r * STR + 4 * c);
+  }
+
+  if (write_p && n_chunks == 1) {
+    __syncthreads();
+    ma_store_span(span, Ps, lead, rows * Lk, tid);
   }
 }
 
@@ -1355,21 +1305,21 @@ cudaError_t launch_flash_tf32x3(int device, const void* q, const void* k, const 
   return cudaGetLastError();
 }
 
-template <int HD>
+// The fp32 kernels: acc (ACC) or P of type PT.  Every Lk fits.
+template <int HD, typename PT, bool ACC>
 cudaError_t launch_cross_tf32x3(int device, const void* q, const void* k, const void* v,
-                                void* o, float* acc, int B, int H, int Lq, int Lk,
-                                Strides qs, Strides ks, Strides vs, float scale,
+                                void* o, float* acc, void* p, int B, int H, int Lq, int Lk,
+                                int skip_b, Strides qs, Strides ks, Strides vs, float scale,
                                 cudaStream_t stream) {
+  auto kernel = cross_attention_tf32x3_kernel<HD, PT, ACC>;
   static bool smem_set[64] = {};  // the opt-in to the largest block, at Lk >= 80
-  cudaError_t err = opt_in_smem(cross_attention_tf32x3_kernel<HD>, device,
-                                (int)mt_smem_bytes(HD, MA_KC), smem_set);
+  cudaError_t err = opt_in_smem(kernel, device, (int)mt_smem_bytes(HD, MA_KC), smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + MA_BQ - 1) / MA_BQ, H, B);
-  DAAM_LAUNCH(grid, MA_THREADS, mt_smem_bytes(HD, Lk), stream,
-              cross_attention_tf32x3_kernel<HD>)(
+  DAAM_LAUNCH(grid, MA_THREADS, mt_smem_bytes(HD, Lk), stream, kernel)(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), acc, H, Lq, Lk, qs, ks, vs,
-      scale * LOG2E);
+      static_cast<const float*>(v), static_cast<float*>(o), acc, static_cast<PT*>(p), H,
+      Lq, Lk, skip_b, qs, ks, vs, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1447,26 +1397,6 @@ int launch_flash_wgmma(int device, const void* q, const void* k, const void* v,
 }
 #endif  // DAAM_EMULATE
 
-template <typename PT, int HD>
-cudaError_t launch_cross_probs(const void* q, const void* k, const void* v,
-                               void* o, void* p, int B, int H, int Lq, int Lk,
-                               int skip_b, Strides qs, Strides ks, Strides vs,
-                               float scale, cudaStream_t stream) {
-  const size_t smem = (2 * (size_t)Lk * HD + (size_t)CA_THREADS * Lk) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        cross_attention_probs_kernel<PT, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((Lq + CA_THREADS - 1) / CA_THREADS, H, B);
-  DAAM_LAUNCH(grid, CA_THREADS, smem, stream, cross_attention_probs_kernel<PT, HD>)(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<PT*>(p), H,
-      Lq, Lk, skip_b, qs, ks, vs, scale);
-  return cudaGetLastError();
-}
-
 constexpr int SMEM_MAX = 227 * 1024;  // dynamic shared memory of one block
 
 // The tensor-core kernels: acc (ACC) or P of type PT.  An Lk whose block
@@ -1491,32 +1421,39 @@ cudaError_t launch_cross_mma(int device, const void* q, const void* k, const voi
   return cudaGetLastError();
 }
 
-template <typename PT>
-cudaError_t cross_probs_dispatch(int hd, const void* q, const void* k, const void* v,
-                                 void* o, void* p, int B, int H, int Lq, int Lk, int skip_b,
-                                 Strides qs, Strides ks, Strides vs, float scale,
-                                 cudaStream_t stream) {
+// f(std::integral_constant<int, HD>{}) at the head dim hd; a head dim
+// without kernels is refused with cudaErrorInvalidValue.
+template <typename F>
+int by_head_dim(int hd, F f) {
   switch (hd) {
-    case 16: return launch_cross_probs<PT, 16>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    case 32: return launch_cross_probs<PT, 32>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    case 64: return launch_cross_probs<PT, 64>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    case 128: return launch_cross_probs<PT, 128>(q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename PT, bool ACC>
-cudaError_t cross_mma_dispatch(int device, int hd, const void* q, const void* k,
-                               const void* v, void* o, float* acc, void* p, int B, int H,
-                               int Lq, int Lk, int skip_b, Strides qs, Strides ks,
-                               Strides vs, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch_cross_mma<16, PT, ACC>(device, q, k, v, o, acc, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    case 32: return launch_cross_mma<32, PT, ACC>(device, q, k, v, o, acc, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    case 64: return launch_cross_mma<64, PT, ACC>(device, q, k, v, o, acc, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    case 128: return launch_cross_mma<128, PT, ACC>(device, q, k, v, o, acc, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// The cross-attention kernels by route (TF32X3: fp32, else bf16) and
+// epilogue (ACC: acc; else P of type PT), at the head dim hd.
+template <bool TF32X3, typename PT, bool ACC>
+int cross_dispatch(int device, int hd, const void* q, const void* k, const void* v, void* o,
+                   float* acc, void* p, int B, int H, int Lq, int Lk, int skip_b, int qsb,
+                   int qsl, int qsh, int ksb, int ksl, int ksh, int vsb, int vsl, int vsh,
+                   float scale, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_head_dim(hd, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    if constexpr (TF32X3)
+      return launch_cross_tf32x3<HD, PT, ACC>(device, q, k, v, o, acc, p, B, H, Lq, Lk,
+                                              skip_b, qs, ks, vs, scale, st);
+    else
+      return launch_cross_mma<HD, PT, ACC>(device, q, k, v, o, acc, p, B, H, Lq, Lk, skip_b,
+                                           qs, ks, vs, scale, st);
+  });
 }
 
 }  // namespace
@@ -1536,14 +1473,10 @@ extern "C" int daam_flash_attention_tf32x3(int device, int hd, const void* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_flash_tf32x3<16>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 32: return launch_flash_tf32x3<32>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 64: return launch_flash_tf32x3<64>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 128: return launch_flash_tf32x3<128>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return by_head_dim(hd, [&](auto c) {
+    return launch_flash_tf32x3<decltype(c)::value>(device, q, k, v, o, B, H, Lq, Lk, qs, ks,
+                                                   vs, scale, static_cast<cudaStream_t>(stream));
+  });
 }
 
 #ifndef DAAM_EMULATE
@@ -1558,14 +1491,10 @@ extern "C" int daam_flash_attention_wgmma(int device, int hd, const void* q,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_flash_wgmma<16>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 32: return launch_flash_wgmma<32>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 64: return launch_flash_wgmma<64>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 128: return launch_flash_wgmma<128>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return by_head_dim(hd, [&](auto c) {
+    return launch_flash_wgmma<decltype(c)::value>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs,
+                                                  scale, static_cast<cudaStream_t>(stream));
+  });
 }
 #endif  // DAAM_EMULATE
 
@@ -1579,17 +1508,9 @@ extern "C" int daam_cross_attention_acc_tf32x3(int device, int hd, const void* q
                                                int qsb, int qsl, int qsh, int ksb, int ksl,
                                                int ksh, int vsb, int vsl, int vsh,
                                                float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_cross_tf32x3<16>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 32: return launch_cross_tf32x3<32>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 64: return launch_cross_tf32x3<64>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    case 128: return launch_cross_tf32x3<128>(device, q, k, v, o, acc, B, H, Lq, Lk, qs, ks, vs, scale, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return cross_dispatch<true, float, true>(device, hd, q, k, v, o, acc, nullptr, B, H, Lq,
+                                           Lk, 0, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl,
+                                           vsh, scale, stream);
 }
 
 // bf16 only, on the tensor cores; every view's base must be 16-byte aligned
@@ -1602,30 +1523,26 @@ extern "C" int daam_cross_attention_acc_mma(int device, int hd, const void* q,
                                             int qsb, int qsl, int qsh, int ksb, int ksl,
                                             int ksh, int vsb, int vsl, int vsh,
                                             float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  return cross_mma_dispatch<float, true>(
-      device, hd, q, k, v, o, acc, nullptr, B, H, Lq, Lk, 0, Strides{qsb, qsl, qsh},
-      Strides{ksb, ksl, ksh}, Strides{vsb, vsl, vsh}, scale,
-      static_cast<cudaStream_t>(stream));
+  return cross_dispatch<false, float, true>(device, hd, q, k, v, o, acc, nullptr, B, H, Lq,
+                                            Lk, 0, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl,
+                                            vsh, scale, stream);
 }
 
 // pdtype: the type of P (0 = float32, 1 = bfloat16); skip_b: samples
 // b < skip_b get no P rows written (B/2 for cond_only, else 0).  fp32 q, k
-// and v only, on the CUDA cores; bf16 goes to daam_cross_attention_probs_mma.
-extern "C" int daam_cross_attention_probs(int device, int hd, const void* q,
-                                          const void* k, const void* v, void* o,
-                                          void* p, int pdtype, int skip_b, int B,
-                                          int H, int Lq, int Lk, int qsb, int qsl,
-                                          int qsh, int ksb, int ksl, int ksh, int vsb,
-                                          int vsl, int vsh, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// and v only, on the tensor cores in 3xTF32, under the view conditions of
+// daam_cross_attention_acc_tf32x3 (Lq may be any size); every Lk fits.
+// bf16 goes to daam_cross_attention_probs_mma.
+extern "C" int daam_cross_attention_probs_tf32x3(int device, int hd, const void* q,
+                                                 const void* k, const void* v, void* o,
+                                                 void* p, int pdtype, int skip_b, int B,
+                                                 int H, int Lq, int Lk, int qsb, int qsl,
+                                                 int qsh, int ksb, int ksl, int ksh,
+                                                 int vsb, int vsl, int vsh, float scale,
+                                                 void* stream) {
   switch (pdtype) {
-    case 0: return cross_probs_dispatch<float>(hd, q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, st);
-    case 1: return cross_probs_dispatch<__nv_bfloat16>(hd, q, k, v, o, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, st);
+    case 0: return cross_dispatch<true, float, false>(device, hd, q, k, v, o, nullptr, p, B, H, Lq, Lk, skip_b, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, stream);
+    case 1: return cross_dispatch<true, __nv_bfloat16, false>(device, hd, q, k, v, o, nullptr, p, B, H, Lq, Lk, skip_b, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1638,13 +1555,9 @@ extern "C" int daam_cross_attention_probs_mma(int device, int hd, const void* q,
                                               int H, int Lq, int Lk, int qsb, int qsl,
                                               int qsh, int ksb, int ksl, int ksh, int vsb,
                                               int vsl, int vsh, float scale, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (pdtype) {
-    case 0: return cross_mma_dispatch<float, false>(device, hd, q, k, v, o, nullptr, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, st);
-    case 1: return cross_mma_dispatch<__nv_bfloat16, false>(device, hd, q, k, v, o, nullptr, p, B, H, Lq, Lk, skip_b, qs, ks, vs, scale, st);
+    case 0: return cross_dispatch<false, float, false>(device, hd, q, k, v, o, nullptr, p, B, H, Lq, Lk, skip_b, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, stream);
+    case 1: return cross_dispatch<false, __nv_bfloat16, false>(device, hd, q, k, v, o, nullptr, p, B, H, Lq, Lk, skip_b, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -37,20 +37,19 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
-_SMEM_MAX = 227 * 1024
 
 #: Kernel launches since the last :func:`reset_launches`, by launcher name.
 #: ``flash_attention_wgmma``, ``cross_attention_acc_mma`` and
 #: ``cross_attention_probs_mma`` count the launches of the bf16 routes,
-#: ``flash_attention_tf32x3`` and ``cross_attention_acc_tf32x3`` those of
-#: the fp32 routes (all on the tensor cores); the launcher's own total counts
-#: them too.  fp32 ``cross_attention_probs`` (CUDA cores) has no count of
-#: its own.
+#: ``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
+#: ``cross_attention_probs_tf32x3`` those of the fp32 routes (all on the
+#: tensor cores); the launcher's own total counts them too.
 launches = {'flash_attention': 0, 'flash_attention_wgmma': 0,
             'flash_attention_tf32x3': 0,
             'cross_attention_acc': 0, 'cross_attention_acc_mma': 0,
             'cross_attention_acc_tf32x3': 0,
-            'cross_attention_probs': 0, 'cross_attention_probs_mma': 0}
+            'cross_attention_probs': 0, 'cross_attention_probs_mma': 0,
+            'cross_attention_probs_tf32x3': 0}
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.
@@ -113,7 +112,7 @@ def load_library() -> ctypes.CDLL:
                       (lib.daam_flash_attention_wgmma, []),
                       (lib.daam_cross_attention_acc_tf32x3, [ptr]),
                       (lib.daam_cross_attention_acc_mma, [ptr]),
-                      (lib.daam_cross_attention_probs, [ptr, i, i]),
+                      (lib.daam_cross_attention_probs_tf32x3, [ptr, i, i]),
                       (lib.daam_cross_attention_probs_mma, [ptr, i, i])):
         fn.argtypes = common + extra + dims
         fn.restype = i
@@ -174,9 +173,9 @@ def tma_view_error(shape, strides, data_ptr: int,
 
 def cross_route_error(views, Lq: int, acc_ptr=None,
                       itemsize: int = 2) -> Optional[str]:
-    """Why a tensor-core ``cross_attention_acc`` kernel (``acc_ptr`` given:
-    bf16, or fp32 with ``itemsize`` 4) or the bf16 ``cross_attention_probs``
-    kernel cannot take these operands, or None.
+    """Why a ``cross_attention_acc`` kernel (``acc_ptr`` given) or a
+    ``cross_attention_probs`` kernel, bf16 or fp32 (``itemsize`` 4), cannot
+    take these operands, or None.
 
     ``views``: ``{name: (shape, strides, data_ptr)}`` of the q, k and v
     views, which the kernels copy in 16-byte pieces (the conditions of
@@ -184,7 +183,7 @@ def cross_route_error(views, Lq: int, acc_ptr=None,
     too: acc's base must be 16-byte aligned and Lq a multiple of 4.  Pure:
     shapes, strides and addresses as integers.  (An Lk whose block does not
     fit in shared memory is refused by the bf16 kernels' entry point, and
-    the launch raises; the fp32 kernel streams long Lk through.)
+    the launch raises; the fp32 kernels stream long Lk through.)
     """
     for name, (shape, strides, ptr) in views.items():
         why = tma_view_error(shape, strides, ptr, itemsize)
@@ -305,32 +304,30 @@ def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cond_only`` (CFG layout ``[uncond; cond]``) the rows of the first B/2
     samples of P are left unwritten.
 
-    Routed by the dtype of q, k and v: bf16 on the tensor cores
-    (``cross_attention_mma_kernel``, raising on a call
-    :func:`cross_route_error` refuses), fp32 on the CUDA cores
-    (``cross_attention_probs_kernel``, any strides; (2·hd + 64)·Lk floats
-    must fit in 227 KB of shared memory).
+    The kernel is chosen by the dtype of q, k and v; both run on the tensor
+    cores with 16-byte copies of the operands, and raise on a call
+    :func:`cross_route_error` refuses.  bf16 takes
+    ``cross_attention_mma_kernel`` (an Lk whose block passes 227 KB of
+    shared memory fails at launch), fp32 ``cross_attention_tf32x3_kernel``
+    (3xTF32, as :func:`cross_attention_acc`; every Lk fits).  Each writes
+    P through a staging tile in shared memory.
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
     if probs_dtype not in _DTYPE_CODES:
         raise ValueError(f'probs_dtype {probs_dtype} not supported')
-    tensor_cores = q.dtype == torch.bfloat16
-    if tensor_cores:
-        _route_check('cross_attention_probs', q, k, v, Lq)
-    elif (2 * Lk * hd + 64 * Lk) * 4 > _SMEM_MAX:
-        raise ValueError(f'Lk={Lk} x hd={hd} does not fit in shared memory')
+    bf16 = q.dtype == torch.bfloat16
+    _route_check('cross_attention_probs', q, k, v, Lq)
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     p = torch.empty(B, H, Lq, Lk, dtype=probs_dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    launch = (lib.daam_cross_attention_probs_mma if tensor_cores
-              else lib.daam_cross_attention_probs)
+    launch = (lib.daam_cross_attention_probs_mma if bf16
+              else lib.daam_cross_attention_probs_tf32x3)
     err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), p.data_ptr(), _DTYPE_CODES[probs_dtype],
                  B // 2 if cond_only else 0, B, H, Lq, Lk, *strides, scale,
                  stream)
     _raise_on(err, 'cross_attention_probs')
     launches['cross_attention_probs'] += 1
-    if tensor_cores:
-        launches['cross_attention_probs_mma'] += 1
+    launches['cross_attention_probs_mma' if bf16 else 'cross_attention_probs_tf32x3'] += 1
     return o, p

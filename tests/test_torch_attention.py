@@ -266,7 +266,7 @@ def test_launch_counters_include_the_tensor_core_route():
     tensor-core routes included."""
     for name in ('flash_attention_wgmma', 'cross_attention_acc_mma',
                  'cross_attention_probs_mma', 'flash_attention_tf32x3',
-                 'cross_attention_acc_tf32x3'):
+                 'cross_attention_acc_tf32x3', 'cross_attention_probs_tf32x3'):
         kernels.launches[name] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
@@ -275,7 +275,8 @@ def test_launch_counters_include_the_tensor_core_route():
                                      'cross_attention_acc_mma',
                                      'cross_attention_acc_tf32x3',
                                      'cross_attention_probs',
-                                     'cross_attention_probs_mma'}
+                                     'cross_attention_probs_mma',
+                                     'cross_attention_probs_tf32x3'}
     assert not any(kernels.launches.values())
 
 

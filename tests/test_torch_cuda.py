@@ -137,11 +137,12 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('hd', kernels.HEAD_DIMS)
-@pytest.mark.parametrize('Lk', [77, 13])
+@pytest.mark.parametrize('Lk', [77, 13, 200, 600])
 @pytest.mark.parametrize('probs_dtype', [torch.float32, torch.bfloat16])
 def test_cross_attention_probs_kernel_matches_plain_on_card(hd, Lk, probs_dtype,
                                                             cuda_device):
-    """fp32 K5 (CUDA cores), P in either type, with and without cond_only."""
+    """fp32 K5 on the tensor cores in 3xTF32, P in either type, with and
+    without cond_only; Lk 200 and 600 stream 80-key chunks."""
     B, H, Lq = 4, 3, 100
     q, k, v = (_packed_view(t).to(cuda_device)
                for t in _qkv(B, H, Lq, Lk, hd, seed=hd + Lk))
@@ -156,4 +157,14 @@ def test_cross_attention_probs_kernel_matches_plain_on_card(hd, Lk, probs_dtype,
         torch.testing.assert_close(p[rows].float(), ref_p[rows].float(),
                                    rtol=0, atol=atol)
     assert kernels.launches['cross_attention_probs'] == n['cross_attention_probs'] + 2
+    assert (kernels.launches['cross_attention_probs_tf32x3']
+            == n['cross_attention_probs_tf32x3'] + 2)
     assert kernels.launches['cross_attention_probs_mma'] == n['cross_attention_probs_mma']
+    # it copies q, k and v in 16-byte pieces: a base 4 bytes off 16 raises
+    # before anything is launched
+    n = dict(kernels.launches)
+    padded = torch.zeros(B, Lq, H * hd + 4, device=cuda_device)[..., 1:H * hd + 1]
+    with pytest.raises(ValueError, match='tensor cores'):
+        kernels.cross_attention_probs(padded.unflatten(-1, (H, hd)), k, v, False,
+                                      probs_dtype)
+    assert kernels.launches == n

@@ -3,7 +3,8 @@
 ``cross_attention_mma_kernel`` (``daam_tpu_torch/csrc/attention.cu``: bf16
 ``cross_attention_acc`` and ``cross_attention_probs``) and the fp32 3xTF32
 kernels ``flash_attention_tf32x3_kernel`` and
-``cross_attention_tf32x3_kernel`` need nvcc and a card.  Here
+``cross_attention_tf32x3_kernel`` (fp32 ``cross_attention_acc`` and
+``cross_attention_probs``) need nvcc and a card.  Here
 ``tests/torch_emulate/run_case.cpp`` includes ``attention.cu`` after
 ``tests/torch_emulate/warp.h``, a CPU stand-in for the CUDA runtime and the
 warp-level operations the kernels use (cp.async, ldmatrix, mma.sync
@@ -20,8 +21,8 @@ layouts, Lq that is not a multiple of the 64- or 128-query block, Lk below
 accumulator, ``cond_only``, and P written from a base off a 16-byte
 boundary.  The kernels' integer TF32 rounding equals ``cvt.rna.tf32.f32``'s
 definition.  The bf16 entry points refuse an Lk whose block does not fit in
-shared memory; both K1 routes take every Lk the former CUDA-core kernel
-took.  On the card, ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` run
+shared memory; every K1 and K5 route takes every Lk the former CUDA-core
+kernels took.  On the card, ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` run
 the same kernels against their plain versions.
 """
 
@@ -150,3 +151,49 @@ def test_fp32_cross_route_takes_every_lk_the_cuda_core_route_took(run_case, hd):
         assert int(run_case('smem32', hd, L)) <= SMEM_MAX
     out = run_case('acc32', 1, 1, 8, lk, hd, 'packed')
     assert out.count(' ok') == 2, out
+
+
+# fp32 K5, one 64-query block a head where it can (the emulator spends
+# about a CPU second a block): every head dim, in alternate layouts, at the
+# ragged Lq = 36 and Lk = 77; a full and a partial block (Lq = 100); Lk
+# below one k16 and one k8 step, one chunk and a key, two full 80-key
+# chunks, and three chunks.
+PROBS32_SHAPES = [(1, 1, 36, 77, 16, 'head_major'), (1, 1, 36, 77, 32, 'packed'),
+                  (1, 1, 36, 77, 64, 'head_major'), (1, 1, 36, 77, 128, 'packed'),
+                  (1, 1, 100, 77, 64, 'packed'), (1, 1, 64, 13, 64, 'packed'),
+                  (1, 1, 64, 5, 32, 'packed'), (1, 1, 36, 81, 128, 'head_major'),
+                  (1, 1, 64, 160, 16, 'head_major'), (1, 1, 64, 200, 32, 'packed')]
+
+
+@pytest.mark.parametrize('p_type, cond_only', [('f32', 0), ('bf16', 1)])
+@pytest.mark.parametrize('shape', PROBS32_SHAPES, ids=lambda s: '-'.join(map(str, s)))
+def test_cross_attention_probs_tf32x3_emulated(run_case, shape, p_type, cond_only):
+    """O within 1e-5, fp32 P within 2e-6, bf16 P within 4e-3 of float64; P
+    from a base off 16 bytes; under cond_only the first B/2 samples' rows
+    unwritten."""
+    B, H, Lq, Lk, hd, layout = shape
+    out = run_case('probs32', 2 if cond_only else B, H, Lq, Lk, hd, layout, p_type,
+                   cond_only)
+    assert out.count(' ok') == 3, out
+
+
+@pytest.mark.parametrize('p_type, cond_only', [('f32', 1), ('bf16', 0)])
+@pytest.mark.parametrize('Lk', [77, 200])
+def test_cross_attention_probs_tf32x3_p_types_emulated(run_case, Lk, p_type, cond_only):
+    """The other pairings of P's type and cond_only, in one chunk and in
+    three."""
+    out = run_case('probs32', 2, 1, 64, Lk, 64, 'packed', p_type, cond_only)
+    assert out.count(' ok') == 3, out
+
+
+@pytest.mark.parametrize('hd', kernels.HEAD_DIMS)
+def test_fp32_probs_route_takes_every_lk_the_cuda_core_route_took(run_case, hd):
+    """The former CUDA-core fp32 K5 staged (2·hd + 64)·Lk floats, so it took
+    Lk up to 227 KB / ((2·hd + 64)·4).  The 3xTF32 kernel streams 80-key
+    chunks and writes P a chunk at a time, so its block stays under 227 KB
+    at every Lk, and a call at that largest Lk holds its gates."""
+    lk = SMEM_MAX // ((2 * hd + 64) * 4)
+    for L in (1, 77, 80, lk, 10 ** 6):
+        assert int(run_case('smem32', hd, L)) <= SMEM_MAX
+    out = run_case('probs32', 1, 1, 8, lk, hd, 'packed', 'f32', 0)
+    assert out.count(' ok') == 3, out

@@ -8,7 +8,8 @@
 //   run_case acc    B H Lq Lk hd layout              bf16, two calls into one acc
 //   run_case acc32  B H Lq Lk hd layout              fp32 (3xTF32), the same
 //   run_case flash  B H Lq Lk hd layout              fp32 (3xTF32) flash_attention
-//   run_case probs  B H Lq Lk hd layout pdtype cond  pdtype f32 or bf16
+//   run_case probs  B H Lq Lk hd layout pdtype cond  bf16, pdtype f32 or bf16
+//   run_case probs32 B H Lq Lk hd layout pdtype cond fp32 (3xTF32), the same
 //   run_case smem   hd Lk p_size                     prints ma_smem_bytes
 //   run_case smem32 hd Lk                            prints mt_smem_bytes
 //   run_case tf32                                    the kernels' tf32_round
@@ -186,24 +187,25 @@ double as_double(PT x) {
 
 // P written from a base one element past a 16-byte boundary, so the span
 // stores take their scalar head and tail; the elements around P and, under
-// cond_only, the first B/2 samples' rows must keep their sentinel.
-template <typename PT>
+// cond_only, the first B/2 samples' rows must keep their sentinel.  bf16
+// inputs run cross_attention_mma_kernel, fp32 the 3xTF32 kernel.
+template <typename E, typename PT>
 void run_probs(const Shape& s, int pdtype, bool cond_only, std::mt19937& rng) {
-  using bf16 = __nv_bfloat16;
-  const View<bf16> q = make_view<bf16>(s, s.Lq, rng, 0);
-  const View<bf16> k = make_view<bf16>(s, s.Lk, rng, 0), v = make_view<bf16>(s, s.Lk, rng, 0);
+  constexpr bool fp32 = std::is_same_v<E, float>;
+  const View<E> q = make_view<E>(s, s.Lq, rng, 0);
+  const View<E> k = make_view<E>(s, s.Lk, rng, 0), v = make_view<E>(s, s.Lk, rng, 0);
   const size_t np = (size_t)s.B * s.H * s.Lq * s.Lk;
   PT sentinel;
   if constexpr (sizeof(PT) == 4) sentinel = 12345.f;
   else sentinel = __float2bfloat16(12345.f);
   std::vector<PT> p(np + 2, sentinel);
   PT* pp = p.data() + 1;
-  std::vector<bf16> o((size_t)s.B * s.Lq * s.H * s.hd);
+  std::vector<E> o((size_t)s.B * s.Lq * s.H * s.hd);
   const int skip_b = cond_only ? s.B / 2 : 0;
-  if (launch_error(daam_cross_attention_probs_mma(
-          0, s.hd, q.ptr(), k.ptr(), v.ptr(), o.data(), pp, pdtype, skip_b, s.B, s.H,
-          s.Lq, s.Lk, q.sb, q.sl, q.sh, k.sb, k.sl, k.sh, v.sb, v.sl, v.sh,
-          1.f / std::sqrt((float)s.hd), nullptr))) {
+  const auto entry = fp32 ? daam_cross_attention_probs_tf32x3 : daam_cross_attention_probs_mma;
+  if (launch_error(entry(0, s.hd, q.ptr(), k.ptr(), v.ptr(), o.data(), pp, pdtype, skip_b, s.B,
+                         s.H, s.Lq, s.Lk, q.sb, q.sl, q.sh, k.sb, k.sl, k.sh, v.sb, v.sl, v.sh,
+                         1.f / std::sqrt((float)s.hd), nullptr))) {
     ++failures;
     return;
   }
@@ -217,7 +219,8 @@ void run_probs(const Shape& s, int pdtype, bool cond_only, std::mt19937& rng) {
     if ((int)(i / per_sample) < skip_b) kept &= as_double(pp[i]) == unwritten;
     else p_err = std::max(p_err, std::fabs(as_double(pp[i]) - P[i]));
   }
-  expect(o_error(o, O) <= 1.6e-2, "O (bf16)", o_error(o, O));
+  if (fp32) expect(o_error(o, O) <= 1e-5, "O (fp32)", o_error(o, O));
+  else expect(o_error(o, O) <= 1.6e-2, "O (bf16)", o_error(o, O));
   // fp32 P: the kernel's exp2 against exp; bf16 P: half a bf16 ulp below 1
   expect(p_err <= (pdtype ? 4e-3 : 2e-6), pdtype ? "P (bf16)" : "P (fp32)", p_err);
   expect(kept, "elements the call must not write", 0);
@@ -270,7 +273,8 @@ int main(int argc, char** argv) {
     return 0;
   }
   if (argc < 8) {
-    fprintf(stderr, "usage: run_case acc|acc32|flash|probs B H Lq Lk hd layout [f32|bf16 cond]\n");
+    fprintf(stderr, "usage: run_case acc|acc32|flash|probs|probs32 B H Lq Lk hd layout "
+                    "[f32|bf16 cond]\n");
     return 2;
   }
   const std::string kind = argv[1];
@@ -283,10 +287,13 @@ int main(int argc, char** argv) {
     run_acc<float>(s, rng);
   } else if (kind == "flash") {
     run_flash(s, rng);
-  } else if (argc == 10 && std::string(argv[8]) == "f32") {
-    run_probs<float>(s, 0, atoi(argv[9]) != 0, rng);
-  } else if (argc == 10) {
-    run_probs<__nv_bfloat16>(s, 1, atoi(argv[9]) != 0, rng);
+  } else if (argc == 10 && (kind == "probs" || kind == "probs32")) {
+    const bool f32 = std::string(argv[8]) == "f32", cond_only = atoi(argv[9]) != 0;
+    using bf16 = __nv_bfloat16;
+    if (kind == "probs32" && f32) run_probs<float, float>(s, 0, cond_only, rng);
+    else if (kind == "probs32") run_probs<float, bf16>(s, 1, cond_only, rng);
+    else if (f32) run_probs<bf16, float>(s, 0, cond_only, rng);
+    else run_probs<bf16, bf16>(s, 1, cond_only, rng);
   } else {
     fprintf(stderr, "probs needs a P type and a cond_only flag\n");
     return 2;
