@@ -241,28 +241,19 @@ __device__ __forceinline__ void p_frag_tf32(const float (&s)[4], uint32_t (&ph)[
   split_tf32(s[3], ph[3], pl[3]);  // (g + 8, key 2t + 1)
 }
 
-// A warp's O += P V over 8 keys (rows key0 .. key0 + 7 of V, fp32 rows of
-// STR floats) in 3xTF32, P straight from its score fragment s.  V is Vs,
-// split here; or, with PRESPLIT, Vs holds its TF32 hi parts and Vl its lo.
-template <int HD, int STR, bool PRESPLIT>
+// A warp's O += P V over 8 keys (rows key0 .. key0 + 7 of Vs, fp32 rows of
+// STR floats, split here) in 3xTF32, P straight from its score fragment s.
+template <int HD, int STR>
 __device__ __forceinline__ void pv_tf32x3(float (&oacc)[HD / 8][4], const float (&s)[4],
-                                          const float* Vs, const float* Vl, int key0, int g,
-                                          int t) {
+                                          const float* Vs, int key0, int g, int t) {
   uint32_t ph[4], pl[4];
   p_frag_tf32(s, ph, pl);
-  const int at = (key0 + 2 * t) * STR + g;
+  const float* vr = Vs + (key0 + 2 * t) * STR + g;
 #pragma unroll
   for (int jd = 0; jd < HD / 8; ++jd) {
     uint32_t vh0, vl0, vh1, vl1;
-    if constexpr (PRESPLIT) {
-      vh0 = __float_as_uint(Vs[at + 8 * jd]);
-      vl0 = __float_as_uint(Vl[at + 8 * jd]);
-      vh1 = __float_as_uint(Vs[at + STR + 8 * jd]);
-      vl1 = __float_as_uint(Vl[at + STR + 8 * jd]);
-    } else {
-      split_tf32(Vs[at + 8 * jd], vh0, vl0);
-      split_tf32(Vs[at + STR + 8 * jd], vh1, vl1);
-    }
+    split_tf32(vr[8 * jd], vh0, vl0);
+    split_tf32(vr[STR + 8 * jd], vh1, vl1);
     mma_tf32x3(oacc[jd], ph, pl, vh0, vh1, vl0, vl1);
   }
 }
@@ -1064,52 +1055,30 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // Dynamic shared memory of a block: the q tile and one chunk of k and of v
 // in fp32 rows of hd + 4 floats (a chunk's keys zero-filled to a multiple
-// of 16).  K1 (acc) adds a tile of min(Lk, 80) acc rows of 68 floats.  K5
-// holds k and v twice, as TF32 hi and lo parts, and stages P over them once
-// they are consumed (64 rows of min(Lk, 80) values and up to 16 bytes of
-// lead fit in four times 16 rows of hd + 4 floats per 16 keys).  At most
-// 198 KB (K5, hd 128), so every Lk fits: past one chunk, the chunks stream
-// through.
-inline long long mt_smem_bytes(int hd, long long Lk, bool acc) {
+// of 16), then the epilogue's tile of min(Lk, 80) rows of 68 floats: K1's
+// chunk of acc rows, or K5's P, which needs less (64 rows of min(Lk, 80)
+// values and up to 16 bytes of lead).  At most 137 KB (hd 128), so every
+// Lk fits: past one chunk, the chunks stream through.
+inline long long mt_smem_bytes(int hd, long long Lk) {
   const long long rows = Lk < MA_KC ? (Lk + 15) & ~15LL : MA_KC;
-  if (!acc) return (MA_BQ + 4 * rows) * (hd + 4) * 4;
   return (MA_BQ + 2 * rows) * (hd + 4) * 4 + (Lk < MA_KC ? Lk : MA_KC) * MA_ASTR * 4;
-}
-
-// Rows of fp32 values at x (row stride str floats, ch 16-byte pieces a row)
-// split in place into their TF32 hi parts, the lo parts going to lo in the
-// same layout: K5's k and v, once for the block.
-__device__ __forceinline__ void mt_split_rows(float* x, float* lo, int rows, int ch, int str,
-                                              int tid) {
-  for (int e = tid; e < rows * ch; e += MA_THREADS) {
-    const int at = (e / ch) * str + 4 * (e % ch);
-    const float4 v = *reinterpret_cast<const float4*>(x + at);
-    uint4 hi, lw;
-    split_tf32(v.x, hi.x, lw.x);
-    split_tf32(v.y, hi.y, lw.y);
-    split_tf32(v.z, hi.z, lw.z);
-    split_tf32(v.w, hi.w, lw.w);
-    *reinterpret_cast<uint4*>(x + at) = hi;
-    *reinterpret_cast<uint4*>(lo + at) = lw;
-  }
 }
 
 // ma_scores in 3xTF32 from fp32 tiles: the scores of keys c0 .. c0 + MA_KC -
 // 1 (rows 0 .. of Ks) for the warp's 16 queries, whose rows q_lane
 // addresses as for flash_attention_tf32x3_kernel; log2 domain, keys past Lk
-// at -inf, mma's D layout.  k is Ks, split here; or, with PRESPLIT, Ks
-// holds its TF32 hi parts and Kl its lo.
-template <int HD, bool PRESPLIT>
+// at -inf, mma's D layout.
+template <int HD>
 __device__ __forceinline__ void mt_scores(float (&s)[MA_NT][4], uint32_t q_lane,
-                                          const float* Ks, const float* Kl, int c0, int Lk,
-                                          float scale_log2, int lane) {
+                                          const float* Ks, int c0, int Lk, float scale_log2,
+                                          int lane) {
   using namespace hopper;
   constexpr int STR = HD + 4;
 #pragma unroll
   for (int j = 0; j < MA_NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  const int k_lane = (8 * (lane / 16) + lane % 8) * STR + 4 * ((lane / 8) % 2);
+  const float* k_lane = Ks + (8 * (lane / 16) + lane % 8) * STR + 4 * ((lane / 8) % 2);
 #pragma unroll
   for (int kk = 0; kk < HD / 8; ++kk) {
     uint32_t qa[4], qh[4], ql[4];
@@ -1118,16 +1087,9 @@ __device__ __forceinline__ void mt_scores(float (&s)[MA_NT][4], uint32_t q_lane,
 #pragma unroll
     for (int jp = 0; jp < MA_NT / 2; ++jp) {
       if (c0 + 16 * jp < Lk) {
-        const int at = k_lane + 16 * jp * STR + 8 * kk;
-        uint32_t kh[4], kl[4];
-        if constexpr (PRESPLIT) {
-          ldmatrix_x4(kh, smem_u32(Ks + at));
-          ldmatrix_x4(kl, smem_u32(Kl + at));
-        } else {
-          uint32_t kr[4];
-          ldmatrix_x4(kr, smem_u32(Ks + at));
-          split_tf32(kr, kh, kl);
-        }
+        uint32_t kr[4], kh[4], kl[4];
+        ldmatrix_x4(kr, smem_u32(k_lane + 16 * jp * STR + 8 * kk));
+        split_tf32(kr, kh, kl);
         mma_tf32x3(s[2 * jp], qh, ql, kh[0], kh[1], kl[0], kl[1]);
         mma_tf32x3(s[2 * jp + 1], qh, ql, kh[2], kh[3], kl[2], kl[3]);
       }
@@ -1147,13 +1109,11 @@ __device__ __forceinline__ void mt_scores(float (&s)[MA_NT][4], uint32_t q_lane,
 // normalized in fp32 and enters P V unrounded, as the Pallas body's
 // p.astype(v.dtype) is a no-op in fp32.  At Lk <= 80 q, k, v (and K1's acc
 // tile, in a second group that lands while the products run) arrive at
-// once and the one chunk's scores stay in registers.  K1's warps split the
-// k and v fragments they load; K5, which has no acc tile, has the room to
-// split each k and v element once for the block into hi and lo tiles, and
-// stages the block's P span over them once P V is done, to write it with
-// 16-byte stores.  A longer Lk streams each chunk's k (pass 1), then its k
-// and v and K1's acc tile (pass 2) through the same buffers; K5 then stages
-// and writes each chunk's P columns in turn.
+// once and the one chunk's scores stay in registers; K5 stages the block's
+// P span in the tile's place and writes it with 16-byte stores.  A longer
+// Lk streams each chunk's k (pass 1), then its k and v and K1's acc tile
+// (pass 2) through the same buffers; K5 then stages and writes each chunk's
+// P columns in turn.
 template <int HD, typename PT, bool ACC>
 __global__ void __launch_bounds__(MA_THREADS, HD == 128 ? 1 : 2)
 cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1175,14 +1135,11 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
   const int qr = warp * 16 + g;  // block row of s[.][0..1]; s[.][2..3] is qr + 8
   const int n_chunks = (Lk + MA_KC - 1) / MA_KC;
   const int kv_rows = n_chunks > 1 ? MA_KC : (Lk + 15) & ~15;
-  constexpr bool SPLIT = !ACC;  // k and v split once for the block (K5)
   float* Qs = mt_smem;
-  float* Ks = Qs + MA_BQ * STR;           // K5: k's hi parts
-  float* Kl = Ks + kv_rows * STR;         // K5: k's lo parts
-  float* Vs = Ks + (SPLIT ? 2 : 1) * kv_rows * STR;
-  float* Vl = Vs + kv_rows * STR;         // K5: v's lo parts
-  float* At = Vs + kv_rows * STR;         // K1: [chunk rows][MA_ASTR]
-  PT* Ps = reinterpret_cast<PT*>(Ks);     // K5: P, the span or a chunk's rows
+  float* Ks = Qs + MA_BQ * STR;
+  float* Vs = Ks + kv_rows * STR;
+  float* At = Vs + kv_rows * STR;         // ACC: [chunk rows][MA_ASTR]
+  PT* Ps = reinterpret_cast<PT*>(At);     // else: P, the span or a chunk's rows
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   float* acc_bh = ACC ? acc + ((long long)b * H + h) * Lk * Lq + q0 : nullptr;
@@ -1197,14 +1154,6 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
       cp_async16(smem_u32(dst + r * STR + 4 * c), src + (in ? c0 + r : 0) * stride + 4 * c,
                  in ? 16 : 0);
     }
-  };
-  // K5: the landed k (and v) rows of the chunk at c0 split in place, then a
-  // barrier before any warp reads them.
-  auto split_keys = [&](bool with_v, int c0) {
-    const int rows = min(kv_rows, (Lk - c0 + 15) & ~15);
-    mt_split_rows(Ks, Kl, rows, CH, STR, tid);
-    if (with_v) mt_split_rows(Vs, Vl, rows, CH, STR, tid);
-    __syncthreads();
   };
   {  // q rows past Lq are zero-filled
     const float* qb = q + b * qs.b + h * qs.h;
@@ -1227,7 +1176,6 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     cp_async_wait<0>();
   }
   __syncthreads();
-  if (SPLIT && n_chunks == 1) split_keys(true, 0);
   const uint32_t q_lane = smem_u32(Qs + (warp * 16 + lane % 16) * STR + 4 * (lane / 16));
 
   // Pass 1: row max and sum of exp over the chunks.
@@ -1240,9 +1188,8 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
-      if (SPLIT) split_keys(false, c * MA_KC);
     }
-    mt_scores<HD, SPLIT>(s, q_lane, Ks, Kl, c * MA_KC, Lk, scale_log2, lane);
+    mt_scores<HD>(s, q_lane, Ks, c * MA_KC, Lk, scale_log2, lane);
     ma_row_stats(s, m0, m1, l0, l1);
   }
 #pragma unroll
@@ -1278,22 +1225,19 @@ cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
         cp_async_wait<0>();
       }
       __syncthreads();
-      if (SPLIT) split_keys(true, c0);
-      mt_scores<HD, SPLIT>(s, q_lane, Ks, Kl, c0, Lk, scale_log2, lane);
+      mt_scores<HD>(s, q_lane, Ks, c0, Lk, scale_log2, lane);
     }
     ma_normalize(s, m0, m1, inv0, inv1);
 #pragma unroll
     for (int j = 0; j < MA_NT; ++j)
-      if (c0 + 8 * j < Lk) pv_tf32x3<HD, STR, SPLIT>(oacc, s[j], Vs, Vl, 8 * j, g, t);
+      if (c0 + 8 * j < Lk) pv_tf32x3<HD, STR>(oacc, s[j], Vs, 8 * j, g, t);
     if constexpr (ACC) {
       ma_add_acc(At, acc_bh, s, c0, Lk, Lq, q0, qr, t, tid);
     } else if (write_p && n_chunks == 1) {
-      __syncthreads();  // P goes over k and v: every warp is done with them
       ma_stage_p(Ps + lead, s, Lk, Lk, rows, qr, t);
     } else if (write_p) {
       // the chunk's columns of P: rows of cw keys, Lk apart in P
       const int cw = min(MA_KC, Lk - c0);
-      __syncthreads();
       ma_stage_p(Ps, s, cw, cw, rows, qr, t);
       __syncthreads();
       for (int e = tid; e < rows * cw; e += MA_THREADS) {
@@ -1369,11 +1313,10 @@ cudaError_t launch_cross_tf32x3(int device, const void* q, const void* k, const 
                                 cudaStream_t stream) {
   auto kernel = cross_attention_tf32x3_kernel<HD, PT, ACC>;
   static bool smem_set[64] = {};  // the opt-in to the largest block, at Lk >= 80
-  cudaError_t err =
-      opt_in_smem(kernel, device, (int)mt_smem_bytes(HD, MA_KC, ACC), smem_set);
+  cudaError_t err = opt_in_smem(kernel, device, (int)mt_smem_bytes(HD, MA_KC), smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Lq + MA_BQ - 1) / MA_BQ, H, B);
-  DAAM_LAUNCH(grid, MA_THREADS, mt_smem_bytes(HD, Lk, ACC), stream, kernel)(
+  DAAM_LAUNCH(grid, MA_THREADS, mt_smem_bytes(HD, Lk), stream, kernel)(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), acc, static_cast<PT*>(p), H,
       Lq, Lk, skip_b, qs, ks, vs, scale * LOG2E);

@@ -148,7 +148,7 @@ def test_fp32_cross_route_takes_every_lk_the_cuda_core_route_took(run_case, hd):
     holds its gates."""
     lk = SMEM_MAX // (2 * hd * 4)
     for L in (1, 77, 80, lk, 10 ** 6):
-        assert int(run_case('smem32', hd, L, 'acc')) <= SMEM_MAX
+        assert int(run_case('smem32', hd, L)) <= SMEM_MAX
     out = run_case('acc32', 1, 1, 8, lk, hd, 'packed')
     assert out.count(' ok') == 2, out
 
@@ -194,6 +194,6 @@ def test_fp32_probs_route_takes_every_lk_the_cuda_core_route_took(run_case, hd):
     at every Lk, and a call at that largest Lk holds its gates."""
     lk = SMEM_MAX // ((2 * hd + 64) * 4)
     for L in (1, 77, 80, lk, 10 ** 6):
-        assert int(run_case('smem32', hd, L, 'probs')) <= SMEM_MAX
+        assert int(run_case('smem32', hd, L)) <= SMEM_MAX
     out = run_case('probs32', 1, 1, 8, lk, hd, 'packed', 'f32', 0)
     assert out.count(' ok') == 3, out

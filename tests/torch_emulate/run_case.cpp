@@ -11,7 +11,7 @@
 //   run_case probs  B H Lq Lk hd layout pdtype cond  bf16, pdtype f32 or bf16
 //   run_case probs32 B H Lq Lk hd layout pdtype cond fp32 (3xTF32), the same
 //   run_case smem   hd Lk p_size                     prints ma_smem_bytes
-//   run_case smem32 hd Lk acc|probs                  prints mt_smem_bytes
+//   run_case smem32 hd Lk                            prints mt_smem_bytes
 //   run_case tf32                                    the kernels' tf32_round
 //       against cvt.rna.tf32.f32's definition (warp.h)
 //   run_case refuse acc|f32|bf16 hd Lk              prints what the bf16
@@ -253,8 +253,8 @@ int main(int argc, char** argv) {
     printf("tf32_round differs from cvt.rna.tf32.f32 on %ld of %ld inputs\n", bad, n);
     return bad ? 1 : 0;
   }
-  if (argc == 5 && std::string(argv[1]) == "smem32") {
-    printf("%lld\n", mt_smem_bytes(atoi(argv[2]), atoi(argv[3]), std::string(argv[4]) == "acc"));
+  if (argc == 4 && std::string(argv[1]) == "smem32") {
+    printf("%lld\n", mt_smem_bytes(atoi(argv[2]), atoi(argv[3])));
     return 0;
   }
   if (argc == 5 && std::string(argv[1]) == "refuse") {
