@@ -134,9 +134,17 @@
 //   acc rows (pass 2), through the same buffers, and K5 stages and writes
 //   each chunk's columns of P in turn, so every Lk fits (at most 137 KB a
 //   block at hd 128).  Each warp splits the k and v fragments it loads:
-//   cp.async lands raw fp32, and hi and lo copies of k and v beside it
-//   would leave room for one block per SM instead of two.
-//   TODO(times)
+//   cp.async lands raw fp32, and for K1 hi and lo copies of k and v beside
+//   it would leave room for one block per SM instead of two; K5 has the
+//   room, but splitting once for its block measured 1-4% slower at the
+//   same two blocks per SM, so both keep the per-warp split.  On the card
+//   above, per SD 2.1 evaluation, K1 takes 0.24-0.26 ms of device time (bound
+//   0.062 ms, the bytes), where the former CUDA-core kernel (one thread per
+//   query, two passes, Lk dependent read-modify-writes of acc each) took
+//   0.81; K5 takes 0.39-0.41 ms per save-run evaluation (bound 0.093 ms),
+//   where its CUDA-core kernel (one thread per query, two passes over the
+//   tokens) took 1.27-1.31.  A block's own latency sets K5: its 40-block
+//   launch at (2, 20, 64, 77), one wave, takes 10.5 us.
 //
 // No kernel synchronizes with the host or allocates memory; the
 // Python wrapper (daam_tpu_torch/ops/kernels.py) checks shapes, strides and
