@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of daam_tpu_torch on one NVIDIA GPU: build, kernel parity, the
 card's pytest cases, the traced SD 2.1-base slice in bf16 and in fp32, the
-head-replay transplant, the traced SDXL slice, timings.
+head-replay transplant, the traced SD 1.x slice (DDIM and PNDM), the traced
+SDXL slice, timings.
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile       # also a torch.profiler table of a
@@ -17,7 +18,7 @@ first on the import path), which is how two commits are compared in one
 call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
+order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
@@ -28,13 +29,15 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
 2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
    version on the same inputs, in both layouts (head-major view and the
    (B, L, H·hd) projection output), in bf16 and fp32 at every head dim of
-   ``HEAD_DIMS``: ``flash_attention`` at every shape of ``K2_SHAPES`` (Lq ∈
-   {4096, 1024, 256, 64}, Lk = Lq or 77) and ``SDXL_K2_SHAPES``;
-   ``cross_attention_acc`` at every shape of ``K1_SHAPES`` and
-   ``SDXL_K1_SHAPES``, at the ragged Lq = 100 and at Lk = 200 (three 80-key
-   chunks), called twice into the same accumulator;
-   ``cross_attention_probs`` at every shape of ``K5_SHAPES`` and
-   ``SDXL_K5_SHAPES``, at the ragged Lq = 37 and at Lk = 200, with and
+   ``HEAD_DIMS`` (16, 32, 40, 64, 80, 128, 160): ``flash_attention`` at
+   every shape of ``K2_SHAPES`` (Lq ∈ {4096, 1024, 256, 64}, Lk = Lq or
+   77), ``SDXL_K2_SHAPES`` and ``V1_K2_SHAPES`` (each at its own hd);
+   ``cross_attention_acc`` at every shape of ``K1_SHAPES``,
+   ``SDXL_K1_SHAPES`` and ``V1_K1_SHAPES``, at the ragged Lq = 100 and at
+   Lk = 200 (three 80-key chunks), called twice into the same accumulator;
+   ``cross_attention_probs`` at every shape of ``K5_SHAPES``,
+   ``SDXL_K5_SHAPES`` and ``V1_K5_SHAPES``, at the ragged Lq = 37 and at
+   Lk = 200, with and
    without ``cond_only``, P in fp32 and bf16 (P compared on the rows it
    writes).  Every case must have run on its dtype's route (the ``*_wgmma``
    and ``*_mma`` counters for bf16, ``*_tf32x3`` for fp32).  TF32 is off
@@ -44,7 +47,8 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
    0.999.  Each bf16 output of the three kernels must lie closer (mean abs
    difference) to a reference that rounds P to bf16 before PV where the
    Pallas body does than to the same reference with fp32 P.
-3. A small reference: the ``tiny`` and ``tiny-xl`` presets in fp32, kernels
+3. A small reference: the ``tiny``, ``tiny-v1`` and ``tiny-xl`` presets in
+   fp32, kernels
    against the plain path, same weights and latents: images within 1e-3,
    heat maps with per-token Spearman ≥ 0.999; then an fp32 save_heads →
    load_heads pair under each, whose buffers agree within 1e-5 and images
@@ -69,7 +73,8 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
    synchronized per step, warm runs in turns) and of the save and load
    runs.  (b) Run right after phase 8, before any pipeline is profiled:
    each kernel in bf16 and in fp32 (TF32 off for the plain versions and
-   SDPA) at every shape of each path (hd 64; v2-1-base, then xl-base-1.0):
+   SDPA) at every shape of each path (v2-1-base and xl-base-1.0 at hd 64,
+   then v1 at hd 40, 80 and 160, its bound on the true hd):
    its time by CUDA events (back-to-back launches after a warm-up), its
    device time per launch (torch.profiler's self device time over 20
    launches, so the wrappers' host cost does not stand in for kernel time),
@@ -112,11 +117,25 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 7):
    the transplant as in phase 5 on the 3xTF32 route (what ``--save-heads``
    and ``--load-heads`` run; no second prompt); its seconds per step
    traced and untraced, and of the save and load runs as in phase 6a.
+10. SD 1.x at full width: ``v1`` (random weights from seed 0; UNet
+    320/640/1280/1280 with 8 heads, so hd 40, 80 and 160; CLIP-L's final
+    layer), 512², checked as in phase 4: in fp32 with DDIM (what
+    ``daam-torch --model v1`` runs), 10 traced steps with 15 × 10
+    cross_attention_acc and 32 × 10 flash_attention launches on the 3xTF32
+    route, and the transplant as in phase 9 (16 × 10
+    cross_attention_probs on ``cross_attention_probs_tf32x3``); in bf16
+    with PNDM (SD 1.x's published scheduler), 10 steps that are 11 UNet
+    evaluations: 15 × 11 and 32 × 11 launches on the bf16 routes, and its
+    transplant over 11 evaluations.  Each prints its s/step (PNDM: per
+    evaluation) traced and untraced, and of the save and load runs.
 
-The whole run takes ~2–3 min of command time on one H100.
+The whole run takes ~3–5 min of command time on one H100.
 
-Before the card's name and power limit, ``{"sdxl_kernels": [...]}`` gives
-the same keys as the next line for SDXL's path: launches from phase 7
+Before the card's name and power limit, ``{"v1_kernels": [...]}`` gives
+the same keys as the ``kernels`` line for v1's path (launches from phase
+10: bf16 from the PNDM runs, per 11 evaluations; fp32 from the DDIM runs;
+times per v1 evaluation), and ``{"sdxl_kernels": [...]}`` for SDXL's path:
+launches from phase 7
 (the bf16 run's; the fp32 step's for the fp32 entries;
 cross_attention_probs: the 2-step save run's of each dtype) and times per
 SDXL evaluation (cross_attention_probs: per evaluation of an SDXL save
@@ -176,6 +195,16 @@ K1_SHAPES = [((1, 5, 4096, 77), 5), ((1, 10, 1024, 77), 5),
              ((1, 20, 256, 77), 5)]
 K5_SHAPES = [((2, 5, 4096, 77), 5), ((2, 10, 1024, 77), 5),
              ((2, 20, 256, 77), 5), ((2, 20, 64, 77), 1)]
+# SD 1.x (v1) at 512²: 8 heads at every level, so hd 40, 80 and 160 over
+# 320, 640 and 1280 channels; (B, H, Lq, Lk), launches per evaluation, hd.
+V1_K2_SHAPES = [((2, 8, 4096, 4096), 5, 40), ((2, 8, 1024, 1024), 5, 80),
+                ((2, 8, 256, 256), 5, 160), ((2, 8, 64, 64), 1, 160),
+                ((1, 8, 4096, 77), 5, 40), ((1, 8, 1024, 77), 5, 80),
+                ((1, 8, 256, 77), 5, 160), ((2, 8, 64, 77), 1, 160)]
+V1_K1_SHAPES = [((1, 8, 4096, 77), 5, 40), ((1, 8, 1024, 77), 5, 80),
+                ((1, 8, 256, 77), 5, 160)]
+V1_K5_SHAPES = [((2, 8, 4096, 77), 5, 40), ((2, 8, 1024, 77), 5, 80),
+                ((2, 8, 256, 77), 5, 160), ((2, 8, 64, 77), 1, 160)]
 # Off the paths: Lq not a multiple of the 64-query block, and Lk past one
 # 80-key chunk (the tensor-core kernel's two-pass route).
 EXTRA_SHAPES = {'cross_attention_acc': [(1, 5, 100, 77), (1, 5, 128, 200)],
@@ -316,16 +345,18 @@ def parity(kernels, A):
 
     k1_shapes = [sh for sh, _ in K1_SHAPES] + EXTRA_SHAPES['cross_attention_acc']
     k5_shapes = [sh for sh, _ in K5_SHAPES] + EXTRA_SHAPES['cross_attention_probs']
-    # SDXL's shapes at its one head dim, 64
-    sdxl = {name: [(HD, sh) for sh, _ in shapes] for name, shapes in (
-        ('flash_attention', SDXL_K2_SHAPES), ('cross_attention_acc', SDXL_K1_SHAPES),
-        ('cross_attention_probs', SDXL_K5_SHAPES))}
+    # SDXL's shapes at its one head dim, 64, and v1's each at its own
+    paths = {name: [(HD, sh) for sh, _ in shapes] + [(hd, sh) for sh, _, hd in v1]
+            for name, shapes, v1 in (
+                ('flash_attention', SDXL_K2_SHAPES, V1_K2_SHAPES),
+                ('cross_attention_acc', SDXL_K1_SHAPES, V1_K1_SHAPES),
+                ('cross_attention_probs', SDXL_K5_SHAPES, V1_K5_SHAPES))}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         dname = 'bf16' if bf16 else 'fp32'
         for layout in ('head_major', 'packed'):
             before = dict(kernels.launches)
-            flash_cases = cases([sh for sh, _ in K2_SHAPES]) + sdxl['flash_attention']
+            flash_cases = cases([sh for sh, _ in K2_SHAPES]) + paths['flash_attention']
             for hd, shape in flash_cases:
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
                 o = kernels.flash_attention(q, k, v)
@@ -341,7 +372,7 @@ def parity(kernels, A):
                 if bf16:
                     check_rounding('flash_attention', o, flash_reference(q, k, v, True),
                                    flash_reference(q, k, v, False))
-            acc_cases = cases(k1_shapes) + sdxl['cross_attention_acc']
+            acc_cases = cases(k1_shapes) + paths['cross_attention_acc']
             for hd, shape in acc_cases:
                 B, H, Lq, Lk = shape
                 acc = torch.zeros(B, H, Lk, Lq, device='cuda')
@@ -367,7 +398,7 @@ def parity(kernels, A):
                     # the plain version rounds normalized P before PV
                     check_rounding('cross_attention_acc', o, r,
                                    cross_reference(q, k, v, False))
-            probs_cases = cases(k5_shapes) + sdxl['cross_attention_probs']
+            probs_cases = cases(k5_shapes) + paths['cross_attention_probs']
             for hd, shape in probs_cases:
                 B = shape[0]
                 q, k, v = qkv(*shape, layout, dtype, gen, hd)
@@ -559,20 +590,42 @@ def bound(name, shape, dtype='bf16', hd=HD):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def padded_work(name, dtype, hd) -> float:
+    """The tensor-core work of a route over the work its bound counts (4 ·
+    B·H·Lq·Lk·hd FLOP): bf16 flash_attention (wgmma) runs S = Q Kᵀ on hd
+    rounded up to its k16 step and O = P V on whole 64-column panels past
+    hd 32; bf16 K1 and K5 (mma.sync m16n8k16) run both products on hd
+    rounded up to 16; the fp32 routes (m16n8k8) on hd itself."""
+    def up(x, step):
+        return -(-x // step) * step
+    if dtype == 'fp32':
+        return 1.0
+    if name == 'flash_attention':
+        return (up(hd, 16) + (hd if hd in (16, 32) else up(hd, 64))) / (2 * hd)
+    return up(hd, 16) / hd
+
+
 def core_bound(shape, hd=HD) -> float:
     """ms of one launch's FLOP at the fp32 rate of the CUDA cores."""
     B, H, Lq, Lk = shape
     return 4 * B * H * Lq * Lk * hd / (FP32_CORE_TFLOPS * 1e12) * 1e3
 
 
-#: (B, H, Lq, Lk) and launches per UNet evaluation, by kernel, of each
-#: path phase 6b times
+def _at_hd(shapes, hd=HD):
+    return [(shape, per_eval, hd) for shape, per_eval in shapes]
+
+
+#: (B, H, Lq, Lk), launches per UNet evaluation and head dim, by kernel, of
+#: each path phase 6b times
 PATH_SHAPES = {
-    'v2-1-base': (('flash_attention', K2_SHAPES), ('cross_attention_acc', K1_SHAPES),
-                  ('cross_attention_probs', K5_SHAPES)),
-    'xl-base-1.0': (('flash_attention', SDXL_K2_SHAPES),
-                    ('cross_attention_acc', SDXL_K1_SHAPES),
-                    ('cross_attention_probs', SDXL_K5_SHAPES))}
+    'v2-1-base': (('flash_attention', _at_hd(K2_SHAPES)),
+                  ('cross_attention_acc', _at_hd(K1_SHAPES)),
+                  ('cross_attention_probs', _at_hd(K5_SHAPES))),
+    'xl-base-1.0': (('flash_attention', _at_hd(SDXL_K2_SHAPES)),
+                    ('cross_attention_acc', _at_hd(SDXL_K1_SHAPES)),
+                    ('cross_attention_probs', _at_hd(SDXL_K5_SHAPES))),
+    'v1': (('flash_attention', V1_K2_SHAPES), ('cross_attention_acc', V1_K1_SHAPES),
+           ('cross_attention_probs', V1_K5_SHAPES))}
 
 
 def kernel_times(kernels, A, model, dtype='bf16'):
@@ -598,8 +651,8 @@ def _kernel_times(kernels, A, model, dtype):
     tdtype = torch.bfloat16 if dtype == 'bf16' else torch.float32
     rows, calls = [], []
     for name, shapes in PATH_SHAPES[model]:
-        for shape, per_eval in shapes:
-            q, k, v = qkv(*shape, 'packed', tdtype, gen)
+        for shape, per_eval, hd in shapes:
+            q, k, v = qkv(*shape, 'packed', tdtype, gen, hd)
             lib = None
             if name == 'flash_attention':
                 kern = lambda q=q, k=k, v=v: kernels.flash_attention(q, k, v)  # noqa: E731
@@ -618,9 +671,9 @@ def _kernel_times(kernels, A, model, dtype):
                     q, k, v, acc)
             # plain, kernel, kernel, plain: the card's clocks drift in a run
             p1, k1, k2, p2 = (event_ms(f) for f in (plain, kern, kern, plain))
-            row = {'name': name, 'shape': shape, 'per_eval': per_eval,
+            row = {'name': name, 'shape': shape, 'per_eval': per_eval, 'hd': hd,
                    'ms': (k1 + k2) / 2, 'plain_ms': (p1 + p2) / 2,
-                   'bound': bound(name, shape, dtype), 'lib_ms': None}
+                   'bound': bound(name, shape, dtype, hd), 'lib_ms': None}
             calls.append((f'{name} {dtype} {shape}', kern))
             if lib is not None:
                 row['lib_ms'] = (event_ms(lib) + event_ms(lib)) / 2
@@ -630,7 +683,7 @@ def _kernel_times(kernels, A, model, dtype):
     peak = BF16_PEAK_TFLOPS if dtype == 'bf16' else TF32_PEAK_TFLOPS / 3
     totals = {}
     for row in rows:
-        name, shape, per_eval = row['name'], row['shape'], row['per_eval']
+        name, shape, per_eval, hd = row['name'], row['shape'], row['per_eval'], row['hd']
         d_ms, n_kernels = dev[f'{name} {dtype} {shape}']
         check(n_kernels == 1, f'{name} {shape}: {n_kernels} device kernels a call')
         (b_ms, by) = row['bound']
@@ -640,22 +693,25 @@ def _kernel_times(kernels, A, model, dtype):
                                        'by': {'bytes': 0.0, 'operations': 0.0}})
         for key, val in (('ms', row['ms']), ('device_ms', d_ms),
                          ('plain_ms', row['plain_ms']), ('bound_ms', b_ms),
-                         ('core_bound_ms', core_bound(shape))):
+                         ('core_bound_ms', core_bound(shape, hd))):
             tot[key] += val * per_eval
         tot['by'][by] += b_ms * per_eval
         extra = ''
         if dtype == 'fp32':
-            extra = f' CUDA-core bound={core_bound(shape):.5f} ms;'
+            extra = f' CUDA-core bound={core_bound(shape, hd):.5f} ms;'
         if row['lib_ms'] is not None:
             lib_dev = dev[f'sdpa {dtype} {shape}'][0]
             tot['library_ms'] = (tot['library_ms'] or 0.0) + row['lib_ms'] * per_eval
             tot['library_device_ms'] = (tot['library_device_ms'] or 0.0) + lib_dev * per_eval
             B, H, Lq, Lk = shape
-            tflops = 4 * B * H * Lq * Lk * HD / d_ms / 1e9
+            tflops = 4 * B * H * Lq * Lk * hd / d_ms / 1e9
             extra += (f' sdpa={row["lib_ms"]:.4f} ms (device {lib_dev:.4f}); '
                       f'{tflops:.1f} TFLOP/s on the device, '
                       f'{100 * tflops / peak:.1f}% of the {dtype} peak')
-        print(f'time {model} {name:21s} {dtype} B,H,Lq,Lk={shape} x{per_eval}/eval '
+        work = padded_work(name, dtype, hd)
+        if work != 1.0:  # the bound counts hd; the products run on more
+            extra += f' padded products: {work:.2f}x the bound\'s FLOP;'
+        print(f'time {model} {name:21s} {dtype} B,H,Lq,Lk={shape} hd={hd} x{per_eval}/eval '
               f'event={row["ms"]:.4f} ms device={d_ms:.4f} ms '
               f'plain={row["plain_ms"]:.4f} ms bound={b_ms:.5f} ms ({by}), '
               f'{100 * b_ms / d_ms:.1f}% of the device time;{extra}')
@@ -675,13 +731,14 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
                k5: int = K5_PER_EVAL, k2: int = K2_PER_EVAL_REPLAY,
                other_prompt: bool = True) -> dict:
     """A save_heads -> load_heads pair at full width, ``steps`` steps each
-    (phases 5, 7 and 9), with the per-step time and slowest step of each
-    run: the save run's counters (``k5`` cross_attention_probs and ``k2``
-    flash_attention launches per evaluation on the ``dtype`` route, nothing
-    else) and its buffer (``k5`` layers of (steps, 2, H, h·w, 77) bf16,
-    finite, rows summing to 1 within 1e-2); the load run of the same prompt
-    (``k2`` flash_attention per evaluation and nothing else), whose
-    per-token heat maps must match the save run's at Spearman ≥ 0.999; with
+    (phases 5, 7, 9 and 10), with the per-step time and slowest step of
+    each run: the save run's counters (``k5`` cross_attention_probs and
+    ``k2`` flash_attention launches per UNet evaluation on the ``dtype``
+    route, nothing else) and its buffer (``k5`` layers of (evaluations, 2,
+    H, h·w, 77) bf16, finite, rows summing to 1 within 1e-2; PNDM evaluates
+    ``steps + 1`` times); the load run of the same prompt (``k2``
+    flash_attention per evaluation and nothing else), whose per-token heat
+    maps must match the save run's at Spearman ≥ 0.999; with
     ``other_prompt``, a load run of a second prompt, whose image must differ
     from a fresh run of it.  Returns the save run's launch counts."""
     import numpy as np
@@ -689,6 +746,7 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
     from daam_tpu_torch.trace import release_heads
 
     data_dir = f'smoke {label}'
+    evals = pipe.scheduler.num_scan_steps(steps)
 
     def run(prompt, **trace_kwargs):
         kernels.reset_launches()
@@ -701,28 +759,29 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
         return out.images[0], tc, launches
 
     image_s, tc_s, save_launches = run(PROMPT, save_heads=True, persist_heads=False)
-    check(save_launches == expected(kernels, dtype, cross_attention_probs=k5 * steps,
-                                    flash_attention=k2 * steps),
+    check(save_launches == expected(kernels, dtype, cross_attention_probs=k5 * evals,
+                                    flash_attention=k2 * evals),
           f'{label} save run launch counts {save_launches}')
-    buf = tc_s.replay_buffer(steps)
+    buf = tc_s.replay_buffer(evals)
     check(len(buf) == k5, f'{label}: {len(buf)} layers in the replay buffer')
     nbytes = 0
     latent = pipe.config.image_size // pipe.vae_scale_factor
     for name, arr in buf.items():
         info = pipe._layout[name]
         hw = (latent // info.downscale) ** 2
-        check(tuple(arr.shape) == (steps, 2, info.heads, hw, 77)
+        check(tuple(arr.shape) == (evals, 2, info.heads, hw, 77)
               and arr.dtype == torch.bfloat16, f'{name}: {tuple(arr.shape)}')
         a = arr.to(pipe.device).float()
         row_err = (a.sum(-1) - 1).abs().max().item()
         check(bool(torch.isfinite(a).all()) and row_err <= 1e-2,
               f'{name}: finite rows summing to 1 (max err {row_err:.3e})')
         nbytes += arr.numel() * arr.element_size()
-    print(f'{label} replay buffer: {len(buf)} layers, {nbytes / steps / 1e6:.1f} MB '
-          f'of bf16 per step, rows sum to 1 within 1e-2')
+    print(f'{label} replay buffer: {len(buf)} layers of {evals} evaluations, '
+          f'{nbytes / evals / 1e6:.1f} MB of bf16 per evaluation, rows sum to 1 '
+          f'within 1e-2')
 
     image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
-    check(load_launches == expected(kernels, dtype, flash_attention=k2 * steps),
+    check(load_launches == expected(kernels, dtype, flash_attention=k2 * evals),
           f'{label} load run launch counts {load_launches}')
     map_s = tc_s.compute_global_heat_map().heat_maps
     map_l = tc_l.compute_global_heat_map().heat_maps
@@ -941,6 +1000,48 @@ def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
     return launches
 
 
+def v1_full_width(StableDiffusionPipeline, trace, kernels):
+    """Phase 10: SD 1.x (``v1``, 8 heads at hd 40/80/160) at 512², random
+    weights from seed 0.  fp32 with DDIM, what ``daam-torch --model v1``
+    runs: a traced 10-step run (15 × 10 K1 and 32 × 10 K2 on the 3xTF32
+    route), the fp32 save -> load transplant (16 × 10 K5), s/step traced
+    and untraced.  bf16 with PNDM, SD 1.x's published scheduler: a traced
+    run of 10 steps, 11 UNet evaluations (15 × 11 K1 and 32 × 11 K2 on the
+    bf16 routes), its save -> load pair (a buffer of 11 evaluations), s per
+    evaluation traced and untraced.  Returns the launch counts of the fp32
+    and the bf16 traced runs, K5's from the save run of the same dtype."""
+    import torch
+
+    runs = {}
+    for dtype, sched in (('fp32', 'ddim'), ('bf16', 'pndm')):
+        t0 = time.perf_counter()
+        pipe = StableDiffusionPipeline.from_pretrained(
+            'v1', device='cuda', scheduler=sched,
+            dtype=torch.bfloat16 if dtype == 'bf16' else torch.float32)
+        torch.cuda.synchronize()
+        label = f'v1 512^2 {dtype} {sched}'
+        evals = pipe.scheduler.num_scan_steps(STEPS)
+        print(f'{label}: init (random weights) {time.perf_counter() - t0:.2f} s, '
+              f'{type(pipe.scheduler).__name__}, {evals} UNet evaluations for '
+              f'{STEPS} steps')
+        kernels.reset_launches()
+        out, cold_steps, tc = timed_call(pipe, True, trace)
+        launches = dict(kernels.launches)
+        print(f'{label} launches: {launches}; first traced call {sum(cold_steps):.3f} s')
+        check_traced(out, tc, 512, label)
+        check(launches == expected(kernels, dtype, cross_attention_acc=K1_PER_EVAL * evals,
+                                   flash_attention=K2_PER_EVAL * evals),
+              f'{label} launch counts {launches}')
+        launches['cross_attention_probs'] = transplant(
+            pipe, trace, kernels, label, dtype, other_prompt=False)['cross_attention_probs']
+        step_times(pipe, trace, label + (' (per UNet evaluation)' if evals != STEPS else ''))
+        runs[dtype] = launches
+        del pipe, tc, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs['fp32'], runs['bf16']
+
+
 def card_tests():
     """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
     and without ``tests/conftest.py`` (which imports JAX); fails on a
@@ -1049,7 +1150,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst = parity(kernels, A)
-    for preset in ('tiny', 'tiny-xl'):
+    for preset in ('tiny', 'tiny-v1', 'tiny-xl'):
         tiny_reference(A, StableDiffusionPipeline, trace, preset)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
@@ -1093,6 +1194,9 @@ def main(argv=None):
     # 9. the default command's path: v2-1-base in fp32
     launches_fp32 = fp32_main_path(StableDiffusionPipeline, trace, kernels)
 
+    # 10. SD 1.x at full width: fp32 with DDIM, bf16 with PNDM
+    v1_launches_fp32, v1_launches = v1_full_width(StableDiffusionPipeline, trace, kernels)
+
     # 7. SDXL at full width, in bf16, then one step in fp32
     sdxl_launches, sdxl_launches_fp32 = sdxl_full_width(
         StableDiffusionPipeline, trace, kernels, A, args.profile)
@@ -1119,6 +1223,8 @@ def main(argv=None):
                     'core_bound_ms': t['core_bound_ms'] if dtype == 'fp32' else None,
                     'library_ms': t['library_ms']})
         return lines
+    # per v1 evaluation, launches from phase 10 (bf16: the PNDM runs)
+    print(json.dumps({'v1_kernels': kernel_lines('v1', v1_launches, v1_launches_fp32)}))
     # per SDXL evaluation; cross_attention_probs per evaluation of an SDXL
     # save run, its launches from phase 7's save runs
     print(json.dumps({'sdxl_kernels': kernel_lines('xl-base-1.0', sdxl_launches,

@@ -43,7 +43,13 @@
 //     never leaves registers: O += P V is wgmma m64n(hd)k16 with A from
 //     registers and V from shared memory as a transposed (MN-major) B;
 //   - O is divided by the row sum at the end and stored (B, Lq, H*hd).
-//   It serves hd 16, 32, 64 and 128.  On an H100 80GB HBM3 at a 700 W
+//   It serves hd 16, 32, 40, 64, 80, 128 and 160 (TcTile): SD 1.x's 40, 80
+//   and 160 run on whole 64-column panels (64, 128 and 192 columns), whose
+//   columns past hd TMA fills with zeros in shared memory only; S takes
+//   the k16 steps up to hd, P V all of the padded width, and only hd
+//   columns of O are stored.  At hd 160 the K/V ring has one stage (two
+//   would pass 227 KB) and S goes 64 keys at a time, so the 96 O floats a
+//   thread fit its registers.  On an H100 80GB HBM3 at a 700 W
 //   power limit the wgmma kernel takes 0.130 ms at (2, 5, 4096, 4096) (330
 //   TFLOP/s, a third of the bf16 peak: each warpgroup's exp2 and its
 //   products take turns), against 2.17 ms for the plain PyTorch version,
@@ -61,7 +67,8 @@
 //   and V (keys x hd, hd contiguous) is MN-major for P V, so the kernel
 //   uses mma.sync m16n8k8, whose fragments it loads itself:
 //   - a 256-thread block owns (b, h, 128 queries), 16 per warp; cp.async
-//     copies the q tile once; k and v tiles (64 keys, 32 at hd 128) pass
+//     copies the q tile once; k and v tiles (64 keys, 32 at hd 128, 16 at
+//     hd 160) pass
 //     through registers, where each element is split once for the whole
 //     block (split in each warp, it was split eight times), and their hi
 //     and lo parts go
@@ -99,7 +106,8 @@
 //   in one kernel with two epilogues, cross_attention_mma_kernel:
 //   - a 128-thread block owns (b, h, 64 queries), 16 per warp; cp.async
 //     copies its q rows and all of k and v (bf16 rows padded to hd + 8, so
-//     ldmatrix reads conflict-free) into shared memory, and, for K1, the
+//     ldmatrix reads conflict-free; hd 40's rows zero-filled to 48 columns,
+//     the k16 step, in shared memory) into shared memory, and, for K1, the
 //     acc tile acc[b, h, 0:Lk, q0:q0+64] in a second group that lands
 //     while the scores and P.V run: one bulk read and one 16-byte-store
 //     write per element, where the CUDA-core kernel did Lk dependent
@@ -275,15 +283,19 @@ constexpr int FT_THREADS = 256;
 
 // fp32 rows of hd + 4 floats: the eight 16-byte rows an ldmatrix reads, and
 // a warp's 32 loads of a V fragment (rows 2t and 2t + 1, column g), each
-// fall in 32 different banks.  A stage of the ring holds a tile's k and v,
-// each split into its TF32 hi and lo parts: four arrays of BK rows.
+// fall in 32 different banks (hd + 4 is 4 mod 8 at every head dim).  A
+// stage of the ring holds a tile's k and v, each split into its TF32 hi
+// and lo parts: four arrays of BK rows.  The tile shrinks with hd so that
+// q and two stages fit in 227 KB (hd 80: 210 KB; hd 160 at 32 keys would
+// need 246 KB, so it takes 16).
 template <int HD>
 struct FtTile {
-  static constexpr int BK = HD == 128 ? 32 : 64;      // keys per tile
+  static constexpr int BK = HD > 128 ? 16 : HD == 128 ? 32 : 64;  // keys per tile
   static constexpr int STR = HD + 4;
   static constexpr int KV = BK * STR;                 // floats of one array
   static constexpr int SMEM = (FT_BQ * STR + 2 * 4 * KV) * 4;  // q, two stages
-  static constexpr int LOADS = BK * HD / 4 / FT_THREADS;       // float4 of k (of v) a thread
+  static constexpr int PIECES = BK * HD / 4;          // float4 of a k (v) tile
+  static constexpr int LOADS = (PIECES + FT_THREADS - 1) / FT_THREADS;  // a thread's
 };
 
 template <int HD>
@@ -331,7 +343,7 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     for (int i = 0; i < T::LOADS; ++i) {
       const int e = tid + i * FT_THREADS, r = e / CH, c = e % CH, key = tile * BK + r;
       kr[i] = vr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (key < Lk) {
+      if (e < T::PIECES && key < Lk) {
         kr[i] = *reinterpret_cast<const float4*>(kb + key * ks.l + 4 * c);
         vr[i] = *reinterpret_cast<const float4*>(vb + key * vs.l + 4 * c);
       }
@@ -342,6 +354,7 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
 #pragma unroll
     for (int i = 0; i < T::LOADS; ++i) {
       const int e = tid + i * FT_THREADS, at = (e / CH) * STR + 4 * (e % CH);
+      if (e >= T::PIECES) break;  // a thread's last piece, at hd 40 and 160
       const float4 x[2] = {kr[i], vr[i]};
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -501,25 +514,70 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
 
 constexpr int TC_BQ = 128;        // queries per block: 64 per consumer warpgroup
 constexpr int TC_BK = 128;        // keys per tile
-constexpr int TC_STAGES = 2;      // depth of the K/V ring in shared memory
 constexpr int TC_THREADS = 384;   // warpgroups 0 and 1 compute, 2 loads
 static_assert(TC_BQ == TC_BK, "one TMA box shape serves q, k and v");
 
-// Shared-memory tiles hold rows of hd bf16 values in panels of PW columns,
-// PW * 2 bytes = the swizzle span (128, 64 or 32 bytes), so hd = 128 is two
-// 64-column panels and each panel is one TMA box.
+// Shared-memory tiles hold rows of bf16 values in panels of PW columns,
+// PW * 2 bytes = the swizzle span (128, 64 or 32 bytes), and each panel is
+// one TMA box.  hd 16 and 32 are one narrow panel; any other hd takes
+// 64-column panels, as many as cover it (40: one, 80 and 128: two, 160:
+// three), HDP columns in all.  The tensor maps' inner dimension is hd, so
+// a box's columns past hd arrive as zeros (TMA's out-of-bounds fill) and
+// are never read from device memory: they add 0 to every score, and their
+// columns of O, which are 0, are not stored.  S = Q K^T takes only the k16
+// steps that reach a column below hd.  Three 48 KB tiles in each of two
+// stages would pass 227 KB at hd 160, so its K/V ring has one stage.
 template <int HD>
 struct TcTile {
-  static constexpr int PW = HD < 64 ? HD : 64;
-  static constexpr int NP = HD / PW;
+  static constexpr int PW = HD == 16 || HD == 32 ? HD : 64;
+  static constexpr int NP = (HD + PW - 1) / PW;
+  static constexpr int HDP = NP * PW;                // columns computed on
+  static constexpr int KSTEPS = (HD + 15) / 16;      // k16 steps of S = Q K^T
+  static constexpr int STAGES = HD > 128 ? 1 : 2;    // depth of the K/V ring
+  // Keys per S sub-tile, the consumers' step through a tile: past hd 128
+  // the O fragments (96 floats a thread at hd 160) beside a 128-key S
+  // fragment would pass the 168 registers a thread of the 384 is compiled
+  // for, so S and P go 64 keys at a time.
+  static constexpr int SK = HD > 128 ? 64 : TC_BK;
   static constexpr int ROW = PW * 2;                 // bytes of a panel row
   static constexpr uint32_t LAYOUT = PW == 64 ? 1 : PW == 32 ? 2 : 3;
   static constexpr int PANEL = TC_BK * ROW;          // bytes of one panel
   static constexpr int BYTES = NP * PANEL;           // one q, k or v tile
-  static constexpr int SMEM = 1024 + (1 + 2 * TC_STAGES) * BYTES + 8 * (1 + 2 * TC_STAGES);
+  static constexpr int SMEM = 1024 + (1 + 2 * STAGES) * BYTES + 8 * (1 + 2 * STAGES);
 };
 
 #ifndef DAAM_EMULATE
+// O (64 x N, fp32, N = HDP) += P (64 x 16, bf16 registers) V (16 x N), V's
+// panels PANEL bytes apart from v in shared memory: one wgmma up to 128
+// columns; 192 columns (hd 160) as 128 and 64, on the first two panels and
+// on the third.
+// S (64 x N, fp32) = Q (64 x 16) K^T (16 x N), both in shared memory, for
+// an S sub-tile of N = 128 or 64 keys.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 128) {
+    hopper::wgmma_m64n128k16_ss(d, da, db, scale_d);
+  } else {
+    static_assert(N == 64, "wgmma_ss: N must be 64 or 128");
+    hopper::wgmma_m64n64k16_ss(d, da, db, scale_d);
+  }
+}
+
+template <int N, int PANEL>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t (&p)[4],
+                                         uint32_t v, uint32_t sbo, uint32_t layout) {
+  using namespace hopper;
+  if constexpr (N <= 128) {
+    wgmma_rs_tb<N>(o, p, make_desc(v, PANEL, sbo, layout));
+  } else {
+    static_assert(N == 192, "wgmma_pv: N must be at most 128, or 192");
+    wgmma_rs_tb<128>(*reinterpret_cast<float(*)[64]>(o), p, make_desc(v, PANEL, sbo, layout));
+    wgmma_rs_tb<64>(*reinterpret_cast<float(*)[32]>(o + 64), p,
+                    make_desc(v + 2 * PANEL, PANEL, sbo, layout));
+  }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -531,12 +589,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using T = TcTile<HD>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes; tiles start on that boundary.
+  constexpr int STAGES = T::STAGES;
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = q_s + T::BYTES;                  // + stage * T::BYTES
-  const uint32_t v_s = k_s + TC_STAGES * T::BYTES;
-  const uint32_t q_full = v_s + TC_STAGES * T::BYTES;
+  const uint32_t v_s = k_s + STAGES * T::BYTES;
+  const uint32_t q_full = v_s + STAGES * T::BYTES;
   const uint32_t kv_full = q_full + 8;                  // + 8 * stage
-  const uint32_t kv_empty = kv_full + 8 * TC_STAGES;    // + 8 * stage
+  const uint32_t kv_empty = kv_full + 8 * STAGES;       // + 8 * stage
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -546,7 +605,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < TC_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(kv_full + 8 * s, 1);
       mbar_init(kv_empty + 8 * s, 8);  // one arrival per consumer warp
     }
@@ -562,8 +621,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int p = 0; p < T::NP; ++p)
         tma_load_4d(q_s + p * T::PANEL, &tq, q_full, p * T::PW, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % TC_STAGES;
-        mbar_wait(kv_empty + 8 * s, ((t / TC_STAGES) & 1) ^ 1);
+        const int s = t % STAGES;
+        mbar_wait(kv_empty + 8 * s, ((t / STAGES) & 1) ^ 1);
         const uint32_t full = kv_full + 8 * s;
         mbar_arrive_expect_tx(full, 2 * T::BYTES);
         for (int p = 0; p < T::NP; ++p) {
@@ -583,108 +642,118 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int warp = (threadIdx.x % 128) / 32;
     const int quad = lane % 4;
     const uint32_t q_wg = q_s + wg * 64 * T::ROW;
+    constexpr int SK = T::SK;
 
-    float oacc[HD / 2];
+    float oacc[T::HDP / 2];  // columns past hd stay 0 and are not stored
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < T::HDP / 2; ++i) oacc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
     float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
 
     mbar_wait(q_full, 0);
     for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % TC_STAGES;
-      const uint32_t k_t = k_s + s * T::BYTES;
-      const uint32_t v_t = v_s + s * T::BYTES;
-      mbar_wait(kv_full + 8 * s, (t / TC_STAGES) & 1);
+      const int s = t % STAGES;
+      mbar_wait(kv_full + 8 * s, (t / STAGES) & 1);
+#pragma unroll 1
+      for (int sub = 0; sub < TC_BK / SK; ++sub) {
+        // keys t·TC_BK + sub·SK .. + SK - 1: SK rows further on in every panel
+        const int key0 = t * TC_BK + sub * SK;
+        const uint32_t k_t = k_s + s * T::BYTES + sub * SK * T::ROW;
+        const uint32_t v_t = v_s + s * T::BYTES + sub * SK * T::ROW;
 
-      // S = Q Kᵀ: q and k rows are K-major (hd contiguous); step 16 of hd
-      // at a time, 32 bytes along the swizzled row of a panel.
-      float sacc[TC_BK / 2];
+        // S = Q Kᵀ: q and k rows are K-major (hd contiguous); step 16 of hd
+        // at a time, 32 bytes along the swizzled row of a panel, up to the
+        // step that holds column hd - 1 (the zero columns of hd 40's last
+        // step add nothing).
+        float sacc[SK / 2];
 #pragma unroll
-      for (int i = 0; i < TC_BK / 2; ++i) sacc[i] = 0.f;
-      fence_regs(sacc);
-      wgmma_fence();
+        for (int i = 0; i < SK / 2; ++i) sacc[i] = 0.f;
+        fence_regs(sacc);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk / (T::PW / 16)) * T::PANEL + (kk % (T::PW / 16)) * 32;
-        wgmma_m64n128k16_ss(sacc, make_desc(q_wg + off, 16, 8 * T::ROW, T::LAYOUT),
-                            make_desc(k_t + off, 16, 8 * T::ROW, T::LAYOUT), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sacc);
-
-      // Keys past Lk were zero-filled by TMA, which scores 0, not -inf.
-      if ((t + 1) * TC_BK > Lk) {
-        const int col0 = t * TC_BK + 2 * quad;
-#pragma unroll
-        for (int j = 0; j < TC_BK / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col0 + 8 * j + (e & 1) >= Lk) sacc[4 * j + e] = -INFINITY;
-      }
-
-      // Online softmax over the tile, rows reduced across the 4 lanes of a quad.
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TC_BK / 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
-      }
-#pragma unroll
-      for (int x = 1; x < 4; x <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-      }
-      // Key 0 lies in the first tile, so the new max is finite and the
-      // correction of the first tile is exp2(-inf) = 0.
-      const float mn0 = fmaxf(m0, mx0 * scale_log2);
-      const float mn1 = fmaxf(m1, mx1 * scale_log2);
-      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      l0 *= c0;
-      l1 *= c1;
-
-      // Unnormalized P = exp(s - m), summed in fp32 and rounded to bf16 for
-      // the PV product, as the Pallas body does.  The S fragment of keys
-      // 16 u .. 16 u + 15 is the A fragment of the u-th k16 step of PV.
-      uint32_t pa[TC_BK / 16][4];
-#pragma unroll
-      for (int u = 0; u < TC_BK / 16; ++u) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = 2 * u + half;
-          const float p00 = ex2(fmaf(sacc[4 * j], scale_log2, -mn0));
-          const float p01 = ex2(fmaf(sacc[4 * j + 1], scale_log2, -mn0));
-          const float p10 = ex2(fmaf(sacc[4 * j + 2], scale_log2, -mn1));
-          const float p11 = ex2(fmaf(sacc[4 * j + 3], scale_log2, -mn1));
-          l0 += p00 + p01;
-          l1 += p10 + p11;
-          pa[u][2 * half] = pack_bf16(p00, p01);
-          pa[u][2 * half + 1] = pack_bf16(p10, p11);
+        for (int kk = 0; kk < T::KSTEPS; ++kk) {
+          const uint32_t off = (kk / (T::PW / 16)) * T::PANEL + (kk % (T::PW / 16)) * 32;
+          wgmma_ss<SK>(sacc, make_desc(q_wg + off, 16, 8 * T::ROW, T::LAYOUT),
+                       make_desc(k_t + off, 16, 8 * T::ROW, T::LAYOUT), kk > 0);
         }
-      }
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        oacc[4 * j] *= c0;
-        oacc[4 * j + 1] *= c0;
-        oacc[4 * j + 2] *= c1;
-        oacc[4 * j + 3] *= c1;
-      }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc);
 
-      // O += P V: v rows are MN-major for this product (hd contiguous), so
-      // the transposed-B form; a k16 step is 16 key rows further on, and
-      // the panels of hd = 128 lie T::PANEL bytes apart along N.
-      fence_regs(oacc);
-      wgmma_fence();
+        // Keys past Lk were zero-filled by TMA, which scores 0, not -inf.
+        if (key0 + SK > Lk) {
+          const int col0 = key0 + 2 * quad;
 #pragma unroll
-      for (int u = 0; u < TC_BK / 16; ++u)
-        wgmma_rs_tb<HD>(oacc, pa[u],
-                        make_desc(v_t + u * 16 * T::ROW, T::PANEL, 8 * T::ROW, T::LAYOUT));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(oacc);
+          for (int j = 0; j < SK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (col0 + 8 * j + (e & 1) >= Lk) sacc[4 * j + e] = -INFINITY;
+        }
+
+        // Online softmax over the keys, rows reduced across the 4 lanes of a
+        // quad.
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < SK / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+        }
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+        }
+        // Key 0 lies in the first keys, so the new max is finite and their
+        // correction is exp2(-inf) = 0; keys wholly past Lk keep the max
+        // (correction 1) and add P = 0.
+        const float mn0 = fmaxf(m0, mx0 * scale_log2);
+        const float mn1 = fmaxf(m1, mx1 * scale_log2);
+        const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= c0;
+        l1 *= c1;
+
+        // Unnormalized P = exp(s - m), summed in fp32 and rounded to bf16 for
+        // the PV product, as the Pallas body does.  The S fragment of keys
+        // 16 u .. 16 u + 15 is the A fragment of the u-th k16 step of PV.
+        uint32_t pa[SK / 16][4];
+#pragma unroll
+        for (int u = 0; u < SK / 16; ++u) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int j = 2 * u + half;
+            const float p00 = ex2(fmaf(sacc[4 * j], scale_log2, -mn0));
+            const float p01 = ex2(fmaf(sacc[4 * j + 1], scale_log2, -mn0));
+            const float p10 = ex2(fmaf(sacc[4 * j + 2], scale_log2, -mn1));
+            const float p11 = ex2(fmaf(sacc[4 * j + 3], scale_log2, -mn1));
+            l0 += p00 + p01;
+            l1 += p10 + p11;
+            pa[u][2 * half] = pack_bf16(p00, p01);
+            pa[u][2 * half + 1] = pack_bf16(p10, p11);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < T::HDP / 8; ++j) {
+          oacc[4 * j] *= c0;
+          oacc[4 * j + 1] *= c0;
+          oacc[4 * j + 2] *= c1;
+          oacc[4 * j + 3] *= c1;
+        }
+
+        // O += P V: v rows are MN-major for this product (hd contiguous), so
+        // the transposed-B form; a k16 step is 16 key rows further on, and
+        // the panels lie T::PANEL bytes apart along N.
+        fence_regs(oacc);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < SK / 16; ++u)
+          wgmma_pv<T::HDP, T::PANEL>(oacc, pa[u], v_t + u * 16 * T::ROW, 8 * T::ROW,
+                                     T::LAYOUT);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(oacc);
+      }
 
       __syncwarp();
       if (lane == 0) mbar_arrive(kv_empty + 8 * s);  // this warp is done with stage s
@@ -724,14 +793,20 @@ constexpr int MA_KC = 80;             // keys per chunk: Lk = 77 is one chunk
 constexpr int MA_NT = MA_KC / 8;      // n8 tiles of a chunk's scores
 constexpr int MA_ASTR = MA_BQ + 4;    // fp32 row stride of the acc tile
 
+// The head dim the bf16 products run on: hd rounded up to the k16 step of
+// mma.sync m16n8k16 (40 -> 48; every other head dim is a multiple of 16).
+// The columns past hd are zero in shared memory only.
+__host__ __device__ constexpr int ma_hdp(int hd) { return (hd + 15) / 16 * 16; }
+
 // Dynamic shared memory of a block: the q tile and all of k and v in bf16
-// rows of hd + 8 elements (the 16-byte pad sends the eight rows an ldmatrix
-// reads to eight different bank groups), then the epilogue's tile: one
+// rows of ma_hdp(hd) + 8 elements (the 16-byte pad sends the eight rows an
+// ldmatrix reads to eight different bank groups: a row is an odd number of
+// 16-byte units, 3, 5, 7, 9, 11, 17 or 21), then the epilogue's tile: one
 // chunk of acc rows (p_size 0), or the block's span of P with up to 16
 // bytes of lead (p_size = sizeof P's type).
 inline long long ma_smem_bytes(int hd, long long Lk, int p_size) {
   const long long lkp = (Lk + 15) & ~15LL;
-  const long long qkv = (MA_BQ + 2 * lkp) * (hd + 8) * 2;
+  const long long qkv = (MA_BQ + 2 * lkp) * (ma_hdp(hd) + 8) * 2;
   if (p_size == 0) return qkv + (Lk < MA_KC ? Lk : MA_KC) * MA_ASTR * 4;
   return qkv + (((MA_BQ * Lk + 16 / p_size) * p_size + 15) & ~15LL);
 }
@@ -902,9 +977,13 @@ __device__ __forceinline__ void ma_store_span(PT* span, const PT* Ps, int lead, 
 }
 
 // ACC: acc += Pᵀ (cross_attention_acc); otherwise P is written out as PT
-// (cross_attention_probs), skipping samples b < skip_b.
+// (cross_attention_probs), skipping samples b < skip_b.  hd 40 runs on 48
+// columns (ma_hdp): its q, k and v rows are zero-filled past hd in shared
+// memory, which adds 0 to the scores and gives O columns that are not
+// stored.  Past hd 64 the O fragments (hd / 2 floats a thread) leave room
+// for two blocks an SM, not three.
 template <int HD, typename PT, bool ACC>
-__global__ void __launch_bounds__(MA_THREADS, HD == 128 ? 2 : 3)
+__global__ void __launch_bounds__(MA_THREADS, HD <= 64 ? 3 : 2)
 cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
@@ -913,8 +992,10 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            Strides qs, Strides ks, Strides vs, float scale_log2) {
   using namespace hopper;
   using bf16 = __nv_bfloat16;
-  constexpr int STR = HD + 8;  // bf16 row stride of the q, k and v tiles
-  constexpr int CH = HD / 8;   // 16-byte chunks of a row
+  constexpr int HDP = ma_hdp(HD);  // columns the products run on
+  constexpr int STR = HDP + 8;     // bf16 row stride of the q, k and v tiles
+  constexpr int CH = HD / 8;       // 16-byte chunks of a row in device memory
+  constexpr int CHP = HDP / 8;     // ... in shared memory, zero-filled past CH
   DAAM_DYNAMIC_SMEM(uint8_t, ma_smem);
 
   const int b = blockIdx.z;
@@ -933,23 +1014,24 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   PT* Ps = reinterpret_cast<PT*>(Vs + lkp * STR);        // else: the P span, + lead
 
   // Group 0: q (rows past Lq zero-filled), and all of k and v (rows Lk ..
-  // lkp - 1 zero-filled: P is 0 there, and 0 * V must stay 0).
+  // lkp - 1 zero-filled: P is 0 there, and 0 * V must stay 0); columns past
+  // hd zero-filled, nothing read for them.
   {
     const bf16* qb = q + b * qs.b + h * qs.h;
-    for (int e = tid; e < MA_BQ * CH; e += MA_THREADS) {
-      const int r = e / CH, c = e % CH;
-      const bool in = q0 + r < Lq;
-      cp_async16(smem_u32(Qs + r * STR + 8 * c), qb + (in ? q0 + r : 0) * qs.l + 8 * c,
-                 in ? 16 : 0);
+    for (int e = tid; e < MA_BQ * CHP; e += MA_THREADS) {
+      const int r = e / CHP, c = e % CHP;
+      const bool in = q0 + r < Lq && c < CH;
+      cp_async16(smem_u32(Qs + r * STR + 8 * c),
+                 qb + (in ? (q0 + r) * qs.l + 8 * c : 0), in ? 16 : 0);
     }
     const bf16* kb = k + b * ks.b + h * ks.h;
     const bf16* vb = v + b * vs.b + h * vs.h;
-    for (int e = tid; e < lkp * CH; e += MA_THREADS) {
-      const int r = e / CH, c = e % CH;
-      const bool in = r < Lk;
-      cp_async16(smem_u32(Ks + r * STR + 8 * c), kb + (in ? r : 0) * ks.l + 8 * c,
+    for (int e = tid; e < lkp * CHP; e += MA_THREADS) {
+      const int r = e / CHP, c = e % CHP;
+      const bool in = r < Lk && c < CH;
+      cp_async16(smem_u32(Ks + r * STR + 8 * c), kb + (in ? r * ks.l + 8 * c : 0),
                  in ? 16 : 0);
-      cp_async16(smem_u32(Vs + r * STR + 8 * c), vb + (in ? r : 0) * vs.l + 8 * c,
+      cp_async16(smem_u32(Vs + r * STR + 8 * c), vb + (in ? r * vs.l + 8 * c : 0),
                  in ? 16 : 0);
     }
     cp_async_commit();
@@ -963,9 +1045,9 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  uint32_t qf[HD / 16][4];  // the warp's 16 q rows as A fragments, one per k16 step
+  uint32_t qf[HDP / 16][4];  // the warp's 16 q rows as A fragments, one per k16 step
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+  for (int kk = 0; kk < HDP / 16; ++kk)
     ldmatrix_x4(qf[kk], smem_u32(Qs + (warp * 16 + lane % 16) * STR + 16 * kk + 8 * (lane / 16)));
 
   // Pass 1: row max and sum of exp over the chunks (one chunk at Lk <= 80,
@@ -974,7 +1056,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   float s[MA_NT][4];
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   for (int c = 0; c < n_chunks; ++c) {
-    ma_scores<HD>(s, qf, Ks, c * MA_KC, lkp, Lk, scale_log2, lane);
+    ma_scores<HDP>(s, qf, Ks, c * MA_KC, lkp, Lk, scale_log2, lane);
     ma_row_stats(s, m0, m1, l0, l1);
   }
 #pragma unroll
@@ -987,9 +1069,9 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // Pass 2, per chunk: normalized P in fp32; O += bf16(P) V with P straight
   // from the score fragment (the fragment of keys 16 u .. 16 u + 15 is the A
   // fragment of the u-th k16 step); then the epilogue takes the fp32 P.
-  float oacc[HD / 8][4];
+  float oacc[HDP / 8][4];
 #pragma unroll
-  for (int jd = 0; jd < HD / 8; ++jd)
+  for (int jd = 0; jd < HDP / 8; ++jd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[jd][e] = 0.f;
   const bool write_p = !ACC && b >= skip_b;  // uniform over the block
@@ -1001,7 +1083,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       // the tile was written back at the end of chunk c - 1
       if (c > 0) ma_load_acc(At, acc_bh, c0, Lk, Lq, q0, tid);
     }
-    if (n_chunks > 1) ma_scores<HD>(s, qf, Ks, c0, lkp, Lk, scale_log2, lane);
+    if (n_chunks > 1) ma_scores<HDP>(s, qf, Ks, c0, lkp, Lk, scale_log2, lane);
     ma_normalize(s, m0, m1, inv0, inv1);
 #pragma unroll
     for (int u = 0; u < MA_NT / 2; ++u) {
@@ -1014,7 +1096,7 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const bf16* row =
             Vs + (c0 + 16 * u + 8 * ((lane / 8) % 2) + lane % 8) * STR + 8 * (lane / 16);
 #pragma unroll
-        for (int jd = 0; jd < HD / 8; jd += 2) {
+        for (int jd = 0; jd < HDP / 8; jd += 2) {
           uint32_t vb[4];
           ldmatrix_x4_trans(vb, smem_u32(row + 8 * jd));
           mma_m16n8k16(oacc[jd], pa, vb[0], vb[1]);
@@ -1030,8 +1112,9 @@ cross_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // O: each warp stages its 16 rows in its own rows of the q tile (which
-  // only it read, into qf), then stores them with 16-byte stores.
+  // O: each warp stages its 16 rows (hd columns) in its own rows of the q
+  // tile (which only it read, into qf), then stores them with 16-byte
+  // stores.
   bf16* Os = Qs + warp * 16 * STR;
   __syncwarp();
 #pragma unroll
@@ -1123,7 +1206,7 @@ __device__ __forceinline__ void mt_scores(float (&s)[MA_NT][4], uint32_t q_lane,
 // (pass 2) through the same buffers; K5 then stages and writes each chunk's
 // P columns in turn.
 template <int HD, typename PT, bool ACC>
-__global__ void __launch_bounds__(MA_THREADS, HD == 128 ? 1 : 2)
+__global__ void __launch_bounds__(MA_THREADS, HD >= 128 ? 1 : 2)
 cross_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, float* __restrict__ o,
                               float* __restrict__ acc, PT* __restrict__ p, int H, int Lq,
@@ -1436,8 +1519,11 @@ int by_head_dim(int hd, F f) {
   switch (hd) {
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
+    case 40: return f(std::integral_constant<int, 40>{});
     case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 160: return f(std::integral_constant<int, 160>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -34,7 +34,7 @@ _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'daam_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 

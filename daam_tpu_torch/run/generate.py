@@ -6,7 +6,9 @@ reference's artifact set into ``--output-folder`` (``daam_tpu/run/generate.py:
 and one ``{word}.heat_map.png`` per word.  Weights are random, drawn from
 ``--seed``.  ``--save-heads``/``--load-heads`` save and replay the attention
 heads (the transplant), ``--time-maps`` adds per-step maps and a
-``{word}.time.gif`` per word, ``--all-heads`` one map per (layer, head).
+``{word}.time.gif`` per word, ``--all-heads`` one map per (layer, head),
+``--scheduler`` picks DDIM (the default), PNDM, Euler or DPM++ as
+``daam_tpu``'s flag does.
 The other actions (coco, template, cconj, stdin, regenerate, prompt) are not
 ported yet.
 
@@ -24,7 +26,8 @@ from ..pipeline.sd import StableDiffusionPipeline
 from ..trace import trace
 from ..utils import set_seed
 
-MODELS = ['v2-base', 'v2-1-base', 'v2-large', 'v2-1-large', 'xl-base-1.0']
+MODELS = ['v1', 'v2-base', 'v2-1-base', 'v2-large', 'v2-1-large', 'xl-base-1.0']
+SCHEDULERS = ['ddim', 'pndm', 'euler', 'dpm++']
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--tiny', action='store_true',
                         help='tiny random-weight preset (smoke runs): '
                              'tiny-xl for an xl --model, else tiny')
+    parser.add_argument('--scheduler', type=str, default='ddim',
+                        choices=SCHEDULERS)
     parser.add_argument('--dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'])
     parser.add_argument('--device', type=str, default='cuda',
@@ -67,7 +72,8 @@ def load_pipeline(args) -> StableDiffusionPipeline:
     if args.tiny:  # daam_tpu/run/generate.py:241
         name = 'tiny-xl' if 'xl' in args.model else 'tiny'
     return StableDiffusionPipeline.from_pretrained(name, device=device,
-                                                   dtype=dtype, seed=args.seed)
+                                                   dtype=dtype, seed=args.seed,
+                                                   scheduler=args.scheduler)
 
 
 def main(argv=None):

@@ -101,9 +101,9 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
 
     # bf16 K1 and K5 on the tensor cores, at this head dim, both layouts,
     # two calls into one accumulator, P in both types with cond_only; a block
-    # holds q, k, v and its fp32 P span in 227 KB, which 256 keys fit at
-    # every head dim
-    lk_mma = min(Lk, 256)
+    # holds q, k, v and its fp32 P span in 227 KB, which 256 keys fit up to
+    # hd 128 and 200 (three 80-key chunks) at hd 160
+    lk_mma = min(Lk, 256 if hd <= 128 else 200)
     n = dict(kernels.launches)
     acc = torch.rand(B, H, lk_mma, Lq, device=cuda_device)
     acc_plain = acc.clone()
@@ -167,4 +167,22 @@ def test_cross_attention_probs_kernel_matches_plain_on_card(hd, Lk, probs_dtype,
     with pytest.raises(ValueError, match='tensor cores'):
         kernels.cross_attention_probs(padded.unflatten(-1, (H, hd)), k, v, False,
                                       probs_dtype)
+    assert kernels.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [8, 48, 96, 256])
+def test_head_dims_without_kernels_raise_on_card(hd, cuda_device):
+    """A head dim outside HEAD_DIMS raises before anything is launched, in
+    both dtypes and for each kernel; nothing falls back to the plain version."""
+    n = dict(kernels.launches)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_packed_view(t).to(cuda_device, dtype)
+                   for t in _qkv(2, 2, 64, 77, hd, seed=hd))
+        acc = torch.zeros(2, 2, 77, 64, device=cuda_device)
+        for call in (lambda: kernels.flash_attention(q, k, v),
+                     lambda: kernels.cross_attention_acc(q, k, v, acc),
+                     lambda: kernels.cross_attention_probs(q, k, v)):
+            with pytest.raises(ValueError, match=f'head dim {hd} not in'):
+                call()
     assert kernels.launches == n

@@ -61,12 +61,14 @@ def run_case(tmp_path_factory):
 
 
 # (B, H, Lq, Lk, hd, layout): every head dim in both layouts at the ragged
-# Lq = 100 (a full and a partial 64-query block) and Lk = 77; Lk below one
-# k16 step; three 80-key chunks; Lk at a chunk's edge with B = 2.
-SHAPES = ([(1, 2, 100, 77, hd, layout) for hd in (16, 32, 64, 128)
+# Lq = 100 (a full and a partial 64-query block) and Lk = 77 (hd 40: q, k
+# and v zero-filled to 48 columns in shared memory); Lk below one k16 step;
+# three 80-key chunks; Lk at a chunk's edge with B = 2.
+SHAPES = ([(1, 2, 100, 77, hd, layout) for hd in kernels.HEAD_DIMS
            for layout in ('head_major', 'packed')]
           + [(1, 2, 64, 13, 64, 'packed'), (1, 1, 128, 200, 64, 'packed'),
-             (2, 1, 36, 80, 32, 'head_major')])
+             (2, 1, 36, 80, 32, 'head_major'), (1, 1, 64, 200, 40, 'head_major'),
+             (1, 1, 64, 13, 160, 'packed')])
 
 
 @pytest.mark.parametrize('shape', SHAPES, ids=lambda s: '-'.join(map(str, s)))
@@ -107,11 +109,15 @@ def test_cross_route_takes_every_size_the_cuda_core_route_took(run_case, hd):
 
 # fp32 K2: every head dim in both layouts at the ragged Lq = 100 (one
 # partial 128-query block) and Lk = 150 (two full 64-key tiles and a ragged
-# one); Lk below one k8 step; Lk at one tile's edge; Lk = 77 with B = 2.
-FLASH_SHAPES = ([(1, 2, 100, 150, hd, layout) for hd in (16, 32, 64, 128)
+# one at hd 64; 32-key tiles at hd 128, 16-key ones at hd 160); Lk below
+# one k8 step; Lk at one tile's edge; Lk = 77 with B = 2; hd 40 and 160,
+# whose last k and v piece is a thread's partial one.
+FLASH_SHAPES = ([(1, 2, 100, 150, hd, layout) for hd in kernels.HEAD_DIMS
                  for layout in ('head_major', 'packed')]
                 + [(1, 1, 64, 5, 32, 'packed'), (1, 1, 64, 64, 64, 'head_major'),
-                   (2, 2, 40, 77, 16, 'packed'), (1, 1, 200, 128, 128, 'head_major')])
+                   (2, 2, 40, 77, 16, 'packed'), (1, 1, 200, 128, 128, 'head_major'),
+                   (1, 1, 64, 16, 160, 'packed'), (2, 1, 130, 77, 40, 'head_major'),
+                   (1, 1, 64, 9, 80, 'packed')])
 
 
 @pytest.mark.parametrize('shape', FLASH_SHAPES, ids=lambda s: '-'.join(map(str, s)))
@@ -159,10 +165,13 @@ def test_fp32_cross_route_takes_every_lk_the_cuda_core_route_took(run_case, hd):
 # below one k16 and one k8 step, one chunk and a key, two full 80-key
 # chunks, and three chunks.
 PROBS32_SHAPES = [(1, 1, 36, 77, 16, 'head_major'), (1, 1, 36, 77, 32, 'packed'),
-                  (1, 1, 36, 77, 64, 'head_major'), (1, 1, 36, 77, 128, 'packed'),
+                  (1, 1, 36, 77, 40, 'head_major'), (1, 1, 36, 77, 64, 'packed'),
+                  (1, 1, 36, 77, 80, 'head_major'), (1, 1, 36, 77, 128, 'packed'),
+                  (1, 1, 36, 77, 160, 'head_major'), (1, 1, 36, 77, 64, 'head_major'),
                   (1, 1, 100, 77, 64, 'packed'), (1, 1, 64, 13, 64, 'packed'),
                   (1, 1, 64, 5, 32, 'packed'), (1, 1, 36, 81, 128, 'head_major'),
-                  (1, 1, 64, 160, 16, 'head_major'), (1, 1, 64, 200, 32, 'packed')]
+                  (1, 1, 64, 160, 16, 'head_major'), (1, 1, 64, 200, 32, 'packed'),
+                  (1, 1, 64, 200, 160, 'packed'), (1, 1, 64, 81, 80, 'head_major')]
 
 
 @pytest.mark.parametrize('p_type, cond_only', [('f32', 0), ('bf16', 1)])
@@ -197,3 +206,16 @@ def test_fp32_probs_route_takes_every_lk_the_cuda_core_route_took(run_case, hd):
         assert int(run_case('smem32', hd, L)) <= SMEM_MAX
     out = run_case('probs32', 1, 1, 8, lk, hd, 'packed', 'f32', 0)
     assert out.count(' ok') == 3, out
+
+
+def test_head_dims_are_the_kernel_switch():
+    """HEAD_DIMS (the wrappers' check) lists exactly the cases of
+    ``by_head_dim``, the one switch that instantiates every kernel, and SD
+    1.x's 40, 80 and 160 are among them."""
+    import re
+
+    src = (CSRC / 'attention.cu').read_text()
+    switch = src[src.index('int by_head_dim(int hd, F f)'):]
+    switch = switch[:switch.index('default:')]
+    cases = tuple(int(x) for x in re.findall(r'case (\d+): return f\(', switch))
+    assert cases == kernels.HEAD_DIMS == (16, 32, 40, 64, 80, 128, 160)
