@@ -2,7 +2,8 @@
 """Smoke run of daam_tpu_torch on one NVIDIA GPU: build, kernel parity, the
 card's pytest cases, the traced SD 2.1-base slice in bf16 and in fp32, the
 head-replay transplant, the traced SD 1.x slice (DDIM and PNDM), the traced
-SDXL slice, timings.
+SDXL slice, a checkpoint directory on disk with the VAE encoder and the
+evaluation, timings.
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile       # also a torch.profiler table of a
@@ -18,7 +19,7 @@ first on the import path), which is how two commits are compared in one
 call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7):
+order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
@@ -128,6 +129,27 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7):
     evaluations: 15 × 11 and 32 × 11 launches on the bf16 routes, and its
     transplant over 11 evaluations.  Each prints its s/step (PNDM: per
     evaluation) traced and untraced, and of the save and load runs.
+11. A checkpoint directory on disk, what ``daam-torch --from-path`` and
+    ``daam-torch-evaluate`` run: ``v2-1-base``'s random modules from seed 0,
+    the VAE with a random encoder, rounded through fp16 and written in
+    diffusers' layout (``unet/`` and ``vae/`` as fp16 ``.safetensors``
+    written by this script, the VAE's mid-block attention under the legacy
+    ``query/key/value/proj_attn`` names with 1×1 conv weights,
+    ``text_encoder/`` as an fp16 ``.bin``, the ``config.json`` files, the
+    scheduler's and ``tokenizer/``; ~2.6 GB).  ``from_pretrained(dir)`` must
+    resolve the ``v2-1-base`` preset and load every tensor bit for bit equal
+    to the rounded modules (its seconds printed); ``daam-torch --from-path``,
+    in process, 10 traced fp32 steps with 15 × 10 cross_attention_acc and
+    32 × 10 flash_attention launches on the 3xTF32 route, whose image and
+    maps must match the in-memory rounded pipeline's at the same seed (±2/255,
+    per-token Spearman ≥ 0.999); the VAE encoder on the generated image on
+    the card and on the CPU (TF32 off), posterior mean and logvar within 1e-3
+    relative max abs, its device time by CUDA events; then truth masks
+    (``*.gt.png``, one experiment's at 640 × 480, so the resize runs) and
+    predictions from the heat maps (``expand_as(threshold=0.4)``), and
+    ``daam-torch-evaluate`` with ``labeled``, ``unlabeled`` and
+    ``hungarian`` on ``cuda`` and on ``cpu``: equal reports, ``iou_matrix``
+    within 1e-6, the card's seconds printed.
 
 The whole run takes ~3–5 min of command time on one H100.
 
@@ -152,7 +174,7 @@ evaluation): ``ms`` (events), ``device_ms`` (profiler), ``plain_ms``,
 ``flash_attention``; null for the others: no PyTorch call adds Pᵀ into an
 accumulator or returns P).  The last line is ``{"ok": true, "device":
 {...}}``.  The script needs a CUDA device and the daam_tpu_torch package
-beside it; it never imports JAX or PIL.
+beside it; it never imports JAX.
 """
 
 import argparse
@@ -536,6 +558,9 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_PROFILER_WARM = False
+
+
 def device_times(calls, iters: int = 20):
     """Device time per call of each ``(label, fn)``, in ms, and the number
     of device kernels a call ran: ``iters`` calls of each under one
@@ -547,6 +572,15 @@ def device_times(calls, iters: int = 20):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    global _PROFILER_WARM
+    if not _PROFILER_WARM:
+        # a throwaway session first: the first launches of a process's
+        # first session were seen to go unrecorded (16 of a label's 20)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            for _, fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        _PROFILER_WARM = True
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for label, fn in calls:
             torch.cuda.synchronize()
@@ -1042,6 +1076,304 @@ def v1_full_width(StableDiffusionPipeline, trace, kernels):
     return runs['fp32'], runs['bf16']
 
 
+# --------------------------------------------------------------------------
+# phase 11: a checkpoint directory on disk, the VAE encoder, the evaluation
+# --------------------------------------------------------------------------
+
+_SAFETENSORS_NAMES = {'float16': 'F16', 'bfloat16': 'BF16', 'float32': 'F32'}
+
+
+def write_safetensors(path, tensors):
+    """A ``.safetensors`` file: the 8-byte little-endian header length, the
+    JSON header (padded to 8 bytes), then each tensor's raw bytes."""
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {'dtype': _SAFETENSORS_NAMES[str(t.dtype).split('.')[-1]],
+                        'shape': list(t.shape), 'data_offsets': [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b' ' * (-len(raw) % 8)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<Q', len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().data)
+
+
+def diffusers_configs(config) -> dict:
+    """The ``config.json`` of each module of ``config`` in diffusers' keys,
+    and the scheduler's (what ``load_diffusers_checkpoint`` reads)."""
+    u, v = config.unet, config.vae
+
+    def clip(t):
+        return {'architectures': ['CLIPTextModelWithProjection' if t.projection_dim
+                                  else 'CLIPTextModel'],
+                'vocab_size': t.vocab_size, 'hidden_size': t.hidden_size,
+                'intermediate_size': t.intermediate_size,
+                'num_hidden_layers': t.num_hidden_layers,
+                'num_attention_heads': t.num_attention_heads,
+                'max_position_embeddings': t.max_position_embeddings,
+                'hidden_act': t.hidden_act, 'layer_norm_eps': t.layer_norm_eps,
+                'projection_dim': t.projection_dim}
+    return {
+        'unet': {'sample_size': u.sample_size, 'in_channels': u.in_channels,
+                 'out_channels': u.out_channels,
+                 'block_out_channels': list(u.block_out_channels),
+                 'down_block_types': ['CrossAttnDownBlock2D' if t == 'cross'
+                                      else 'DownBlock2D' for t in u.down_block_types],
+                 'up_block_types': ['CrossAttnUpBlock2D' if t == 'cross' else 'UpBlock2D'
+                                    for t in reversed(u.up_block_types)],
+                 'layers_per_block': u.layers_per_block,
+                 'attention_head_dim': list(u.attention_head_dim),
+                 'transformer_layers_per_block': list(u.transformer_layers_per_block),
+                 'cross_attention_dim': u.cross_attention_dim,
+                 'use_linear_projection': u.use_linear_projection,
+                 'norm_num_groups': u.norm_num_groups, 'freq_shift': u.freq_shift,
+                 'flip_sin_to_cos': u.flip_sin_to_cos,
+                 'mid_block_type': ('UNetMidBlock2DCrossAttn' if u.mid_block_attn
+                                    else 'UNetMidBlock2D'),
+                 'addition_embed_type': u.addition_embed_type,
+                 'addition_time_embed_dim': u.addition_time_embed_dim,
+                 'projection_class_embeddings_input_dim':
+                     u.projection_class_embeddings_input_dim},
+        'text_encoder': clip(config.text),
+        'vae': {'in_channels': v.in_channels, 'out_channels': v.out_channels,
+                'latent_channels': v.latent_channels,
+                'block_out_channels': list(v.block_out_channels),
+                'layers_per_block': v.layers_per_block,
+                'norm_num_groups': v.norm_num_groups, 'sample_size': v.sample_size,
+                'scaling_factor': v.scaling_factor},
+        'scheduler': {'prediction_type': config.prediction_type}}
+
+
+def write_checkpoint_dir(root, config, modules):
+    """v2-1-base as a diffusers directory: ``unet/`` and ``vae/`` as fp16
+    ``.safetensors`` (the VAE with its encoder, its mid-block attention
+    under the legacy ``query/key/value/proj_attn`` names with 1×1 conv
+    weights), ``text_encoder/`` as an fp16 ``.bin``, each ``config.json``,
+    ``scheduler/scheduler_config.json`` and ``tokenizer/``; returns the bytes
+    of the weights."""
+    import os
+    import shutil
+
+    import torch
+    from daam_tpu_torch.tokenization import BUNDLED_VOCAB_DIR
+
+    legacy = {'to_q': 'query', 'to_k': 'key', 'to_v': 'value', 'to_out.0': 'proj_attn'}
+    vae = {}
+    for k, t in modules['vae'].state_dict().items():
+        m = re.fullmatch(r'((?:en|de)coder\.mid_block\.attentions\.0\.)'
+                         r'(to_q|to_k|to_v|to_out\.0)\.(weight|bias)', k)
+        if m:
+            k = f'{m.group(1)}{legacy[m.group(2)]}.{m.group(3)}'
+            t = t[:, :, None, None] if t.ndim == 2 else t
+        vae[k] = t.half()
+    for name, payload in diffusers_configs(config).items():
+        os.makedirs(os.path.join(root, name))
+        fname = 'scheduler_config.json' if name == 'scheduler' else 'config.json'
+        with open(os.path.join(root, name, fname), 'w') as f:
+            json.dump(payload, f)
+    write_safetensors(os.path.join(root, 'unet', 'diffusion_pytorch_model.safetensors'),
+                      {k: t.half() for k, t in modules['unet'].state_dict().items()})
+    write_safetensors(os.path.join(root, 'vae', 'diffusion_pytorch_model.safetensors'), vae)
+    torch.save({k: t.half().cpu() for k, t in modules['text_encoder'].state_dict().items()},
+               os.path.join(root, 'text_encoder', 'pytorch_model.bin'))
+    os.makedirs(os.path.join(root, 'tokenizer'))
+    for fname in ('vocab.json', 'merges.txt'):
+        shutil.copy(BUNDLED_VOCAB_DIR / fname, os.path.join(root, 'tokenizer', fname))
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+               for f in fs if f.endswith(('.safetensors', '.bin')))
+
+
+def run_captured(main, argv) -> str:
+    """``main(argv)`` with its standard output captured; returns it."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels):
+    """Phase 11: v2-1-base at full width (512², fp32, DDIM, 10 steps)
+    through a checkpoint directory on disk, then its VAE encoder and the
+    evaluation (what ``--from-path`` and ``daam-torch-evaluate`` run)."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from daam_tpu_torch import evaluate as E
+    from daam_tpu_torch.experiment import GenerationExperiment, _to_pil
+    from daam_tpu_torch.models import weights as W
+    from daam_tpu_torch.models.configs import get_pipeline_config
+    from daam_tpu_torch.models.vae import AutoencoderKL
+    from daam_tpu_torch.run import evaluate as evaluate_cli
+    from daam_tpu_torch.run import generate as generate_cli
+
+    config = get_pipeline_config('v2-1-base')
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    modules = W.init_random(config, gen, device='cuda')
+    # the full VAE: init_random's decoder and a random encoder
+    with torch.device('meta'):
+        vae = AutoencoderKL(config.vae)
+    vae = vae.to_empty(device='cuda').eval()
+    W.fill_random(vae.encoder, gen)
+    W.fill_random(vae.quant_conv, gen)
+    vae.decoder.load_state_dict(modules['vae'].decoder.state_dict())
+    vae.post_quant_conv.load_state_dict(modules['vae'].post_quant_conv.state_dict())
+    modules['vae'] = vae
+    with torch.no_grad():  # the in-memory pipeline, rounded through fp16
+        for module in modules.values():
+            for t in module.state_dict().values():
+                t.copy_(t.half().float())
+
+    with tempfile.TemporaryDirectory(prefix='daam-smoke-') as tmp:
+        ckpt = os.path.join(tmp, 'v2-1-base')
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint_dir(ckpt, config, modules)
+        print(f'checkpoint directory written: {nbytes / 1e9:.3f} GB of fp16 weights '
+              f'in {time.perf_counter() - t0:.2f} s')
+
+        # 2. load, and hold every tensor against the fp16-rounded modules
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = StableDiffusionPipeline.from_pretrained(ckpt, device='cuda',
+                                                       dtype=torch.float32)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f'checkpoint load (from_pretrained, {nbytes / 1e9:.3f} GB fp16 -> fp32 '
+              f'on the card): {load_s:.3f} s')
+        check(pipe.config is config, f'config resolved to {pipe.config.name}')
+        n_tensors = 0
+        for name, module in modules.items():
+            ours, theirs = getattr(pipe, name).state_dict(), module.state_dict()
+            check(sorted(ours) == sorted(theirs), f'{name}: the loaded keys')
+            for k, t in theirs.items():
+                check(ours[k].dtype == torch.float32 and torch.equal(ours[k], t),
+                      f'{name}.{k} loads bit for bit')
+                n_tensors += 1
+        print(f'loaded pipeline: config {pipe.config.name}, {n_tensors} tensors equal '
+              f'bit for bit to the in-memory modules rounded through fp16')
+
+        # 3. daam-torch --from-path, in process
+        root = os.path.join(tmp, 'eval')
+        out_dir = os.path.join(root, 'exp0')
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        generate_cli.main([PROMPT, '--from-path', ckpt, '-o', out_dir,
+                           '-n', str(STEPS)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        print(f'daam-torch --from-path ({STEPS} steps, load and artifacts included): '
+              f'{cli_s:.3f} s; launches {launches}')
+        check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
+                                   flash_attention=K2_PER_EVAL * STEPS),
+              f'--from-path launch counts {launches}')
+        cli_exp = GenerationExperiment.load(out_dir)
+        prompt = PROMPT.replace('.', ' .')
+        mem = StableDiffusionPipeline(config, **modules)
+        per_step = {}
+        for label, p in (('loaded', pipe), ('in-memory', mem)):
+            out, steps, tc = timed_call(p, True, trace, prompt=prompt)
+            per_step[label] = sum(steps[1:]) / len(steps[1:])
+        print(f's/step traced, steps 2-{STEPS}: loaded pipeline '
+              f'{per_step["loaded"]:.5f}, in-memory fp16-rounded pipeline '
+              f'{per_step["in-memory"]:.5f}')
+        image = np.array(_to_pil(out.images[0]))
+        mem_map = tc.compute_global_heat_map().heat_maps
+        cli_map = torch.as_tensor(cli_exp.global_heat_map, device=mem_map.device)
+        im_err = int(np.abs(image.astype(int) - np.array(cli_exp.image).astype(int)).max())
+        rhos = [spearman(cli_map[t], mem_map[t]) for t in range(mem_map.shape[0])]
+        print(f'--from-path vs the in-memory fp16-rounded pipeline: image max abs diff '
+              f'{im_err}/255, per-token heat-map spearman min {min(rhos):.6f} over '
+              f'{len(rhos)} tokens')
+        check(im_err <= 2 and min(rhos) >= 0.999, '--from-path matches the in-memory run')
+
+        # 4. the VAE encoder on the card and on the CPU, TF32 off
+        x = torch.from_numpy(np.array(cli_exp.image)).permute(2, 0, 1)[None]
+        x = x.float().div(127.5).sub(1.0)
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.no_grad():
+                post = pipe.vae.encode(x.cuda())
+                enc_ms = event_ms(lambda: pipe.vae.encode(x.cuda()), iters=5, warmup=1)
+                vae_cpu = copy.deepcopy(pipe.vae).cpu()
+                t0 = time.perf_counter()
+                post_cpu = vae_cpu.encode(x)
+                cpu_s = time.perf_counter() - t0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        errs = {k: ((getattr(post, k).cpu() - getattr(post_cpu, k)).abs().max()
+                    / getattr(post_cpu, k).abs().max()).item() for k in ('mean', 'logvar')}
+        print(f'VAE encode 512^2 fp32 (TF32 off): {enc_ms:.3f} ms on the card '
+              f'(CUDA events, 5 calls), {cpu_s:.2f} s on the CPU; latent '
+              f'{tuple(post.mean.shape)}; card vs CPU relative max abs err '
+              f'mean {errs["mean"]:.3e} logvar {errs["logvar"]:.3e}')
+        latent = config.image_size // config.vae.scale_factor
+        check(tuple(post.mean.shape) == (1, 4, latent, latent) and max(errs.values()) <= 1e-3
+              and bool(torch.isfinite(post.mean).all()), 'VAE encoder card vs CPU')
+        del pipe, vae_cpu, post, post_cpu
+        gc.collect()
+
+        # 5. the evaluation: truth masks, predictions from the heat maps
+        tokenizer = mem.tokenizer
+        truths = {'exp0': (512, 512), 'exp1': (480, 640)}
+        exp1 = tc.to_experiment(root, id='exp1', seed=0)
+        exp1.image = _to_pil(out.images[0])
+        exp1.save(heat_maps=False)
+        rng = np.random.RandomState(0)
+        for exp_id, (h, w) in truths.items():
+            exp = GenerationExperiment.load(os.path.join(root, exp_id))
+            heat = exp.heat_map(tokenizer)
+            for word in ('dog', 'field'):
+                mask = heat.compute_word_heat_map(word).expand_as(exp.image, threshold=0.4)
+                exp.save_prediction_mask(mask, word, 'daam')
+            exp.truth_masks = {}
+            for word in ('dog', 'field', 'sky'):
+                m = exp.truth_masks[word] = np.zeros((h, w), np.float32)
+                y, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+                m[y:y + h // 2, x0:x0 + w // 2] = 1
+            exp.save(heat_maps=False)
+        reports = {}
+        t0 = time.perf_counter()
+        for device in ('cuda', 'cpu'):
+            for kind in ('labeled', 'unlabeled', 'hungarian'):
+                reports[device, kind] = run_captured(
+                    evaluate_cli.main, ['-i', root, '-e', kind, '--device', device]
+                ).strip().splitlines()[-1]
+            if device == 'cuda':
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t0
+        for kind in ('labeled', 'unlabeled', 'hungarian'):
+            print(f'daam-torch-evaluate -e {kind}: cuda {reports["cuda", kind]!r} '
+                  f'cpu {reports["cpu", kind]!r}')
+            check(reports['cuda', kind] == reports['cpu', kind], f'{kind} reports')
+        iou_err = 0.0
+        for exp_id in truths:
+            exp = GenerationExperiment.load(os.path.join(root, exp_id))
+            preds, gts = list(exp.prediction_masks.values()), list(exp.truth_masks.values())
+            a, b = E.iou_matrix(preds, gts, device='cuda'), E.iou_matrix(preds, gts, device='cpu')
+            iou_err = max(iou_err, float(np.abs(a - b).max()))
+            check(a.shape == (2, 3) and a.max() > 0, f'{exp_id} iou_matrix {a}')
+        print(f'evaluation on the card (three scorers, 2 experiments, truth masks at '
+              f'512x512 and 480x640): {eval_s:.3f} s; iou_matrix card vs CPU max abs '
+              f'diff {iou_err:.3e}')
+        check(iou_err <= 1e-6, 'iou_matrix card vs CPU')
+    del mem, modules, tc, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def card_tests():
     """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
     and without ``tests/conftest.py`` (which imports JAX); fails on a
@@ -1200,6 +1532,10 @@ def main(argv=None):
     # 7. SDXL at full width, in bf16, then one step in fp32
     sdxl_launches, sdxl_launches_fp32 = sdxl_full_width(
         StableDiffusionPipeline, trace, kernels, A, args.profile)
+
+    # 11. v2-1-base through a checkpoint directory, its VAE encoder, the
+    # evaluation
+    checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels)
 
     replaces = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
                 'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',

@@ -5,6 +5,8 @@ with the Pallas kernels of the traced path rewritten as hand-written CUDA
 kernels for Hopper (``csrc/attention.cu``).  It never imports JAX.
 """
 
+from .evaluate import (MeanEvaluator, UnsupervisedEvaluator, compute_ioa,  # noqa: F401
+                       compute_iou, ioa_matrix, iou_matrix, load_mask)
 from .experiment import GenerationExperiment  # noqa: F401
 from .heatmap import GlobalHeatMap, RawHeatMapCollection, WordHeatMap  # noqa: F401
 from .pipeline.sd import PipelineOutput, StableDiffusionPipeline  # noqa: F401

@@ -2,7 +2,8 @@
 
 Counterpart of ``daam_tpu/heatmap.py`` for the traced main path:
 :class:`GlobalHeatMap` (a ``(tokens, x, x)`` map queryable by word, with
-subword merging), :class:`WordHeatMap` (with ``expand_as``) and
+subword merging), :class:`WordHeatMap` (with ``expand_as``, ``value`` and
+``compute_ioa``) and
 :class:`RawHeatMapCollection` (whole per-factor blocks registered with
 ``update_block``).  Bicubic resampling is ``F.interpolate(mode='bicubic',
 align_corners=False)``, the op ``daam_tpu/ops/resize.py`` reproduces
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .evaluate import compute_ioa
 from .utils import compute_token_merge_indices
 
 __all__ = ['GlobalHeatMap', 'RawHeatMapCollection', 'WordHeatMap',
@@ -35,30 +37,52 @@ def bicubic_resize(x: torch.Tensor, size: Tuple[int, int],
     return out.reshape(*lead, *size)
 
 
+#: matplotlib's ``jet`` colormap (its segment data, ``matplotlib/_cm.py``):
+#: per channel, breakpoints and values, sampled into 256 entries as
+#: matplotlib samples it
+_JET_SEGMENTS = (((0.0, 0.35, 0.66, 0.89, 1.0), (0.0, 0.0, 1.0, 1.0, 0.5)),
+                 ((0.0, 0.125, 0.375, 0.64, 0.91, 1.0), (0.0, 0.0, 1.0, 1.0, 0.0, 0.0)),
+                 ((0.0, 0.11, 0.34, 0.65, 1.0), (0.5, 1.0, 1.0, 0.0, 0.0)))
+_JET_LUT = np.stack([np.interp(np.linspace(0.0, 1.0, 256), xs, ys)
+                     for xs, ys in _JET_SEGMENTS], axis=-1)
+
+
+def _jet(levels: np.ndarray) -> np.ndarray:
+    """RGB of ``levels`` in [0, 1] through the 256-entry jet table, indexed
+    as ``matplotlib.colormaps['jet']`` indexes it."""
+    return _JET_LUT[np.clip((levels * 256).astype(np.int64), 0, 255)]
+
+
 def _jet_composite(image_u8: np.ndarray, heat: np.ndarray,
                    color_normalize: bool) -> np.ndarray:
     """``photo·(1−heat) + jet·heat`` — the reference's two stacked
     ``imshow`` calls in one array (``daam_tpu/heatmap.py:33-54``)."""
-    import matplotlib
-
     if color_normalize:
         lo, hi = float(heat.min()), float(heat.max())
         levels = (heat - lo) / (hi - lo) if hi > lo else np.zeros_like(heat)
     else:
         levels = np.clip(heat, 0.0, 1.0)
-    jet_rgb = matplotlib.colormaps['jet'](levels)[..., :3]
     photo = np.asarray(image_u8, dtype=np.float32) / 255.0
     w = np.clip(heat, 0.0, 1.0)[..., None]
-    return np.clip(photo * (1.0 - w) + jet_rgb * w, 0.0, 1.0)
+    return np.clip(photo * (1.0 - w) + _jet(levels) * w, 0.0, 1.0)
 
 
 def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
                           out_file=None, color_normalize: bool = True):
-    """Jet-colormap heat-map overlay (reference ``daam/heatmap.py:20-53``)."""
-    import matplotlib.pyplot as plt
-
+    """Jet-colormap heat-map overlay (reference ``daam/heatmap.py:20-53``):
+    a matplotlib figure titled with ``word``, as ``daam_tpu`` draws it.
+    Where matplotlib is not installed, ``out_file`` receives the composite
+    itself, at the image's size, without title or axes."""
     heat_map = np.squeeze(np.asarray(heat_map, dtype=np.float32))
     composite = _jet_composite(np.asarray(im), heat_map, color_normalize)
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        if out_file is not None:
+            import PIL.Image
+            u8 = np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
+            PIL.Image.fromarray(u8).save(out_file)
+        return
     plt.clf()
     plt.rcParams.update({'font.size': 24})
     plt.imshow(composite)
@@ -76,6 +100,16 @@ class WordHeatMap:
         self.word = word
         self.word_idx = word_idx
         self.heatmap = heatmap  # (h, w)
+
+    @property
+    def value(self) -> torch.Tensor:
+        return self.heatmap
+
+    def compute_ioa(self, other: 'WordHeatMap') -> float:
+        """Intersection over this map's area against ``other``'s grid
+        (``daam_tpu/heatmap.py:134``), on this map's device."""
+        return compute_ioa(self.heatmap, other.heatmap,
+                           device=torch.as_tensor(self.heatmap).device)
 
     def plot_overlay(self, image, out_file=None, color_normalize: bool = True,
                      **expand_kwargs):

@@ -80,18 +80,28 @@ class StableDiffusionPipeline:
         self._active_trace = None
 
     @classmethod
-    def from_pretrained(cls, model_name: str, device='cuda',
+    def from_pretrained(cls, model_name_or_path, device='cuda',
                         dtype=torch.float32, seed: int = 0,
                         scheduler: str = 'ddim') -> 'StableDiffusionPipeline':
-        """A preset (``v2-1-base``, ``xl-base-1.0``, ``tiny``, …) with random
-        weights drawn on ``device`` from ``seed`` (no checkpoint is read or
-        downloaded); an SDXL preset gives a
+        """A local diffusers checkpoint directory when the path exists
+        (config from its ``config.json`` files, tokenizer from its
+        ``tokenizer/``; :func:`~daam_tpu_torch.models.weights.load_diffusers_checkpoint`),
+        else a preset (``v2-1-base``, ``xl-base-1.0``, ``tiny``, …) with
+        random weights drawn on ``device`` from ``seed``
+        (``daam_tpu/pipeline/sd.py:123-138``).  An SDXL config gives a
         :class:`~.sdxl.StableDiffusionXLPipeline`.  The card by default:
         without one this raises, and only ``device='cpu'`` runs on the
         CPU."""
-        from ..models.weights import init_random
+        from pathlib import Path
 
-        config = get_pipeline_config(model_name)
+        from ..models.weights import init_random, load_diffusers_checkpoint
+
+        if Path(model_name_or_path).exists():
+            config, modules, tokenizer = load_diffusers_checkpoint(
+                model_name_or_path, device=device, dtype=dtype)
+            return _pipeline_class(config)(config, **modules, tokenizer=tokenizer,
+                                           scheduler=scheduler)
+        config = get_pipeline_config(model_name_or_path)
         gen = torch.Generator(device=device).manual_seed(seed)
         modules = init_random(config, gen, device=device, dtype=dtype)
         return _pipeline_class(config)(config, **modules, scheduler=scheduler)

@@ -3,14 +3,18 @@
 Generates one image for a prompt under ``trace(pipe)`` and writes the
 reference's artifact set into ``--output-folder`` (``daam_tpu/run/generate.py:
 235-333``): ``output.png``, ``generation.pt``, ``prompt.txt``, ``seed.txt``
-and one ``{word}.heat_map.png`` per word.  Weights are random, drawn from
-``--seed``.  ``--save-heads``/``--load-heads`` save and replay the attention
+and one ``{word}.heat_map.png`` per word.  ``--from-path`` loads a local
+diffusers checkpoint directory (it takes precedence over ``--model``, as in
+``daam_tpu``; ``--tiny`` over both); without it the weights are random,
+drawn from ``--seed``.  ``--reference-format`` writes ``generation.pt`` as
+the torch checkpoint the reference's tooling loads.
+``--save-heads``/``--load-heads`` save and replay the attention
 heads (the transplant), ``--time-maps`` adds per-step maps and a
 ``{word}.time.gif`` per word, ``--all-heads`` one map per (layer, head),
 ``--scheduler`` picks DDIM (the default), PNDM, Euler or DPM++ as
 ``daam_tpu``'s flag does.
-The other actions (coco, template, cconj, stdin, regenerate, prompt) are not
-ported yet.
+The other actions (coco, template, cconj, stdin, regenerate, prompt),
+``--batch-size`` and ``--word`` are not ported yet.
 
 The device defaults to ``cuda``; without a GPU the CLI stops with an error
 rather than running on the CPU, which takes ``--device cpu``.
@@ -24,7 +28,7 @@ import torch
 from ..experiment import GenerationExperiment
 from ..pipeline.sd import StableDiffusionPipeline
 from ..trace import trace
-from ..utils import set_seed
+from ..utils import resolve_device, set_seed
 
 MODELS = ['v1', 'v2-base', 'v2-1-base', 'v2-large', 'v2-1-large', 'xl-base-1.0']
 SCHEDULERS = ['ddim', 'pndm', 'euler', 'dpm++']
@@ -49,9 +53,14 @@ def build_parser() -> argparse.ArgumentParser:
                              'path (1 = every step)')
     parser.add_argument('--save-heads', action='store_true')
     parser.add_argument('--load-heads', action='store_true')
+    parser.add_argument('--reference-format', action='store_true',
+                        help='write generation.pt as a torch checkpoint the '
+                             'reference daam tooling can load')
     parser.add_argument('--tiny', action='store_true',
                         help='tiny random-weight preset (smoke runs): '
                              'tiny-xl for an xl --model, else tiny')
+    parser.add_argument('--from-path', type=str, default=None,
+                        help='local diffusers checkpoint directory')
     parser.add_argument('--scheduler', type=str, default='ddim',
                         choices=SCHEDULERS)
     parser.add_argument('--dtype', type=str, default='float32',
@@ -63,15 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_pipeline(args) -> StableDiffusionPipeline:
-    device = torch.device(args.device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'--device {args.device}: no CUDA device is '
-                           f'available; pass --device cpu to run on the CPU')
+    device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == 'bfloat16' else torch.float32
-    name = args.model
-    if args.tiny:  # daam_tpu/run/generate.py:241
-        name = 'tiny-xl' if 'xl' in args.model else 'tiny'
-    return StableDiffusionPipeline.from_pretrained(name, device=device,
+    source = args.from_path or args.model  # daam_tpu/run/generate.py:236-246
+    if args.tiny:
+        source = 'tiny-xl' if 'xl' in args.model else 'tiny'
+    return StableDiffusionPipeline.from_pretrained(source, device=device,
                                                    dtype=dtype, seed=args.seed,
                                                    scheduler=args.scheduler)
 
@@ -90,7 +96,8 @@ def main(argv=None):
                    generator=generator, callback=tc.time_callback)
         exp = tc.to_experiment(args.output_folder, seed=args.seed)
         exp.image = out.images[0]
-        exp.save(args.output_folder, heat_maps=False)
+        exp.save(args.output_folder, heat_maps=False,
+                 reference_format=args.reference_format)
         words = exp.save_all_heat_maps()
         if args.all_heads:
             exp.clear_checkpoint()

@@ -19,7 +19,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ['set_seed', 'cache_dir', 'compute_token_merge_indices']
+__all__ = ['set_seed', 'cache_dir', 'compute_token_merge_indices',
+           'resolve_device']
 
 
 def set_seed(seed: int, device='cuda') -> torch.Generator:
@@ -31,6 +32,16 @@ def set_seed(seed: int, device='cuda') -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+def resolve_device(device='cuda') -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without one raises
+    (the port never falls back to the CPU unless asked to)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'device {device}: no CUDA device is available; '
+                           f'pass cpu to run on the CPU')
+    return device
 
 
 def cache_dir() -> Path:

@@ -27,6 +27,7 @@ setuptools.setup(
             'daam-evaluate = daam_tpu.run.evaluate:main',
             'daam-demo = daam_tpu.run.demo:main',
             'daam-torch = daam_tpu_torch.run.generate:main',
+            'daam-torch-evaluate = daam_tpu_torch.run.evaluate:main',
         ],
     },
 )

@@ -186,3 +186,83 @@ def test_head_dims_without_kernels_raise_on_card(hd, cuda_device):
             with pytest.raises(ValueError, match=f'head dim {hd} not in'):
                 call()
     assert kernels.launches == n
+
+
+def _write_safetensors(path, tensors):
+    """The format by hand (the card's machine need not have the package):
+    8-byte little-endian header length, JSON header, raw bytes."""
+    import json
+    import struct
+
+    names = {torch.float16: 'F16', torch.bfloat16: 'BF16', torch.float32: 'F32'}
+    header, offset = {'__metadata__': {'format': 'pt'}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {'dtype': names[t.dtype], 'shape': list(t.shape),
+                        'data_offsets': [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b' ' * (-len(raw) % 8)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<Q', len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.contiguous().view(-1).view(torch.uint8).numpy().data)
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_on_a_2gb_file_on_card(tmp_path, cuda_device):
+    """Offsets past 2**31: a 2.2 GB fp16 tensor, then a bf16 and an fp32
+    one behind it, read through the memory map and moved to the card."""
+    from daam_tpu_torch.models.weights import read_safetensors
+
+    g = torch.Generator().manual_seed(0)
+    big = torch.zeros(1_100_000_000, dtype=torch.float16)
+    big[::4099] = torch.randn(big[::4099].shape, generator=g).half()
+    tensors = {'big': big, 'after.bf16': torch.randn(3, 5, generator=g).bfloat16(),
+               'after.f32': torch.randn(7, generator=g)}
+    path = tmp_path / 'large.safetensors'
+    _write_safetensors(path, tensors)
+    assert path.stat().st_size > 2 ** 31
+    got = read_safetensors(path)
+    assert sorted(got) == sorted(tensors)
+    for name, t in tensors.items():
+        assert got[name].dtype == t.dtype and got[name].shape == t.shape, name
+        assert torch.equal(got[name].to(cuda_device), t.to(cuda_device)), name
+    del got
+    path.unlink()
+
+
+def _masks(n, h, w, seed):
+    rng = np.random.RandomState(seed)
+    out = np.zeros((n, h, w), np.float32)
+    for m in out:
+        y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+        m[y0:y0 + rng.randint(h // 8, h // 2), x0:x0 + rng.randint(w // 8, w // 2)] = 1
+        flip = rng.rand(h, w) < 0.02
+        m[flip] = 1 - m[flip]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('pred_hw,truth_hw', [((512, 512), (512, 512)),
+                                              ((64, 64), (512, 512)),
+                                              ((512, 512), (480, 640))])
+def test_evaluation_on_card_matches_cpu(pred_hw, truth_hw, cuda_device):
+    """The same binarized pixels and IoU/IoA on the card as on the CPU,
+    whatever the global TF32 setting (restored after the call)."""
+    from daam_tpu_torch import evaluate as E
+
+    p, t = _masks(5, *pred_hw, seed=1), _masks(3, *truth_hw, seed=2)
+    cpu = E._binarize_resize(torch.from_numpy(p), truth_hw)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = E._binarize_resize(torch.from_numpy(p).to(cuda_device), truth_hw)
+        assert torch.equal(card.cpu(), cpu)
+        for fn in (E.iou_matrix, E.ioa_matrix):
+            a, b = fn(p, t, device=cuda_device), fn(p, t, device='cpu')
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+            assert a.max() > 0
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

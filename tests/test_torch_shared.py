@@ -2,7 +2,8 @@
 
 ``daam_tpu_torch`` cannot import ``daam_tpu`` (that imports JAX and Flax), so
 it carries copies of the configs, the cross-attention layout, the BPE
-tokenizer and the token-merge arithmetic.  These tests hold each copy equal
+tokenizer, the token-merge arithmetic, the COCO label tables and the
+bicubic weight matrices of the mask evaluation.  These tests hold each copy equal
 to its original, and check that the port never imports JAX.
 """
 
@@ -38,7 +39,9 @@ def test_port_never_imports_jax():
     """Import every module of the port in a fresh interpreter."""
     modules = [m.name for m in pkgutil.walk_packages(
         daam_tpu_torch.__path__, prefix='daam_tpu_torch.')]
-    assert {'daam_tpu_torch.ops.kernels', 'daam_tpu_torch.pipeline.sdxl'} <= set(modules)
+    assert {'daam_tpu_torch.ops.kernels', 'daam_tpu_torch.pipeline.sdxl',
+            'daam_tpu_torch.coco', 'daam_tpu_torch.evaluate',
+            'daam_tpu_torch.ops.resize', 'daam_tpu_torch.run.evaluate'} <= set(modules)
     code = ('import importlib, sys\n'
             f'for m in {modules!r}: importlib.import_module(m)\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
@@ -89,3 +92,30 @@ def test_cache_dir_equal(xdg, monkeypatch):
     else:
         monkeypatch.setenv('XDG_CACHE_HOME', xdg)
     assert cache_dir() == jax_cache_dir()
+
+
+def test_coco_tables_equal():
+    import daam_tpu.coco as theirs
+    import daam_tpu_torch.coco as ours
+
+    assert ours.__all__ == theirs.__all__
+    for name in theirs.__all__:
+        if name == 'build_word_list_coco80':
+            assert ours.build_word_list_coco80() == theirs.build_word_list_coco80()
+        else:
+            assert getattr(ours, name) == getattr(theirs, name), name
+
+
+@pytest.mark.parametrize('in_size,out_size', [(64, 512), (512, 480), (512, 640),
+                                              (96, 64), (33, 70), (8, 8), (1, 5)])
+def test_resize_weight_matrix_equal(in_size, out_size):
+    """The mask evaluation's bicubic weights are daam_tpu's, bit for bit."""
+    import numpy as np
+    from daam_tpu.ops import resize as theirs
+    from daam_tpu_torch.ops import resize as ours
+
+    w = ours._weight_matrix_np(in_size, out_size)
+    assert w.dtype == np.float32
+    np.testing.assert_array_equal(w, theirs._weight_matrix_np(in_size, out_size))
+    x = np.linspace(-3, 3, 61)
+    np.testing.assert_array_equal(ours._cubic_kernel(x), theirs._cubic_kernel(x))

@@ -52,16 +52,18 @@ def test_clip_round_trip():
 
 
 def test_vae_round_trip_and_encoder_skip_list():
-    """Decoder keys come back exactly; the encoder keys of a full diffusers
-    VAE are exactly the skip list, and daam_tpu's encoder subtree is
-    skipped."""
+    """Encoder and decoder keys come back exactly: nothing is skipped any
+    more.  daam_tpu's full VAE (encoder subtree included) converts to every
+    key of the port's full VAE, and its decoder-only tree to the keys of the
+    decode-only VAE that build_modules gives."""
+    from daam_tpu_torch.models.vae import AutoencoderKL
+
     config = get_pipeline_config('tiny')
-    modules = W.build_modules(config, device='cpu')
-    sd = _random_state_dict(modules['vae'], seed=2)
+    sd = _random_state_dict(AutoencoderKL(config.vae), seed=2)
+    assert 'quant_conv.weight' in sd and any(k.startswith('encoder.') for k in sd)
     back = W.from_jax_params({'vae': _convert_vae(dict(sd), config.vae)})['vae']
     _assert_same(back, sd)
 
-    # A full (encoder + decoder) daam_tpu VAE converts to the decoder keys.
     vae = JaxVAE(config.vae)
     x = jnp.zeros((1, 16, 16, 3))
     shapes = jax.eval_shape(vae.init, jax.random.PRNGKey(0), x,
@@ -69,8 +71,11 @@ def test_vae_round_trip_and_encoder_skip_list():
     full = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     assert 'encoder' in full
     keys = W.from_jax_params({'vae': full})['vae']
-    assert sorted(keys) == sorted(sd)
-    assert all(k.startswith(('decoder.', 'post_quant_conv.')) for k in keys)
+    assert {k: v.shape for k, v in keys.items()} == {k: v.shape for k, v in sd.items()}
+    decoder_only = W.from_jax_params({'vae': {'decoder': full['decoder']}})['vae']
+    modules = W.build_modules(config, device='cpu')
+    assert sorted(decoder_only) == sorted(modules['vae'].state_dict())
+    assert all(k.startswith(('decoder.', 'post_quant_conv.')) for k in decoder_only)
 
 
 def test_init_random_shapes_and_scale_rule():
