@@ -3,7 +3,7 @@
 card's pytest cases, the traced SD 2.1-base slice in bf16 and in fp32, the
 head-replay transplant, the traced SD 1.x slice (DDIM and PNDM), the traced
 SDXL slice, a checkpoint directory on disk with the VAE encoder and the
-evaluation, timings.
+evaluation, batched generation and the demo server, timings.
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile       # also a torch.profiler table of a
@@ -19,7 +19,7 @@ first on the import path), which is how two commits are compared in one
 call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11):
+order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
@@ -150,8 +150,32 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11):
     ``daam-torch-evaluate`` with ``labeled``, ``unlabeled`` and
     ``hungarian`` on ``cuda`` and on ``cpu``: equal reports, ``iou_matrix``
     within 1e-6, the card's seconds printed.
+12. Batched generation, what ``daam-torch --batch-size 4`` and
+    ``daam-torch-demo --batch-size 4`` run: 4 prompts, CFG batch 8,
+    ``v2-1-base`` in fp32, 512², 10 steps.  (a) Phase 2's parity at CFG
+    batch 8 and v2-1-base's shapes, bf16 and fp32, both layouts: K2 on
+    every self-attention and on the unconditional half of each
+    cross-attention, K1 on the conditional half (a view 4 batch strides
+    in), K5 on all 8 rows with and without ``cond_only``; phase 2's gates.
+    (b) ``daam-torch --action regenerate`` in process over 4 fabricated
+    experiment folders (4 prompts, 4 seeds) at ``--batch-size 4`` (one
+    traced call: 150 K1 and 320 K2 on ``*_tf32x3``) and at
+    ``--batch-size 1`` (4 calls): each prompt's image within 2/255 of its
+    batch-1 image and its maps at per-token Spearman ≥ 0.999; ``--action
+    coco --word dog --gen-limit 4 --batch-size 4 -n 2`` over a fabricated
+    captions file (only prompts with the lemma once, only its map; 30 K1,
+    64 K2); traced images/s through the pipeline at batch 1 and 4; the save
+    → load pair at batch 4 (160 K5 at CFG batch 8, the buffer's 8 rows,
+    each prompt's replayed maps, the slowest step, peak host RSS).  (c)
+    ``daam-torch-demo``: ``make_app(pipe, 0, batch_size=4)`` behind a
+    ``ThreadingHTTPServer`` on 127.0.0.1: 4 concurrent POSTs answered by
+    one traced call (150 K1, 320 K2), each page's image and map against a
+    batch-1 run of its prompt and seed as in (b); a counterfactual POST
+    (save run with 160 K5, load run), whose transplanted image differs from
+    a fresh run of the new prompt, towards the saved run's; one request
+    through a batch-1 server; images/s through both servers.
 
-The whole run takes ~3–5 min of command time on one H100.
+The whole run takes ~5–7 min of command time on one H100.
 
 Before the card's name and power limit, ``{"v1_kernels": [...]}`` gives
 the same keys as the ``kernels`` line for v1's path (launches from phase
@@ -161,7 +185,10 @@ launches from phase 7
 (the bf16 run's; the fp32 step's for the fp32 entries;
 cross_attention_probs: the 2-step save run's of each dtype) and times per
 SDXL evaluation (cross_attention_probs: per evaluation of an SDXL save
-run).  The line before the last is ``{"kernels": [...]}``: per kernel and
+run), then ``{"b4_kernels": [...]}``, the fp32 entries at CFG batch 8
+(launches from phase 12's batch-4 regenerate run and its save run, times
+per UNet evaluation at batch 4, max abs errors from phase 12a).  The line
+before the last is ``{"kernels": [...]}``: per kernel and
 dtype (the fp32 entries named by their counters,
 ``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
 ``cross_attention_probs_tf32x3``), its
@@ -232,6 +259,11 @@ V1_K5_SHAPES = [((2, 8, 4096, 77), 5, 40), ((2, 8, 1024, 77), 5, 80),
 EXTRA_SHAPES = {'cross_attention_acc': [(1, 5, 100, 77), (1, 5, 128, 200)],
                 'cross_attention_probs': [(2, 5, 37, 77), (2, 5, 100, 200)]}
 HD = 64
+# phase 12: a batch of 4 prompts (CFG batch 8), each with its own seed
+BATCH = 4
+BATCH_PROMPTS = ['A dog runs across the field', 'A cat sits on the red sofa',
+                 'A brown horse eats green grass', 'A small bird flies over the sea']
+BATCH_SEEDS = [0, 7, 11, 42]
 DTYPES = ('bf16', 'fp32')
 #: The launch counter of each kernel's route, by dtype.
 ROUTE = {'bf16': {'flash_attention': 'flash_attention_wgmma',
@@ -245,6 +277,8 @@ BF16_PEAK_TFLOPS = 989.0  # dense
 TF32_PEAK_TFLOPS = 495.0  # dense
 FP32_CORE_TFLOPS = 67.0   # the CUDA cores
 HBM_TB_S = 3.35
+#: phase 2's gates on kernel outputs, by dtype
+TOL = {'fp32': 1e-4, 'bf16': 2e-2}
 
 
 def check(ok: bool, msg: str):
@@ -352,15 +386,102 @@ def check_rounding(name, o, rounded, unrounded):
     check(d_r < d_u, f'{name} rounds P where the Pallas body does')
 
 
+def parity_flash(kernels, A, q, k, v, tag: str, worst: dict):
+    """``flash_attention`` against its plain version on (q, k, v): max abs
+    error within its dtype's gate, Spearman ≥ 0.999, and in bf16 closer to
+    the reference that rounds P where the Pallas body does."""
+    import torch
+
+    dname = 'bf16' if q.dtype == torch.bfloat16 else 'fp32'
+    o = kernels.flash_attention(q, k, v)
+    r = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (o.float() - r.float()).abs().max().item()
+    rho = spearman(o, r)
+    print(f'parity flash_attention {tag} max_abs_err={err:.3e} spearman={rho:.6f}')
+    check(err <= TOL[dname] and rho >= 0.999, 'flash_attention parity')
+    worst['flash_attention', dname] = max(worst['flash_attention', dname], err)
+    if dname == 'bf16':
+        check_rounding('flash_attention', o, flash_reference(q, k, v, True),
+                       flash_reference(q, k, v, False))
+
+
+def parity_acc(kernels, A, calls, tag: str, worst: dict):
+    """``cross_attention_acc`` against its plain version, ``calls`` (q, k,
+    v) triples in turn into one accumulator each: the outputs and the fp32
+    accumulators as ``parity_flash`` holds outputs, the accumulator within
+    1e-5."""
+    import torch
+
+    q = calls[0][0]
+    dname = 'bf16' if q.dtype == torch.bfloat16 else 'fp32'
+    B, Lq, H, _ = q.shape
+    acc = torch.zeros(B, H, calls[0][1].shape[1], Lq, device='cuda')
+    acc_plain = acc.clone()
+    for q, k, v in calls:
+        o = kernels.cross_attention_acc(q, k, v, acc)
+        r = A.cross_attention_acc_plain(q, k, v, acc_plain)
+    torch.cuda.synchronize()
+    err = (o.float() - r.float()).abs().max().item()
+    acc_err = (acc - acc_plain).abs().max().item()
+    rho = min(spearman(o, r), spearman(acc, acc_plain))
+    print(f'parity cross_attention_acc {tag} max_abs_err={err:.3e} '
+          f'acc_max_abs_err={acc_err:.3e} spearman={rho:.6f}')
+    # acc sums fp32 P whatever the inputs' type: a kernel that added
+    # bf16-rounded P would miss this by ~1e-3
+    check(err <= TOL[dname] and acc_err <= 1e-5 and rho >= 0.999,
+          'cross_attention_acc parity')
+    worst['cross_attention_acc', dname] = max(worst['cross_attention_acc', dname],
+                                              err, acc_err)
+    if dname == 'bf16':  # the plain version rounds normalized P before PV
+        check_rounding('cross_attention_acc', o, r, cross_reference(q, k, v, False))
+
+
+def parity_probs(kernels, A, q, k, v, tag: str, worst: dict):
+    """``cross_attention_probs`` against its plain version, with and
+    without ``cond_only``, P in fp32 and bf16 (P compared on the rows it
+    writes; ≤ 1e-5 in fp32, ≤ 1/128 in bf16)."""
+    import torch
+
+    dname = 'bf16' if q.dtype == torch.bfloat16 else 'fp32'
+    B = q.shape[0]
+    for cond_only in (False, True):
+        for pdt in (torch.float32, torch.bfloat16):
+            o, p = kernels.cross_attention_probs(q, k, v, cond_only, pdt)
+            r, rp = A.cross_attention_probs_plain(q, k, v, cond_only, pdt)
+            torch.cuda.synchronize()
+            rows = slice(B // 2, None) if cond_only else slice(None)
+            p, rp = p[rows].float(), rp[rows].float()
+            err = (o.float() - r.float()).abs().max().item()
+            p_err = (p - rp).abs().max().item()
+            rho = min(spearman(o, r), spearman(p, rp))
+            print(f'parity cross_attention_probs {tag} cond_only={cond_only!s:5s} '
+                  f'P {str(pdt):14s} max_abs_err={err:.3e} p_max_abs_err={p_err:.3e} '
+                  f'spearman={rho:.6f}')
+            # bf16 P: kernel and plain version may round to neighbours,
+            # one ulp (1/256 below 1) apart
+            p_tol = 1e-5 if pdt == torch.float32 else 1 / 128
+            check(err <= TOL[dname] and p_err <= p_tol and rho >= 0.999,
+                  'cross_attention_probs parity')
+            worst['cross_attention_probs', dname] = max(
+                worst['cross_attention_probs', dname], err, p_err)
+            if dname == 'bf16':
+                check_rounding('cross_attention_probs', o, r,
+                               cross_reference(q, k, v, False))
+
+
+def new_worst() -> dict:
+    return {(name, dtype): 0.0 for dtype in DTYPES for name in (
+        'flash_attention', 'cross_attention_acc', 'cross_attention_probs')}
+
+
 def parity(kernels, A):
     """Phase 2; returns the largest max-abs error per kernel and dtype
     ('bf16', 'fp32')."""
     import torch
 
-    worst = {(name, dtype): 0.0 for dtype in DTYPES for name in (
-        'flash_attention', 'cross_attention_acc', 'cross_attention_probs')}
+    worst = new_worst()
     gen = torch.Generator(device='cuda').manual_seed(0)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
     def cases(shapes, dims=kernels.HEAD_DIMS):
         return [(hd, sh) for hd in dims for sh in shapes]
@@ -369,86 +490,29 @@ def parity(kernels, A):
     k5_shapes = [sh for sh, _ in K5_SHAPES] + EXTRA_SHAPES['cross_attention_probs']
     # SDXL's shapes at its one head dim, 64, and v1's each at its own
     paths = {name: [(HD, sh) for sh, _ in shapes] + [(hd, sh) for sh, _, hd in v1]
-            for name, shapes, v1 in (
-                ('flash_attention', SDXL_K2_SHAPES, V1_K2_SHAPES),
-                ('cross_attention_acc', SDXL_K1_SHAPES, V1_K1_SHAPES),
-                ('cross_attention_probs', SDXL_K5_SHAPES, V1_K5_SHAPES))}
+             for name, shapes, v1 in (
+                 ('flash_attention', SDXL_K2_SHAPES, V1_K2_SHAPES),
+                 ('cross_attention_acc', SDXL_K1_SHAPES, V1_K1_SHAPES),
+                 ('cross_attention_probs', SDXL_K5_SHAPES, V1_K5_SHAPES))}
     for dtype in (torch.float32, torch.bfloat16):
-        bf16 = dtype == torch.bfloat16
-        dname = 'bf16' if bf16 else 'fp32'
+        dname = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         for layout in ('head_major', 'packed'):
             before = dict(kernels.launches)
+
+            def tag(hd, shape):
+                return f'{layout:10s} {str(dtype):14s} hd={hd:<3d} B,H,Lq,Lk={shape}'
             flash_cases = cases([sh for sh, _ in K2_SHAPES]) + paths['flash_attention']
             for hd, shape in flash_cases:
-                q, k, v = qkv(*shape, layout, dtype, gen, hd)
-                o = kernels.flash_attention(q, k, v)
-                r = A.flash_attention_plain(q, k, v)
-                torch.cuda.synchronize()
-                err = (o.float() - r.float()).abs().max().item()
-                rho = spearman(o, r)
-                print(f'parity flash_attention {layout:10s} {str(dtype):14s} '
-                      f'hd={hd:<3d} B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
-                      f'spearman={rho:.6f}')
-                check(err <= tol[dtype] and rho >= 0.999, 'flash_attention parity')
-                worst['flash_attention', dname] = max(worst['flash_attention', dname], err)
-                if bf16:
-                    check_rounding('flash_attention', o, flash_reference(q, k, v, True),
-                                   flash_reference(q, k, v, False))
+                parity_flash(kernels, A, *qkv(*shape, layout, dtype, gen, hd),
+                             tag(hd, shape), worst)
             acc_cases = cases(k1_shapes) + paths['cross_attention_acc']
             for hd, shape in acc_cases:
-                B, H, Lq, Lk = shape
-                acc = torch.zeros(B, H, Lk, Lq, device='cuda')
-                acc_plain = acc.clone()
-                for _ in range(2):
-                    q, k, v = qkv(*shape, layout, dtype, gen, hd)
-                    o = kernels.cross_attention_acc(q, k, v, acc)
-                    r = A.cross_attention_acc_plain(q, k, v, acc_plain)
-                torch.cuda.synchronize()
-                err = (o.float() - r.float()).abs().max().item()
-                acc_err = (acc - acc_plain).abs().max().item()
-                rho = min(spearman(o, r), spearman(acc, acc_plain))
-                print(f'parity cross_attention_acc {layout:10s} {str(dtype):14s} '
-                      f'hd={hd:<3d} B,H,Lq,Lk={shape} max_abs_err={err:.3e} '
-                      f'acc_max_abs_err={acc_err:.3e} spearman={rho:.6f}')
-                # acc sums fp32 P whatever the inputs' type: a kernel that
-                # added bf16-rounded P would miss this by ~1e-3
-                check(err <= tol[dtype] and acc_err <= 1e-5 and rho >= 0.999,
-                      'cross_attention_acc parity')
-                worst['cross_attention_acc', dname] = max(
-                    worst['cross_attention_acc', dname], err, acc_err)
-                if bf16:
-                    # the plain version rounds normalized P before PV
-                    check_rounding('cross_attention_acc', o, r,
-                                   cross_reference(q, k, v, False))
+                parity_acc(kernels, A, [qkv(*shape, layout, dtype, gen, hd)
+                                        for _ in range(2)], tag(hd, shape), worst)
             probs_cases = cases(k5_shapes) + paths['cross_attention_probs']
             for hd, shape in probs_cases:
-                B = shape[0]
-                q, k, v = qkv(*shape, layout, dtype, gen, hd)
-                for cond_only in (False, True):
-                    for pdt in (torch.float32, torch.bfloat16):
-                        o, p = kernels.cross_attention_probs(q, k, v, cond_only, pdt)
-                        r, rp = A.cross_attention_probs_plain(q, k, v, cond_only, pdt)
-                        torch.cuda.synchronize()
-                        rows = slice(B // 2, None) if cond_only else slice(None)
-                        p, rp = p[rows].float(), rp[rows].float()
-                        err = (o.float() - r.float()).abs().max().item()
-                        p_err = (p - rp).abs().max().item()
-                        rho = min(spearman(o, r), spearman(p, rp))
-                        print(f'parity cross_attention_probs {layout:10s} '
-                              f'{str(dtype):14s} hd={hd:<3d} B,H,Lq,Lk={shape} '
-                              f'cond_only={cond_only!s:5s} P {str(pdt):14s} '
-                              f'max_abs_err={err:.3e} p_max_abs_err={p_err:.3e} '
-                              f'spearman={rho:.6f}')
-                        # bf16 P: kernel and plain version may round to
-                        # neighbours, one ulp (1/256 below 1) apart
-                        p_tol = 1e-5 if pdt == torch.float32 else 1 / 128
-                        check(err <= tol[dtype] and p_err <= p_tol and rho >= 0.999,
-                              'cross_attention_probs parity')
-                        worst['cross_attention_probs', dname] = max(
-                            worst['cross_attention_probs', dname], err, p_err)
-                        if bf16:
-                            check_rounding('cross_attention_probs', o, r,
-                                           cross_reference(q, k, v, False))
+                parity_probs(kernels, A, *qkv(*shape, layout, dtype, gen, hd),
+                             tag(hd, shape), worst)
             # every launch took its dtype's route: bf16 the wgmma and mma
             # kernels, fp32 the 3xTF32 kernels
             want = expected(kernels, dname, flash_attention=len(flash_cases),
@@ -521,8 +585,10 @@ def tiny_reference(A, StableDiffusionPipeline, trace, preset):
 
 
 def timed_call(pipe, traced: bool, trace, steps: int = STEPS,
-               prompt: str = PROMPT, **trace_kwargs):
-    """One pipeline call; returns (output, per-step seconds, tracer)."""
+               prompt=PROMPT, seeds=None, **trace_kwargs):
+    """One pipeline call of ``prompt`` (a list: a batch, with one generator
+    per prompt seeded from ``seeds``; else one generator seeded 0); returns
+    (output, per-step seconds, tracer)."""
     import torch
 
     marks = []
@@ -531,16 +597,17 @@ def timed_call(pipe, traced: bool, trace, steps: int = STEPS,
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
 
-    gen = torch.Generator(device=pipe.device).manual_seed(0)
+    gen = (torch.Generator(device=pipe.device).manual_seed(0) if seeds is None else
+           [torch.Generator(device=pipe.device).manual_seed(s) for s in seeds])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if traced:
         with trace(pipe, **trace_kwargs) as tc:
             out = pipe(prompt, num_inference_steps=steps, generator=gen,
-                       output_type='np', callback=on_step)
+                       output_type='np', callback=on_step, callback_steps=1)
         return out, [b - a for a, b in zip([t0] + marks, marks)], tc
     out = pipe(prompt, num_inference_steps=steps, generator=gen,
-               output_type='np', callback=on_step)
+               output_type='np', callback=on_step, callback_steps=1)
     return out, [b - a for a, b in zip([t0] + marks, marks)], None
 
 
@@ -582,6 +649,10 @@ def device_times(calls, iters: int = 20):
             torch.cuda.synchronize()
         _PROFILER_WARM = True
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one unlabeled call of each first: a later session, too, was seen
+        # to drop the first label's first launches (16 of 20)
+        for _, fn in calls:
+            fn()
         for label, fn in calls:
             torch.cuda.synchronize()
             with record_function(label):
@@ -659,7 +730,13 @@ PATH_SHAPES = {
                     ('cross_attention_acc', _at_hd(SDXL_K1_SHAPES)),
                     ('cross_attention_probs', _at_hd(SDXL_K5_SHAPES))),
     'v1': (('flash_attention', V1_K2_SHAPES), ('cross_attention_acc', V1_K1_SHAPES),
-           ('cross_attention_probs', V1_K5_SHAPES))}
+           ('cross_attention_probs', V1_K5_SHAPES)),
+    # v2-1-base at a batch of 4 prompts (phase 12)
+    'v2-1-base b4': tuple((name, [((BATCH * shape[0], *shape[1:]), n, hd)
+                                  for shape, n, hd in _at_hd(shapes)])
+                          for name, shapes in (('flash_attention', K2_SHAPES),
+                                               ('cross_attention_acc', K1_SHAPES),
+                                               ('cross_attention_probs', K5_SHAPES)))}
 
 
 def kernel_times(kernels, A, model, dtype='bf16'):
@@ -763,36 +840,40 @@ def _kernel_times(kernels, A, model, dtype):
 
 def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
                k5: int = K5_PER_EVAL, k2: int = K2_PER_EVAL_REPLAY,
-               other_prompt: bool = True) -> dict:
+               other_prompt: bool = True, prompts=None, seeds=None) -> dict:
     """A save_heads -> load_heads pair at full width, ``steps`` steps each
-    (phases 5, 7, 9 and 10), with the per-step time and slowest step of
+    (phases 5, 7, 9, 10 and 12), with the per-step time and slowest step of
     each run: the save run's counters (``k5`` cross_attention_probs and
     ``k2`` flash_attention launches per UNet evaluation on the ``dtype``
-    route, nothing else) and its buffer (``k5`` layers of (evaluations, 2,
-    H, h·w, 77) bf16, finite, rows summing to 1 within 1e-2; PNDM evaluates
-    ``steps + 1`` times); the load run of the same prompt (``k2``
-    flash_attention per evaluation and nothing else), whose per-token heat
-    maps must match the save run's at Spearman ≥ 0.999; with
-    ``other_prompt``, a load run of a second prompt, whose image must differ
-    from a fresh run of it.  Returns the save run's launch counts."""
+    route, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
+    H, h·w, 77) bf16 for a batch of b prompts, finite, rows summing to 1
+    within 1e-2; PNDM evaluates ``steps + 1`` times); the load run of the
+    same prompts (``k2`` flash_attention per evaluation and nothing else),
+    whose per-token heat maps must match the save run's at Spearman ≥ 0.999,
+    prompt by prompt; with ``other_prompt``, a load run of a second prompt,
+    whose image must differ from a fresh run of it.  ``prompts`` and
+    ``seeds``: a batch of prompts, one generator each (else ``PROMPT`` from
+    seed 0).  Returns the save run's launch counts."""
     import numpy as np
     import torch
     from daam_tpu_torch.trace import release_heads
 
     data_dir = f'smoke {label}'
     evals = pipe.scheduler.num_scan_steps(steps)
+    batch = list(prompts or [PROMPT])
 
     def run(prompt, **trace_kwargs):
         kernels.reset_launches()
         out, times, tc = timed_call(pipe, True, trace, steps=steps, prompt=prompt,
-                                    data_dir=data_dir, **trace_kwargs)
+                                    seeds=seeds, data_dir=data_dir, **trace_kwargs)
         launches = dict(kernels.launches)
         print(f'{label} {list(trace_kwargs)[0]} run {prompt!r}: launches {launches}, '
               f'{sum(times) / steps:.5f} s/step over {steps} steps, slowest step '
               f'{max(times):.5f} s')
         return out.images[0], tc, launches
 
-    image_s, tc_s, save_launches = run(PROMPT, save_heads=True, persist_heads=False)
+    prompt = batch if prompts else PROMPT
+    image_s, tc_s, save_launches = run(prompt, save_heads=True, persist_heads=False)
     check(save_launches == expected(kernels, dtype, cross_attention_probs=k5 * evals,
                                     flash_attention=k2 * evals),
           f'{label} save run launch counts {save_launches}')
@@ -803,7 +884,7 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
     for name, arr in buf.items():
         info = pipe._layout[name]
         hw = (latent // info.downscale) ** 2
-        check(tuple(arr.shape) == (evals, 2, info.heads, hw, 77)
+        check(tuple(arr.shape) == (evals, 2 * len(batch), info.heads, hw, 77)
               and arr.dtype == torch.bfloat16, f'{name}: {tuple(arr.shape)}')
         a = arr.to(pipe.device).float()
         row_err = (a.sum(-1) - 1).abs().max().item()
@@ -814,16 +895,17 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
           f'{nbytes / evals / 1e6:.1f} MB of bf16 per evaluation, rows sum to 1 '
           f'within 1e-2')
 
-    image_l, tc_l, load_launches = run(PROMPT, load_heads=True)
+    image_l, tc_l, load_launches = run(prompt, load_heads=True)
     check(load_launches == expected(kernels, dtype, flash_attention=k2 * evals),
           f'{label} load run launch counts {load_launches}')
-    map_s = tc_s.compute_global_heat_map().heat_maps
-    map_l = tc_l.compute_global_heat_map().heat_maps
-    rhos = [spearman(map_l[t], map_s[t]) for t in range(map_s.shape[0])]
-    print(f'{label} load vs save run, same prompt: per-token heat-map spearman min '
-          f'{min(rhos):.6f} over {len(rhos)} tokens; image max_abs_err '
-          f'{float(abs(image_l - image_s).max()):.3e}')
-    check(min(rhos) >= 0.999, f'{label} replayed heat maps match the saved run')
+    for i in range(len(batch)):
+        map_s = tc_s.compute_global_heat_map(batch_idx=i).heat_maps
+        map_l = tc_l.compute_global_heat_map(batch_idx=i).heat_maps
+        rhos = [spearman(map_l[t], map_s[t]) for t in range(map_s.shape[0])]
+        print(f'{label} load vs save run, same prompt {i}: per-token heat-map '
+              f'spearman min {min(rhos):.6f} over {len(rhos)} tokens; first image '
+              f'max_abs_err {float(abs(image_l - image_s).max()):.3e}')
+        check(min(rhos) >= 0.999, f'{label} replayed heat maps match the saved run')
 
     if other_prompt:
         image_t, _, _ = run(PROMPT2, load_heads=True)
@@ -1374,6 +1456,392 @@ def checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 12: batched generation and the demo server
+# --------------------------------------------------------------------------
+
+def batch_parity(kernels, A) -> dict:
+    """Phase 12a: phase 2's parity at CFG batch 8 (4 prompts), v2-1-base's
+    shapes at hd 64, both layouts, bf16 and fp32 (TF32 off for the plain
+    side): K2 on every self-attention of 8 rows and on the unconditional
+    half of each cross-attention (rows 0–3), K1 on the conditional half (a
+    view 4 batch strides into the operands), twice into one accumulator,
+    K5 on all 8 rows with and without ``cond_only`` (rows 4–7 written).
+    Returns the largest max-abs error per kernel and dtype."""
+    import torch
+
+    worst = new_worst()
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    b = BATCH
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+            for layout in ('head_major', 'packed'):
+                before = dict(kernels.launches)
+
+                def tag(shape, half=''):
+                    return (f'{layout:10s} {str(dtype):14s} CFG batch {2 * b} '
+                            f'B,H,Lq,Lk={shape}{half}')
+                for (B, H, Lq, Lk), _ in K2_SHAPES:
+                    q, k, v = qkv(2 * b, H, Lq, Lk, layout, dtype, gen)
+                    if B == 1:  # the unconditional half of a cross-attention
+                        parity_flash(kernels, A, q[:b], k[:b], v[:b],
+                                     tag((b, H, Lq, Lk), ' rows 0-3'), worst)
+                    else:
+                        parity_flash(kernels, A, q, k, v, tag((2 * b, H, Lq, Lk)), worst)
+                for (_, H, Lq, Lk), _ in K1_SHAPES:  # the conditional half
+                    calls = [tuple(t[b:] for t in qkv(2 * b, H, Lq, Lk, layout, dtype, gen))
+                             for _ in range(2)]
+                    check(calls[0][0].storage_offset() == b * calls[0][0].stride(0),
+                          'K1 reads the conditional half at a batch offset')
+                    parity_acc(kernels, A, calls, tag((b, H, Lq, Lk), ' rows 4-7'), worst)
+                for (_, H, Lq, Lk), _ in K5_SHAPES:
+                    parity_probs(kernels, A, *qkv(2 * b, H, Lq, Lk, layout, dtype, gen),
+                                 tag((2 * b, H, Lq, Lk)), worst)
+                want = expected(kernels, dname, flash_attention=len(K2_SHAPES),
+                                cross_attention_acc=2 * len(K1_SHAPES),
+                                cross_attention_probs=4 * len(K5_SHAPES))
+                got = {name: n - before[name] for name, n in kernels.launches.items()}
+                check(got == want, f'CFG batch {2 * b} {dtype} {layout} launch counts {got}')
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return worst
+
+
+class HostPeak:
+    """Peak resident set size of this process over a block, in bytes,
+    sampled every 5 ms from ``/proc/self/statm`` in a thread."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf('SC_PAGE_SIZE')
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open('/proc/self/statm') as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def images_per_s(pipe, trace, label: str) -> dict:
+    """Traced images/s through the pipeline, 10 fp32 steps: batch 1 (one
+    prompt) and batch 4 (one call of four prompts, a generator each), warm,
+    in turns b1, b4, b4, b1 (host clock around the whole call, decode and
+    the copy to the host included)."""
+    rates = {1: [], BATCH: []}
+    for b in (1, BATCH, BATCH, 1):
+        t0 = time.perf_counter()
+        timed_call(pipe, True, trace, prompt=BATCH_PROMPTS[:b], seeds=BATCH_SEEDS[:b])
+        rates[b].append(b / (time.perf_counter() - t0))
+    print(f'{label}: traced images/s through the pipeline ({STEPS} steps): batch 1 '
+          f'{rates[1]}, batch {BATCH} {rates[BATCH]}; batch {BATCH} / batch 1 = '
+          f'{sum(rates[BATCH]) / sum(rates[1]):.4f}')
+    return rates
+
+
+def write_corpus(root, prompts, seeds):
+    """One experiment folder per prompt (``prompt.txt``, ``seed.txt``), what
+    ``daam-torch --action regenerate`` reads."""
+    import os
+
+    for i, (prompt, seed) in enumerate(zip(prompts, seeds)):
+        d = os.path.join(root, f'e{i}')
+        os.makedirs(d)
+        with open(os.path.join(d, 'prompt.txt'), 'w') as f:
+            f.write(prompt)
+        with open(os.path.join(d, 'seed.txt'), 'w') as f:
+            f.write(str(seed))
+
+
+def same_generation(a, b, label: str):
+    """Two generations of one prompt and seed at different batch sizes:
+    8-bit images within 2/255 and per-token heat maps at Spearman ≥ 0.999.
+    ``a``, ``b``: (image, (T, x, x) maps); images as uint8 arrays."""
+    import numpy as np
+    import torch
+
+    im_err = int(np.abs(np.asarray(a[0]).astype(int) - np.asarray(b[0]).astype(int)).max())
+    ma, mb = (torch.as_tensor(np.asarray(m.cpu() if torch.is_tensor(m) else m)).cuda()
+              for m in (a[1], b[1]))
+    check(ma.shape == mb.shape, f'{label}: map shapes {tuple(ma.shape)} {tuple(mb.shape)}')
+    rho = min(spearman(ma[t], mb[t]) for t in range(ma.shape[0]))
+    print(f'{label}: image max abs diff {im_err}/255, per-token heat-map spearman min '
+          f'{rho:.6f} over {ma.shape[0]} tokens')
+    check(im_err <= 2 and rho >= 0.999, f'{label}: batched vs batch-1 generation')
+
+
+def run_regenerate(generate_cli, kernels, corpus, out, batch_size: int,
+                   steps: int = STEPS, extra=()) -> tuple:
+    """``daam-torch --action regenerate`` in process over ``corpus``;
+    returns (seconds, launch counts)."""
+    import torch
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_captured(generate_cli.main, ['--action', 'regenerate', '-i', corpus, '-o', out,
+                                     '--batch-size', str(batch_size), '-n', str(steps),
+                                     *extra])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, dict(kernels.launches)
+
+
+def post(url: str, **fields) -> str:
+    import urllib.parse
+    import urllib.request
+
+    data = urllib.parse.urlencode(fields).encode()
+    with urllib.request.urlopen(url + '/generate', data=data, timeout=600) as r:
+        check(r.status == 200, f'POST /generate: HTTP {r.status}')
+        return r.read().decode()
+
+
+def page_images(html: str) -> list:
+    """The PNGs of a results page as uint8 arrays, in page order."""
+    import base64
+    import io
+
+    import numpy as np
+    import PIL.Image
+
+    return [np.asarray(PIL.Image.open(io.BytesIO(base64.b64decode(m))))
+            for m in re.findall(r'data:image/png;base64,([A-Za-z0-9+/=]+)', html)]
+
+
+def serve(make_app, pipe, batch_size: int):
+    """``make_app(pipe, 0, batch_size)`` behind a ThreadingHTTPServer on a
+    free local port, in a thread; returns (handler, server, thread, url)."""
+    import http.server
+    import threading
+
+    handler = make_app(pipe, 0, batch_size=batch_size)
+    server = http.server.ThreadingHTTPServer(('127.0.0.1', 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return handler, server, thread, f'http://127.0.0.1:{server.server_address[1]}'
+
+
+def stop(handler, server, thread):
+    server.shutdown()
+    server.server_close()
+    thread.join(60)
+    if handler.batcher is not None:
+        handler.batcher.close()
+    check(not thread.is_alive(), 'the server thread stopped')
+
+
+def batched_generation(StableDiffusionPipeline, trace, kernels):
+    """Phase 12: v2-1-base at a batch of 4 prompts (CFG batch 8), fp32,
+    512², 10 steps: ``daam-torch --action regenerate`` at ``--batch-size``
+    4 and 1 (images ±2/255, maps Spearman ≥ 0.999, one traced call's
+    launches at batch 4), ``--action coco --word dog``, the save → load
+    pair at batch 4 (its slowest step, peak host RSS), traced images/s at
+    batch 1 and 4, and ``daam-torch-demo``'s server: four concurrent
+    requests in one traced call, each against its batch-1 run, and the
+    counterfactual's save → load transplant.  Returns the launch counts of
+    the batch-4 regenerate run, K5's from the batch-4 save run."""
+    import json as json_mod
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    from daam_tpu_torch.experiment import GenerationExperiment, _to_pil
+    from daam_tpu_torch.run import demo
+    from daam_tpu_torch.run import generate as generate_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix='daam-smoke-') as tmp:
+        # (b) regenerate at --batch-size 4 and 1
+        corpus = os.path.join(tmp, 'corpus')
+        write_corpus(corpus, BATCH_PROMPTS, BATCH_SEEDS)
+        runs = {}
+        for b in (BATCH, 1):
+            out = os.path.join(tmp, f'b{b}')
+            secs, launches = run_regenerate(generate_cli, kernels, corpus, out, b)
+            calls = BATCH // b
+            print(f'daam-torch --action regenerate --batch-size {b} ({BATCH} prompts, '
+                  f'{STEPS} steps, {calls} traced call(s); load and artifacts included): '
+                  f'{secs:.3f} s; launches {launches}')
+            check(launches == expected(kernels, 'fp32',
+                                       cross_attention_acc=K1_PER_EVAL * STEPS * calls,
+                                       flash_attention=K2_PER_EVAL * STEPS * calls),
+                  f'regenerate --batch-size {b} launch counts {launches}')
+            runs[b] = {f'e{i}': GenerationExperiment.load(os.path.join(out, f'e{i}'))
+                       for i in range(BATCH)}
+            if b == BATCH:
+                b4_launches = launches
+        for name, exp in runs[BATCH].items():
+            alone = runs[1][name]
+            check(exp.prompt == alone.prompt and exp.seed == alone.seed,
+                  f'{name}: prompt and seed')
+            same_generation((exp.image, exp.global_heat_map),
+                            (alone.image, alone.global_heat_map),
+                            f'regenerate {name} {exp.prompt!r} seed {exp.seed}, '
+                            f'batch {BATCH} vs batch 1')
+
+        # --action coco --word dog: the lemma filter, 4 prompts in one call
+        coco_in = os.path.join(tmp, 'coco')
+        os.makedirs(coco_in)
+        captions = [{'id': 1, 'caption': 'A dog sleeps on a porch'},
+                    {'id': 2, 'caption': 'A red car parked by the road'},
+                    {'id': 3, 'caption': 'Two dogs and a dog play in the snow'},
+                    {'id': 4, 'caption': 'A brown dog chases a ball'},
+                    {'id': 5, 'caption': 'A man walks his dog in the park'},
+                    {'id': 6, 'caption': 'A cat watches a bird'},
+                    {'id': 7, 'caption': 'A dog swims in a lake'},
+                    {'id': 8, 'caption': 'A small dog wears a hat'}]
+        with open(os.path.join(coco_in, 'captions_val2014.json'), 'w') as f:
+            json_mod.dump({'annotations': captions}, f)
+        coco_out = os.path.join(tmp, 'coco-out')
+        kernels.reset_launches()
+        run_captured(generate_cli.main, ['--action', 'coco', '-i', coco_in, '-o', coco_out,
+                                         '--word', 'dog', '--gen-limit', str(BATCH),
+                                         '--batch-size', str(BATCH), '-n', '2'])
+        launches = dict(kernels.launches)
+        dirs = sorted(os.listdir(coco_out))
+        maps = {d: sorted(x for x in os.listdir(os.path.join(coco_out, d))
+                          if x.endswith('.heat_map.png')) for d in dirs}
+        print(f'daam-torch --action coco --word dog --gen-limit {BATCH} --batch-size '
+              f'{BATCH} -n 2: experiments {dirs}, heat maps {maps}; launches {launches}')
+        check(len(dirs) == BATCH and set(dirs) <= {'1', '4', '5', '7', '8'}
+              and all(m == ['dog.heat_map.png'] for m in maps.values()),
+              '--word dog keeps prompts holding the lemma once, and its map alone')
+        check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * 2,
+                                   flash_attention=K2_PER_EVAL * 2),
+              f'--action coco launch counts {launches}')
+
+    # traced images/s through the pipeline, and the save -> load pair at
+    # batch 4 (K5 at CFG batch 8)
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
+    rates = images_per_s(pipe, trace, 'v2-1-base 512^2 fp32')
+    with HostPeak() as host:
+        save = transplant(pipe, trace, kernels, f'v2-1-base fp32 batch {BATCH}', 'fp32',
+                          other_prompt=False, prompts=BATCH_PROMPTS, seeds=BATCH_SEEDS)
+    print(f'batch {BATCH} save -> load pair: peak host RSS {host.peak / 1e9:.3f} GB '
+          f'({host.start / 1e9:.3f} GB before it)')
+    b4_launches['cross_attention_probs'] = save['cross_attention_probs']
+
+    # (c) the demo server: four concurrent plain requests in one traced call
+    handler, server, thread, url = serve(demo.make_app, pipe, BATCH)
+    try:
+        handler.batcher.window_s = 2.0  # the four arrive inside one window
+        served = {}
+        submit = handler.batcher.submit
+
+        def recording_submit(prompt, steps, seed):
+            image, heat_map = submit(prompt, steps, seed)
+            served[prompt] = (image, heat_map)
+            return image, heat_map
+        handler.batcher.submit = recording_submit
+        pages = {}
+        barrier = threading.Barrier(BATCH + 1)
+
+        def request(prompt):
+            barrier.wait()
+            pages[prompt] = post(url, prompt=prompt, steps=str(STEPS))
+        clients = [threading.Thread(target=request, args=(p,)) for p in BATCH_PROMPTS]
+        for c in clients:
+            c.start()
+        kernels.reset_launches()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for c in clients:
+            c.join(600)
+        server_b4 = BATCH / (time.perf_counter() - t0)
+        launches = dict(kernels.launches)
+        print(f'daam-torch-demo, {BATCH} concurrent requests ({STEPS} steps, seed 0): '
+              f'{server_b4:.4f} images/s; traced calls {list(handler.batcher.served)}; '
+              f'launches {launches}')
+        check(not any(c.is_alive() for c in clients) and sorted(pages) == sorted(BATCH_PROMPTS),
+              'every request answered')
+        check(list(handler.batcher.served) == [BATCH], 'the requests coalesced into one call')
+        check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
+                                   flash_attention=K2_PER_EVAL * STEPS),
+              f'server launch counts {launches}')
+        for prompt in BATCH_PROMPTS:
+            image, heat_map = served[prompt]
+            check(np.array_equal(page_images(pages[prompt])[0], np.asarray(image)),
+                  'the page shows the generated image')
+            out, _, tc = timed_call(pipe, True, trace, prompt=prompt, seeds=[0])
+            same_generation((np.asarray(image), heat_map.heat_maps),
+                            (np.asarray(_to_pil(out.images[0])),
+                             tc.compute_global_heat_map().heat_maps),
+                            f'server {prompt!r}, batch {BATCH} vs a batch-1 run')
+
+        # the counterfactual: a save run, then a load run of the new prompt
+        prompt, new_prompt = 'A blue car driving through the city', \
+            'A red car driving through the city'
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        html = post(url, prompt=prompt, choice='blue', new_adj='red', steps=str(STEPS))
+        cf_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        print(f'daam-torch-demo counterfactual (save {prompt!r}, load {new_prompt!r}): '
+              f'{cf_s:.3f} s; launches {launches}')
+        check('transplanted attention' in html, 'the counterfactual page')
+        check(launches == expected(kernels, 'fp32',
+                                   cross_attention_probs=K5_PER_EVAL * STEPS,
+                                   flash_attention=2 * K2_PER_EVAL_REPLAY * STEPS),
+              f'counterfactual launch counts {launches}')
+        # 8-bit images: the saved run's and the transplant's from the page,
+        # a fresh run of the new prompt (the same bits run to run).  With
+        # random weights one adjective moves the image little, and the
+        # attention less: the transplant lies a few 1e-4 from the fresh run
+        # on average, a little nearer the saved run's image than the fresh
+        # run lies
+        saved, transplanted = (im.astype(float) / 255 for im in page_images(html)[:2])
+        fresh, _, _ = timed_call(pipe, False, trace, prompt=new_prompt)
+        fresh = np.asarray(_to_pil(fresh.images[0])).astype(float) / 255
+        d_tf, d_ts, d_fs = (float(np.abs(a - b).mean()) for a, b in (
+            (transplanted, fresh), (transplanted, saved), (fresh, saved)))
+        print(f'transplanted {new_prompt!r}: mean abs diff to a fresh run of it '
+              f'{d_tf:.4e}, to the saved run {d_ts:.4e} (fresh to saved {d_fs:.4e})')
+        check(d_tf > 2e-4 and d_ts < d_fs,
+              'the transplanted image differs from a fresh run, towards the saved run')
+    finally:
+        stop(handler, server, thread)
+
+    # one request through a batch-1 server
+    handler, server, thread, url = serve(demo.make_app, pipe, 1)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        post(url, prompt=BATCH_PROMPTS[0], steps=str(STEPS))
+        server_b1 = 1 / (time.perf_counter() - t0)
+        launches = dict(kernels.launches)
+        check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
+                                   flash_attention=K2_PER_EVAL * STEPS),
+              f'batch-1 server launch counts {launches}')
+    finally:
+        stop(handler, server, thread)
+    print(f'daam-torch-demo traced images/s ({STEPS} steps, the page rendered): batch 1 '
+          f'server {server_b1:.4f}, batch {BATCH} server {server_b4:.4f}; pipeline batch 1 '
+          f'{max(rates[1]):.4f}, batch {BATCH} {max(rates[BATCH]):.4f} (best of two)')
+    print(f'phase 12 peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return b4_launches
+
+
 def card_tests():
     """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
     and without ``tests/conftest.py`` (which imports JAX); fails on a
@@ -1537,13 +2005,19 @@ def main(argv=None):
     # evaluation
     checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels)
 
+    # 12. a batch of 4 prompts: kernels at CFG batch 8, regenerate, the demo
+    worst_b4 = batch_parity(kernels, A)
+    b4_launches = batched_generation(StableDiffusionPipeline, trace, kernels)
+
     replaces = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
                 'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
                 'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
 
-    def kernel_lines(model, launches, launches_fp32):
+    def kernel_lines(model, launches, launches_fp32, errs=worst):
         lines = []
         for dtype, counts in (('bf16', launches), ('fp32', launches_fp32)):
+            if counts is None:  # no run of the path in this dtype
+                continue
             for name in ('cross_attention_acc', 'flash_attention', 'cross_attention_probs'):
                 t = totals[model, dtype][name]
                 # the fp32 routes as entries of their own, named by their
@@ -1553,7 +2027,7 @@ def main(argv=None):
                     'dtype': dtype, 'route': 'cuda',
                     'source': 'daam_tpu_torch/csrc/attention.cu',
                     'replaces': replaces[name], 'launches': counts[name],
-                    'max_abs_err': worst[name, dtype], 'ms': t['ms'],
+                    'max_abs_err': errs[name, dtype], 'ms': t['ms'],
                     'device_ms': t['device_ms'], 'plain_ms': t['plain_ms'],
                     'bound_ms': t['bound_ms'], 'bound_by': max(t['by'], key=t['by'].get),
                     'core_bound_ms': t['core_bound_ms'] if dtype == 'fp32' else None,
@@ -1565,6 +2039,11 @@ def main(argv=None):
     # save run, its launches from phase 7's save runs
     print(json.dumps({'sdxl_kernels': kernel_lines('xl-base-1.0', sdxl_launches,
                                                    sdxl_launches_fp32)}))
+    # per UNet evaluation at CFG batch 8, fp32 (the path phase 12 runs): K1
+    # and K2 launches from the batch-4 regenerate run, K5's from its save
+    # run, max abs errors from phase 12a
+    print(json.dumps({'b4_kernels': kernel_lines('v2-1-base b4', None, b4_launches,
+                                                 errs=worst_b4)}))
     print(smi)
     print(json.dumps({'kernels': kernel_lines('v2-1-base', launches, launches_fp32)}))
     print(json.dumps({'ok': True, 'device': {

@@ -5,24 +5,33 @@ Counterpart of ``daam_tpu/heatmap.py`` for the traced main path:
 subword merging), :class:`WordHeatMap` (with ``expand_as``, ``value`` and
 ``compute_ioa``) and
 :class:`RawHeatMapCollection` (whole per-factor blocks registered with
-``update_block``).  Bicubic resampling is ``F.interpolate(mode='bicubic',
-align_corners=False)``, the op ``daam_tpu/ops/resize.py`` reproduces
-(``tests/test_resize.py`` pins the two equal).  The spaCy-style parses
-(``parsed_heat_maps``, ``dependency_relations``) wait for ``nlp.py``.
+``update_block``, or one map at a time with ``update``), and the parsed
+views of a global map (:class:`ParsedHeatMap` per word of the prompt,
+:class:`SyntacticHeatMapPair` per dependency relation), from the tokens of
+:func:`~daam_tpu_torch.nlp.cached_nlp`.  Bicubic resampling is
+``F.interpolate(mode='bicubic', align_corners=False)``, the op
+``daam_tpu/ops/resize.py`` reproduces (``tests/test_resize.py`` pins the
+two equal).
 """
 
+from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .evaluate import compute_ioa
+from .nlp import cached_nlp
 from .utils import compute_token_merge_indices
 
 __all__ = ['GlobalHeatMap', 'RawHeatMapCollection', 'WordHeatMap',
-           'plot_overlay_heat_map', 'bicubic_resize']
+           'ParsedHeatMap', 'SyntacticHeatMapPair', 'plot_overlay_heat_map',
+           'bicubic_resize']
+
+RawHeatMapKey = Tuple[int, int, int]  # (factor, layer, head)
+
 
 def bicubic_resize(x: torch.Tensor, size: Tuple[int, int],
                    clamp_min: Optional[float] = None) -> torch.Tensor:
@@ -139,6 +148,21 @@ class WordHeatMap:
         return im
 
 
+@dataclass
+class SyntacticHeatMapPair:
+    head_heat_map: WordHeatMap
+    dep_heat_map: WordHeatMap
+    head_text: str
+    dep_text: str
+    relation: str
+
+
+@dataclass
+class ParsedHeatMap:
+    word_heat_map: WordHeatMap
+    token: Any  # spaCy token or daam_tpu_torch.nlp.Token
+
+
 class GlobalHeatMap:
     """Token-level global heat map ``(tokens, x, x)``, queryable by word
     (reference ``daam/heatmap.py:114-142``)."""
@@ -156,18 +180,53 @@ class GlobalHeatMap:
         maps = torch.as_tensor(self.heat_maps)
         return WordHeatMap(maps[merge_idxs].mean(0), word, word_idx)
 
+    def parsed_heat_maps(self) -> Iterable[ParsedHeatMap]:
+        """One map per word of the parsed prompt that the tokenizer finds
+        (reference ``daam/heatmap.py:125-131``)."""
+        for token in cached_nlp(self.prompt):
+            try:
+                heat_map = self.compute_word_heat_map(token.text)
+                yield ParsedHeatMap(heat_map, token)
+            except ValueError:
+                pass
+
+    def dependency_relations(self) -> Iterable[SyntacticHeatMapPair]:
+        """Head and dependent maps of every non-root relation of the parse
+        (reference ``daam/heatmap.py:133-142``)."""
+        for token in cached_nlp(self.prompt):
+            if token.dep_ != 'ROOT':
+                try:
+                    dep_heat_map = self.compute_word_heat_map(token.text)
+                    head_heat_map = self.compute_word_heat_map(token.head.text)
+                    yield SyntacticHeatMapPair(head_heat_map, dep_heat_map,
+                                               token.head.text, token.text,
+                                               token.dep_)
+                except ValueError:
+                    pass
+
 
 class RawHeatMapCollection:
-    """Per-(factor, layer, head) heat maps summed over timesteps, stored as
-    whole per-factor blocks ``(layers, heads, tokens, h, w)`` tagged with
-    their global layer indices (``daam_tpu/heatmap.py:193-262``)."""
+    """Per-(factor, layer, head) heat maps summed over timesteps
+    (``daam_tpu/heatmap.py:193-262``): whole per-factor blocks ``(layers,
+    heads, tokens, h, w)`` tagged with their global layer indices, as the
+    traced pipeline registers them, and single maps added with
+    :meth:`update` (the reference's per-call path)."""
 
     def __init__(self):
+        self.ids_to_heatmaps: Dict[RawHeatMapKey, torch.Tensor] = {}
         self.blocks: Dict[int, Tuple[torch.Tensor, List[int]]] = {}
+
+    def update(self, factor: int, layer_idx: int, head_idx: int, heatmap):
+        """Accumulate one ``(tokens, h, w)`` map."""
+        key = (factor, layer_idx, head_idx)
+        heatmap = torch.as_tensor(heatmap).float()
+        if key in self.ids_to_heatmaps:
+            heatmap = self.ids_to_heatmaps[key] + heatmap
+        self.ids_to_heatmaps[key] = heatmap
 
     def update_block(self, factor: int, block: torch.Tensor,
                      layer_ids: List[int]):
-        block = block.float()
+        block = torch.as_tensor(block).float()
         if factor in self.blocks:
             old, ids = self.blocks[factor]
             if ids != list(layer_ids):
@@ -176,11 +235,28 @@ class RawHeatMapCollection:
         self.blocks[factor] = (block, list(layer_ids))
 
     def __iter__(self):
-        """The reference's per-key view: ``((factor, layer, head), map)``."""
+        """The reference's per-key view: ``((factor, layer, head), map)``,
+        the single maps first."""
+        yield from self.ids_to_heatmaps.items()
         for factor, (block, layer_ids) in self.blocks.items():
             for li, layer in enumerate(layer_ids):
                 for head in range(block.shape[1]):
                     yield (factor, layer, head), block[li, head]
 
+    def __len__(self):
+        return len(self.ids_to_heatmaps) + sum(
+            len(layer_ids) * block.shape[1]
+            for block, layer_ids in self.blocks.values())
+
+    def factors(self):
+        return {k[0] for k, _ in self}
+
+    def layers(self):
+        return {k[1] for k, _ in self}
+
+    def heads(self):
+        return {k[2] for k, _ in self}
+
     def clear(self):
+        self.ids_to_heatmaps.clear()
         self.blocks.clear()

@@ -1,18 +1,21 @@
 """Object-hooking layer (API parity with reference ``daam/hook.py``).
 
-The part of ``daam_tpu/hook.py`` that tracing needs.  Tracing installs the
-trace on the pipeline object, which then runs its UNet with the capture
-the trace asks for (``'acc'``, or ``'full'`` under ``save_heads``); the
-model's modules are never patched.  The hookers are how trace
-contexts attach to and detach from pipeline objects.
+Counterpart of ``daam_tpu/hook.py``.  Tracing installs the trace on the
+pipeline object, which then runs its UNet with the capture the trace asks
+for (``'acc'``, or ``'full'`` under ``save_heads``); the model's modules
+are never patched.  The hookers are how trace contexts attach to and
+detach from pipeline objects, and a public utility for reversible
+attribute surgery on any Python object (:meth:`ObjectHooker.monkey_patch`,
+undone on unhook).
 
 ``UNetCrossAttentionLocator`` enumerates the UNet's cross-attention layers in
 the reference's order (up → down → mid, ``daam/hook.py:110-114``) from the
 static model config rather than by walking live modules.
 """
 
+import functools
 import itertools
-from typing import Generic, List, Optional, Set, TypeVar
+from typing import Any, Dict, Generic, List, Optional, Set, TypeVar
 
 from .models.configs import CrossAttnLayerInfo, cross_attention_layout
 
@@ -21,6 +24,8 @@ __all__ = ['ObjectHooker', 'ModuleLocator', 'AggregateHooker',
 
 ModuleType = TypeVar('ModuleType')
 ModuleListType = TypeVar('ModuleListType', bound=List)
+
+_SAVED_PREFIX = 'old_fn_'  # key prefix in old_state (reference-compatible)
 
 
 class ModuleLocator(Generic[ModuleType]):
@@ -33,11 +38,15 @@ class ModuleLocator(Generic[ModuleType]):
 class ObjectHooker(Generic[ModuleType]):
     """Reversible attachment to one object, with the context-manager
     protocol (reference ``daam/hook.py:22-73``).  Subclasses implement
-    ``_hook_impl`` and ``_unhook_impl``."""
+    ``_hook_impl`` (and optionally ``_unhook_impl``), where
+    :meth:`monkey_patch` replaces attributes; unhooking restores them.
+    Saved originals live in ``self.old_state`` under ``'old_fn_<name>'``
+    keys, as in the reference, and :meth:`monkey_super` calls them."""
 
     def __init__(self, module: ModuleType):
         self.module: ModuleType = module
         self.hooked = False
+        self.old_state: Dict[str, Any] = {}
 
     def __enter__(self) -> 'ObjectHooker':
         return self.hook()
@@ -48,6 +57,7 @@ class ObjectHooker(Generic[ModuleType]):
     def hook(self) -> 'ObjectHooker':
         if self.hooked:
             raise RuntimeError('Already hooked module')
+        self.old_state = {}
         self.hooked = True
         self._hook_impl()
         return self
@@ -55,9 +65,33 @@ class ObjectHooker(Generic[ModuleType]):
     def unhook(self) -> 'ObjectHooker':
         if not self.hooked:
             raise RuntimeError('Module is not hooked')
+        self._restore_all()
         self.hooked = False
         self._unhook_impl()
         return self
+
+    def _restore_all(self):
+        for key, original in self.old_state.items():
+            if key.startswith(_SAVED_PREFIX):
+                setattr(self.module, key[len(_SAVED_PREFIX):], original)
+
+    def monkey_patch(self, fn_name: str, fn, strict: bool = True):
+        """Replace ``module.<fn_name>`` with ``fn(module, ...)``, saving the
+        original for :meth:`unhook` and :meth:`monkey_super`.  With
+        ``strict=False`` a missing attribute is ignored (the reference
+        patches ``run_safety_checker`` so, since SDXL lacks it,
+        ``daam/trace.py:185``)."""
+        if not hasattr(self.module, fn_name):
+            if strict:
+                raise AttributeError(
+                    f'{type(self.module).__name__} has no attribute {fn_name!r}')
+            return
+        self.old_state[_SAVED_PREFIX + fn_name] = getattr(self.module, fn_name)
+        setattr(self.module, fn_name, functools.partial(fn, self.module))
+
+    def monkey_super(self, fn_name: str, *args, **kwargs):
+        """Call the saved original of a patched method."""
+        return self.old_state[_SAVED_PREFIX + fn_name](*args, **kwargs)
 
     def _hook_impl(self):
         raise NotImplementedError
@@ -77,6 +111,9 @@ class AggregateHooker(ObjectHooker[ModuleListType]):
     def _unhook_impl(self):
         for child in self.module:
             child.unhook()
+
+    def register_hook(self, hook: ObjectHooker):
+        self.module.append(hook)
 
 
 class UNetCrossAttentionLocator(ModuleLocator[CrossAttnLayerInfo]):

@@ -17,7 +17,10 @@ back to the device and replace the computed ones (the attention
 transplant).  With ``trace(pipe, time_chunk_steps=K)`` the accumulators are
 snapshotted every K steps for per-step maps.  PyTorch runs eagerly, so the
 ``lax.scan`` of ``daam_tpu`` is a Python loop and the accumulators are
-updated in place.
+updated in place.  A batch of prompts takes one ``torch.Generator`` per
+prompt (``daam_tpu``'s stacked keys), so a prompt's noise does not depend
+on the batch it rides in; the images pass the ``safety_checker`` slot
+before the trace records them, as in ``daam_tpu``.
 """
 
 from dataclasses import dataclass
@@ -28,6 +31,7 @@ import torch
 
 from ..models.configs import PipelineConfig, cross_attention_layout, get_pipeline_config
 from ..tokenization import default_tokenizer
+from ..utils import randn_tensor
 from .schedulers import DDIMScheduler, get_scheduler
 
 __all__ = ['StableDiffusionPipeline', 'PipelineOutput']
@@ -36,18 +40,20 @@ __all__ = ['StableDiffusionPipeline', 'PipelineOutput']
 @dataclass
 class PipelineOutput:
     images: List[Any]  # PIL images, or (H, W, 3) float arrays in [0, 1]
+    nsfw_content_detected: Optional[List[bool]] = None
 
 
 def _to_pil(images: np.ndarray) -> list:
     import PIL.Image
-    u8 = np.clip(images * 255 + 0.5, 0, 255).astype(np.uint8)
-    return [PIL.Image.fromarray(im) for im in u8]
+    if images.dtype != np.uint8:
+        images = np.clip(images * 255 + 0.5, 0, 255).astype(np.uint8)
+    return [PIL.Image.fromarray(im) for im in images]
 
 
 class StableDiffusionPipeline:
     """Text-to-image Stable Diffusion.  ``pipe(prompt, num_inference_steps=…,
-    generator=…, guidance_scale=…, negative_prompt=…, latents=…)`` mirrors
-    the reference/diffusers call."""
+    generator=…, guidance_scale=…, negative_prompt=…, latents=…,
+    callback=…, callback_steps=…)`` mirrors the reference/diffusers call."""
 
     is_sdxl = False
 
@@ -76,6 +82,11 @@ class StableDiffusionPipeline:
         # Replay-buffer element type: bfloat16 halves the buffer; float32
         # gives exact transplants (reference daam/trace.py:246-250).
         self.heads_dtype = torch.bfloat16
+        # Safety-checker slot (daam_tpu/pipeline/sd.py:112-117): a callable
+        # (images_u8, prompts) -> List[bool]; flagged images are blacked
+        # out.  None (the default) checks nothing, like diffusers with
+        # safety_checker=None.
+        self.safety_checker: Optional[Callable] = None
         # Trace integration (installed by daam_tpu_torch.trace; None = untraced).
         self._active_trace = None
 
@@ -161,7 +172,10 @@ class StableDiffusionPipeline:
                   capture_spec, callback, save_heads: bool = False,
                   replay: Optional[Dict[str, torch.Tensor]] = None,
                   snapshot_steps: Optional[int] = None):
-        """The denoising loop and decode.  Returns ``(images, blocks, saved,
+        """The denoising loop and decode.  ``generator``: one
+        ``torch.Generator`` for the whole batch, or a list of one per
+        prompt.  ``callback(i, t, latents)`` runs after every step.
+        Returns ``(images, blocks, saved,
         snapshots)``: the finalized per-factor blocks (or None), the replay
         buffer ``{layer: (steps, 2B, H, h·w, 77)}`` on the host under
         ``save_heads`` (else None), and under ``snapshot_steps`` the fp16
@@ -177,9 +191,8 @@ class StableDiffusionPipeline:
         context = torch.cat([context_u, context_c], dim=0)  # [uncond; cond]
         added = self._merge_added(added_u, added_c, height, width)
         if latents is None:
-            latents = torch.randn(shape, generator=generator,
-                                  device=getattr(generator, 'device', self.device))
-            latents = latents.to(self.device) * scheduler.init_noise_sigma
+            latents = randn_tensor(shape, generator, self.device) \
+                * scheduler.init_noise_sigma
         else:
             latents = torch.as_tensor(latents, dtype=torch.float32,
                                       device=self.device)
@@ -312,19 +325,30 @@ class StableDiffusionPipeline:
 
     def __call__(self, prompt: Union[str, List[str]],
                  num_inference_steps: int = 50,
-                 generator: Optional[torch.Generator] = None,
+                 generator: Union[torch.Generator, Sequence[torch.Generator],
+                                  None] = None,
                  guidance_scale: Optional[float] = None,
                  negative_prompt: Union[str, List[str], None] = None,
                  height: Optional[int] = None, width: Optional[int] = None,
                  latents=None, callback: Optional[Callable] = None,
+                 callback_steps: Optional[int] = None,
                  output_type: str = 'pil') -> PipelineOutput:
         """Generate (and, inside ``trace(pipe)``, capture heat maps).
 
+        ``generator``: one ``torch.Generator`` for the batch's noise, or a
+        list of one per prompt, each drawing its own prompt's
+        ``(1, 4, H/8, W/8)`` noise (``daam_tpu``'s stacked keys).
         ``latents``: the initial noise as NCHW ``(B, 4, H/8, W/8)`` float32
         (a tensor or numpy array), already scaled by the scheduler's
         ``init_noise_sigma``; drawn from ``generator`` when omitted.
-        ``callback(i, t, latents)`` runs after every denoising step.
+        ``callback``: with ``callback_steps`` set, ``callback(i, t,
+        latents)`` runs live after every denoising step; without it,
+        ``callback(i, None, None)`` runs once per step after sampling, as
+        ``daam_tpu``'s counter-style callbacks do
+        (``daam_tpu/pipeline/sd.py:601-605``).
         ``output_type``: ``'pil'`` or ``'np'`` ((H, W, 3) floats in [0, 1]).
+        The images pass :meth:`run_safety_checker`; the trace records the
+        checked ones.
         """
         tr = self._active_trace
         if tr is not None:
@@ -358,15 +382,21 @@ class StableDiffusionPipeline:
         images, blocks, saved, snaps = self._generate(
             self._encode_tokens(prompts), self._encode_tokens(negatives),
             num_inference_steps, height, width, generator, latents,
-            guidance_scale, capture_spec, callback, save_heads=save_heads,
-            replay=replay, snapshot_steps=snapshot_steps)
+            guidance_scale, capture_spec,
+            callback if callback_steps is not None else None,
+            save_heads=save_heads, replay=replay,
+            snapshot_steps=snapshot_steps)
 
         images = images.float().cpu().numpy()
         out = _to_pil(images) if output_type == 'pil' else list(images)
+        out, nsfw = self.run_safety_checker(out, prompts)
         if tr is not None:
             tr._on_call_end(prompts, out, blocks or {}, saved,
                             num_inference_steps, time_blocks=snaps)
-        return PipelineOutput(images=out)
+        if callback is not None and callback_steps is None:
+            for i in range(num_inference_steps):
+                callback(i, None, None)
+        return PipelineOutput(images=out, nsfw_content_detected=nsfw)
 
     def _validate_replay(self, replay, batch_size: int, height: int,
                          width: int):
@@ -398,6 +428,43 @@ class StableDiffusionPipeline:
                 f'Replay buffer is missing layers {missing[:4]}'
                 f'{"..." if len(missing) > 4 else ""}; it was saved from a '
                 f'different model or an incomplete save_heads run.')
+
+    # ------------------------------------------------- reference-API helpers
+    def run_safety_checker(self, images, prompts):
+        """Apply the ``safety_checker`` slot: flagged images become black
+        (the reference checker's behavior) and the per-image flags come
+        back, or ``None`` when no checker is set
+        (``daam_tpu/pipeline/sd.py:651-675``)."""
+        if self.safety_checker is None:
+            return images, None
+        import PIL.Image
+
+        def to_u8(im):
+            a = np.asarray(im)
+            if a.dtype != np.uint8:  # float [0, 1] arrays (output_type='np')
+                a = np.clip(a * 255 + 0.5, 0, 255).astype(np.uint8)
+            return a
+
+        flags = [bool(f) for f in self.safety_checker(
+            [to_u8(im) for im in images], list(prompts))]
+        out = []
+        for im, flagged in zip(images, flags):
+            if not flagged:
+                out.append(im)
+            elif isinstance(im, PIL.Image.Image):
+                out.append(PIL.Image.fromarray(np.zeros_like(np.asarray(im))))
+            else:
+                out.append(np.zeros_like(im))
+        return out, flags
+
+    def check_inputs(self, prompt, *args, **kwargs):
+        """Validation hook (patched by the reference's ``PipelineHooker``,
+        ``daam/trace.py:171-182``); batches of prompts are allowed."""
+        return None
+
+    def numpy_to_pil(self, images):
+        """(B, H, W, 3) floats in [0, 1] or uint8 → PIL images."""
+        return _to_pil(np.asarray(images))
 
 
 def _pipeline_class(config: PipelineConfig):

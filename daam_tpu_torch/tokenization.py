@@ -1,7 +1,8 @@
 """CLIP-compatible byte-level BPE tokenizer, pure Python, offline.
 
-A copy of the pure-Python BPE of ``daam_tpu/tokenization.py`` (held equal to
-it, ids and tokens, by ``tests/test_torch_shared.py``); the native C++ BPE of
+A copy of the pure-Python BPE of ``daam_tpu/tokenization.py`` and of its
+vocabulary-free ``HashWordTokenizer`` (held equal to them, ids and tokens,
+by ``tests/test_torch_shared.py``); the native C++ BPE of
 ``daam_tpu/native`` is not ported yet.  The tokenizer's word/subword behavior
 is load-bearing for heat-map queries (reference ``daam/utils.py:73-91``).
 The bundled vocabulary is read by file path from ``daam_tpu/data/clip-bpe``
@@ -11,11 +12,13 @@ in the checkout; nothing of ``daam_tpu`` is imported.
 from functools import lru_cache
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
+import hashlib
 import json
 import re
 
 
-__all__ = ['ClipBpeTokenizer', 'default_tokenizer', 'WORD_PATTERN']
+__all__ = ['ClipBpeTokenizer', 'HashWordTokenizer', 'default_tokenizer',
+           'WORD_PATTERN']
 
 
 # CLIP's pre-tokenization pattern (contractions, letter runs, single digits,
@@ -231,6 +234,69 @@ class ClipBpeTokenizer(_TokenizerBase):
         text = ''.join(tokens).replace('</w>', ' ')
         data = bytearray(self.byte_decoder.get(c, ord(' ')) for c in text)
         return data.decode('utf-8', errors='replace').strip()
+
+
+
+class HashWordTokenizer(_TokenizerBase):
+    """Deterministic vocab-free tokenizer for offline / random-weight runs.
+
+    Splits text with CLIP's word regex, chunks words longer than ``chunk_len``
+    characters into subword pieces (so multi-token words exercise the same
+    merge logic as real BPE; cf. reference ``daam/utils.py:76-84``), marks the
+    final piece of each word with ``</w>``, and assigns stable ids by hashing
+    the token string.  The same string always maps to the same id, across
+    processes and machines.
+
+    Caveat: hashing ~49k distinct token strings into a 49k id space WILL
+    collide at corpus scale (birthday bound: ~2%% of tokens collide at 1,000
+    distinct tokens).  Collisions are detected per-instance and warned about
+    once — two colliding words condition the model identically.  This
+    tokenizer is the last-resort fallback; the bundled CLIP-format BPE vocab
+    is the default and has no collisions.
+    """
+
+    def __init__(self, vocab_size: int = CLIP_VOCAB_SIZE, chunk_len: int = 9,
+                 pad_id: Optional[int] = None):
+        super().__init__(vocab_size=vocab_size, pad_id=pad_id)
+        self.chunk_len = chunk_len
+        self._id_owner: Dict[int, str] = {}
+        self._collision_warned = False
+
+    def tokenize(self, text: str) -> List[str]:
+        text = _whitespace_clean(text).lower()
+        tokens: List[str] = []
+        for chunk in WORD_PATTERN.findall(text):
+            if chunk in (SOT_TOKEN, EOT_TOKEN):
+                tokens.append(chunk)
+                continue
+            pieces = [chunk[i:i + self.chunk_len]
+                      for i in range(0, len(chunk), self.chunk_len)] or ['']
+            tokens.extend(pieces[:-1])
+            tokens.append(pieces[-1] + '</w>')
+        return tokens
+
+    def convert_tokens_to_ids(self, tokens: List[str]) -> List[int]:
+        ids = []
+        span = self.vocab_size - 3  # reserve sot/eot/pad-adjacent top ids
+        for t in tokens:
+            if t == SOT_TOKEN:
+                ids.append(self.sot_id)
+            elif t == EOT_TOKEN:
+                ids.append(self.eot_id)
+            else:
+                h = int.from_bytes(hashlib.md5(t.encode('utf-8')).digest()[:8], 'big')
+                tid = 1 + h % (span - 1)
+                owner = self._id_owner.setdefault(tid, t)
+                if owner != t and not self._collision_warned:
+                    self._collision_warned = True
+                    import warnings
+                    warnings.warn(
+                        f'HashWordTokenizer id collision: {t!r} and {owner!r} '
+                        f'both map to id {tid}; their heat maps are '
+                        f'indistinguishable. Use the bundled BPE vocab '
+                        f'(default_tokenizer()) for collision-free ids.')
+                ids.append(tid)
+        return ids
 
 
 #: Bundled full-size CLIP-format vocabulary (49,408 entries) shipped with

@@ -8,19 +8,25 @@ a replay buffer persisted by either package is found by the other.
 tokenization, ``</w>`` marker stripping, *all-occurrence* subword-run
 matching, and the +1 shift for the SOS token.  :func:`set_seed` returns a
 ``torch.Generator``, as the reference does (``daam/utils.py:46-55``).
+:func:`randn_tensor` draws a batch's initial noise from one generator, or
+from one per sample so that a sample's noise does not depend on the batch
+it rides in (``daam_tpu`` draws from stacked keys under ``jax.vmap``).
 """
 
 import os
 import random
 import sys
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ['set_seed', 'cache_dir', 'compute_token_merge_indices',
-           'resolve_device']
+from .nlp import cached_nlp  # noqa: F401  (re-exported, as the reference does)
+
+__all__ = ['set_seed', 'compute_token_merge_indices', 'plot_mask_heat_map',
+           'cached_nlp', 'cache_dir', 'auto_device', 'auto_autocast',
+           'resolve_device', 'randn_tensor']
 
 
 def set_seed(seed: int, device='cuda') -> torch.Generator:
@@ -42,6 +48,48 @@ def resolve_device(device='cuda') -> torch.device:
         raise RuntimeError(f'device {device}: no CUDA device is available; '
                            f'pass cpu to run on the CPU')
     return device
+
+
+def auto_device(obj=None, device='cuda'):
+    """The card as a ``torch.device``, or ``obj`` (a tensor or module)
+    moved to it (reference ``daam/utils.py:22-29``); without a card this
+    raises, as :func:`resolve_device` does."""
+    device = resolve_device(device)
+    return device if obj is None else obj.to(device)
+
+
+class auto_autocast:
+    """``torch.autocast`` on the card (reference ``daam/utils.py:32-36``);
+    the arguments are ``torch.autocast``'s after the device type."""
+
+    def __init__(self, *args, device_type: str = 'cuda', **kwargs):
+        self._autocast = torch.autocast(device_type, *args, **kwargs)
+
+    def __enter__(self):
+        self._autocast.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._autocast.__exit__(*exc)
+
+
+def randn_tensor(shape: Sequence[int],
+                 generator: Union[torch.Generator, Sequence[torch.Generator], None],
+                 device) -> torch.Tensor:
+    """Standard normal noise of ``shape`` on ``device``.  One generator
+    draws the whole tensor; a list of ``shape[0]`` generators draws one
+    ``(1, *shape[1:])`` sample each, on that generator's own device (a CUDA
+    generator's numbers differ from a CPU one's), and the samples are
+    concatenated."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f'{len(generator)} generators for a batch of '
+                             f'{shape[0]}: pass one per sample')
+        return torch.cat([randn_tensor((1, *shape[1:]), g, device)
+                          for g in generator])
+    draw_on = generator.device if generator is not None else device
+    return torch.randn(tuple(shape), generator=generator,
+                       device=draw_on).to(device)
 
 
 def cache_dir() -> Path:
@@ -84,3 +132,14 @@ def compute_token_merge_indices(tokenizer, prompt: str, word: str,
         merge_idxs.append(word_idx)
 
     return [x + 1 for x in merge_idxs], word_idx
+
+
+def plot_mask_heat_map(im, heat_map, threshold: float = 0.4):
+    """Plot the image masked by ``heat_map > threshold``
+    (reference ``daam/utils.py:39-43``; needs matplotlib)."""
+    import matplotlib.pyplot as plt
+
+    im = np.asarray(im, dtype=np.float32) / 255
+    mask = (np.squeeze(np.asarray(torch.as_tensor(heat_map).cpu()))
+            > threshold).astype(np.float32)
+    plt.imshow(im * mask[..., None])

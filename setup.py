@@ -16,7 +16,7 @@ setuptools.setup(
     package_data={'daam_tpu': ['data/clip-bpe/vocab.json',
                                'data/clip-bpe/merges.txt',
                                'native/*.cpp', 'native/*.inc'],
-                  'daam_tpu_torch': ['csrc/*.cu']},
+                  'daam_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'numpy', 'pillow', 'matplotlib>=3.5', 'scipy',
@@ -28,6 +28,7 @@ setuptools.setup(
             'daam-demo = daam_tpu.run.demo:main',
             'daam-torch = daam_tpu_torch.run.generate:main',
             'daam-torch-evaluate = daam_tpu_torch.run.evaluate:main',
+            'daam-torch-demo = daam_tpu_torch.run.demo:main',
         ],
     },
 )

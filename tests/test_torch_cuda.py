@@ -171,6 +171,57 @@ def test_cross_attention_probs_kernel_matches_plain_on_card(hd, Lk, probs_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('hd', [40, 64])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_kernels_at_cfg_batch_8_on_card(dtype, hd, cuda_device):
+    """Batch 4 of prompts, CFG batch 8: K2 on the unconditional half, K1 on
+    the conditional half, a view four batch strides into the projection
+    output, through ``cross_attention(capture='acc')`` and directly; K5 with
+    ``cond_only`` at B = 8, rows 4–7 written.  Gates as above by dtype."""
+    B, H, Lq, Lk = 8, 5, 256, 77
+    bf16 = dtype == torch.bfloat16
+    tol, route = (2e-2, '_mma') if bf16 else (1e-4, '_tf32x3')
+    q, k, v = (_packed_view(t).to(cuda_device, dtype)
+               for t in _qkv(B, H, Lq, Lk, hd, seed=hd + 8))
+    assert q[B // 2:].data_ptr() == q.data_ptr() + (B // 2) * q.stride(0) * q.element_size()
+    acc = torch.rand(B // 2, H, Lk, Lq, device=cuda_device)
+    acc_plain = acc.clone()
+    n = dict(kernels.launches)
+    out = A.cross_attention(q, k, v, capture='acc', acc=acc)
+    A.set_kernel_mode('torch')
+    try:
+        ref = A.cross_attention(q, k, v, capture='acc', acc=acc_plain)
+    finally:
+        A.set_kernel_mode('auto')
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+    torch.testing.assert_close(acc, acc_plain, rtol=0, atol=1e-5)
+    flash_route = '_wgmma' if bf16 else '_tf32x3'
+    assert kernels.launches['flash_attention' + flash_route] == \
+        n['flash_attention' + flash_route] + 1
+    assert kernels.launches['cross_attention_acc' + route] == \
+        n['cross_attention_acc' + route] + 1
+    # the halves directly, each against its plain version
+    bc = B // 2
+    torch.testing.assert_close(
+        kernels.flash_attention(q[:bc], k[:bc], v[:bc]).float(),
+        A.flash_attention_plain(q[:bc], k[:bc], v[:bc]).float(), rtol=0, atol=tol)
+    acc2, acc2_plain = torch.zeros_like(acc), torch.zeros_like(acc)
+    torch.testing.assert_close(
+        kernels.cross_attention_acc(q[bc:], k[bc:], v[bc:], acc2).float(),
+        A.cross_attention_acc_plain(q[bc:], k[bc:], v[bc:], acc2_plain).float(),
+        rtol=0, atol=tol)
+    torch.testing.assert_close(acc2, acc2_plain, rtol=0, atol=1e-5)
+    for pdt in (torch.float32, torch.bfloat16):
+        o, p = kernels.cross_attention_probs(q, k, v, True, pdt)
+        ro, rp = A.cross_attention_probs_plain(q, k, v, True, pdt)
+        torch.testing.assert_close(o.float(), ro.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(p[bc:].float(), rp[bc:].float(), rtol=0,
+                                   atol=1e-5 if pdt == torch.float32 else 1 / 128)
+    assert kernels.launches['cross_attention_probs' + route] == \
+        n['cross_attention_probs' + route] + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('hd', [8, 48, 96, 256])
 def test_head_dims_without_kernels_raise_on_card(hd, cuda_device):
     """A head dim outside HEAD_DIMS raises before anything is launched, in

@@ -148,7 +148,7 @@ def _pndm_replay():
     calls = []
     with trace(pipe, save_heads=True, persist_heads=False, data_dir='save') as tc:
         pipe(PROMPT, num_inference_steps=STEPS, latents=latents, output_type='np',
-             callback=lambda i, t, x: calls.append(i))
+             callback=lambda i, t, x: calls.append(i), callback_steps=1)
         r['buf'] = tc.replay_buffer(evals)
         r['save_map'] = tc.compute_global_heat_map().heat_maps.numpy()
         r['time'] = _np_maps(tc.compute_time_global_heat_maps())
