@@ -3,7 +3,8 @@
 card's pytest cases, the traced SD 2.1-base slice in bf16 and in fp32, the
 head-replay transplant, the traced SD 1.x slice (DDIM and PNDM), the traced
 SDXL slice, a checkpoint directory on disk with the VAE encoder and the
-evaluation, batched generation and the demo server, timings.
+evaluation, batched generation and the demo server, SD 2.1 at 768² with
+v-prediction, the native BPE, data-parallel generation, timings.
 
     python3 chip_smoke.py                 # from the repository root
     python3 chip_smoke.py --profile       # also a torch.profiler table of a
@@ -11,15 +12,18 @@ evaluation, batched generation and the demo server, timings.
     python3 chip_smoke.py --kernel-times  # the build, phase 6b's kernel times and
                                           # phase 9's fp32 s/step (traced,
                                           # untraced, save, load) only
+    python3 chip_smoke.py --conv-ab       # what ``--dtype float32`` costs with
+                                          # cuDNN's TF32 convolutions against
+                                          # fp32 ones (``conv_ab``) only
 
-``--kernel-times`` checks nothing beyond the build and prints no result
-line; a copy of this script placed in another checkout times that
+``--kernel-times`` and ``--conv-ab`` check nothing beyond the build and
+print no result line; a copy of this script placed in another checkout times that
 checkout's kernels and fp32 pipeline (the script's own directory comes
 first on the import path), which is how two commits are compared in one
 call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12):
+order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
@@ -27,17 +31,25 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12):
    ``flash_attention_tf32x3_kernel``, ``cross_attention_tf32x3_kernel``; the
    cross-attention ones with the acc and both P epilogues) is missing or
    spills.
+1b. The native BPE (``daam_tpu_torch/native/bpe.cpp``), built with g++
+   under ``build/daam_tpu_torch/bpe/``: ``default_tokenizer()`` must be the
+   ``NativeBpeTokenizer`` and give the Python BPE's tokens, padded ids and
+   masks on the CLI's prompts (``template`` over ``data/vocab-small.tsv``,
+   ``cconj``, phase 12's captions and batch); its rate against the Python
+   BPE's is printed.
 2. Kernel parity at the paths' shapes, kernel against its plain PyTorch
    version on the same inputs, in both layouts (head-major view and the
    (B, L, H·hd) projection output), in bf16 and fp32 at every head dim of
    ``HEAD_DIMS`` (16, 32, 40, 64, 80, 128, 160): ``flash_attention`` at
    every shape of ``K2_SHAPES`` (Lq ∈ {4096, 1024, 256, 64}, Lk = Lq or
-   77), ``SDXL_K2_SHAPES`` and ``V1_K2_SHAPES`` (each at its own hd);
+   77), ``SDXL_K2_SHAPES``, ``V2L_K2_SHAPES`` (Lq ∈ {9216, 2304, 576,
+   144}) and ``V1_K2_SHAPES`` (each at its own hd);
    ``cross_attention_acc`` at every shape of ``K1_SHAPES``,
-   ``SDXL_K1_SHAPES`` and ``V1_K1_SHAPES``, at the ragged Lq = 100 and at
-   Lk = 200 (three 80-key chunks), called twice into the same accumulator;
-   ``cross_attention_probs`` at every shape of ``K5_SHAPES``,
-   ``SDXL_K5_SHAPES`` and ``V1_K5_SHAPES``, at the ragged Lq = 37 and at
+   ``SDXL_K1_SHAPES``, ``V2L_K1_SHAPES`` and ``V1_K1_SHAPES``, at the
+   ragged Lq = 100 and at Lk = 200 (three 80-key chunks), called twice
+   into the same accumulator; ``cross_attention_probs`` at every shape of
+   ``K5_SHAPES``, ``SDXL_K5_SHAPES``, ``V2L_K5_SHAPES`` and
+   ``V1_K5_SHAPES``, at the ragged Lq = 37 and at
    Lk = 200, with and
    without ``cond_only``, P in fp32 and bf16 (P compared on the rows it
    writes).  Every case must have run on its dtype's route (the ``*_wgmma``
@@ -75,7 +87,8 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12):
    runs.  (b) Run right after phase 8, before any pipeline is profiled:
    each kernel in bf16 and in fp32 (TF32 off for the plain versions and
    SDPA) at every shape of each path (v2-1-base and xl-base-1.0 at hd 64,
-   then v1 at hd 40, 80 and 160, its bound on the true hd):
+   then v1 at hd 40, 80 and 160, its bound on the true hd, then v2-1-large
+   and v2-1-base at a batch of 4 at hd 64):
    its time by CUDA events (back-to-back launches after a warm-up), its
    device time per launch (torch.profiler's self device time over 20
    launches, so the wrappers' host cost does not stand in for kernel time),
@@ -117,7 +130,8 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12):
    and 32 × 10 flash_attention launches, every one on the 3xTF32 route;
    the transplant as in phase 5 on the 3xTF32 route (what ``--save-heads``
    and ``--load-heads`` run; no second prompt); its seconds per step
-   traced and untraced, and of the save and load runs as in phase 6a.
+   traced and untraced (cuDNN's TF32 convolutions, PyTorch's default,
+   which the port keeps), and of the save and load runs as in phase 6a.
 10. SD 1.x at full width: ``v1`` (random weights from seed 0; UNet
     320/640/1280/1280 with 8 heads, so hd 40, 80 and 160; CLIP-L's final
     layer), 512², checked as in phase 4: in fp32 with DDIM (what
@@ -174,8 +188,25 @@ order they run (1, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12):
     (save run with 160 K5, load run), whose transplanted image differs from
     a fresh run of the new prompt, towards the saved run's; one request
     through a batch-1 server; images/s through both servers.
+13. SD 2.1 at 768² with v-prediction, what ``daam-torch --model
+    v2-1-large`` runs: ``v2-1-large`` (random weights from seed 0;
+    v2-1-base's UNet on a 96² latent, so 9216 queries at the first level),
+    in fp32 and in bf16, 10 traced DDIM steps each: a (768, 768, 3) finite
+    image, one untiled VAE decode of the (1, 4, 96, 96) latent, finite 96²
+    maps for every token, 15 × 10 cross_attention_acc and 32 × 10
+    flash_attention on the dtype's route; the save -> load pair as in
+    phase 9 (16 × 10 cross_attention_probs and 16 × 10 flash_attention,
+    ~125 MB of bf16 P a step to the host; maps Spearman ≥ 0.999); s/step
+    traced and untraced; peak device memory and host RSS.
+14. Data-parallel generation (``daam_tpu_torch.parallel``):
+    ``init_distributed('tcp://127.0.0.1:<free port>', world_size=1,
+    rank=0)`` joins an NCCL group; ``fetch_global`` of a card tensor goes
+    through NCCL's all_gather; ``generate_batch`` of 3 prompts at
+    v2-1-base 512² fp32 (10 traced steps, 15 × 10 × 3 K1 and 32 × 10 × 3
+    K2 on ``*_tf32x3``) must give each prompt the image and maps of a run
+    of it alone, bit for bit; the group is destroyed.
 
-The whole run takes ~5–7 min of command time on one H100.
+The whole run takes ~4–6 min of command time on one H100.
 
 Before the card's name and power limit, ``{"v1_kernels": [...]}`` gives
 the same keys as the ``kernels`` line for v1's path (launches from phase
@@ -187,7 +218,9 @@ cross_attention_probs: the 2-step save run's of each dtype) and times per
 SDXL evaluation (cross_attention_probs: per evaluation of an SDXL save
 run), then ``{"b4_kernels": [...]}``, the fp32 entries at CFG batch 8
 (launches from phase 12's batch-4 regenerate run and its save run, times
-per UNet evaluation at batch 4, max abs errors from phase 12a).  The line
+per UNet evaluation at batch 4, max abs errors from phase 12a), and
+``{"v2l_kernels": [...]}`` for v2-1-large's path (launches from phase 13,
+times per 768² evaluation).  The line
 before the last is ``{"kernels": [...]}``: per kernel and
 dtype (the fp32 entries named by their counters,
 ``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
@@ -205,6 +238,7 @@ beside it; it never imports JAX.
 """
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -254,6 +288,16 @@ V1_K1_SHAPES = [((1, 8, 4096, 77), 5, 40), ((1, 8, 1024, 77), 5, 80),
                 ((1, 8, 256, 77), 5, 160)]
 V1_K5_SHAPES = [((2, 8, 4096, 77), 5, 40), ((2, 8, 1024, 77), 5, 80),
                 ((2, 8, 256, 77), 5, 160), ((2, 8, 64, 77), 1, 160)]
+# v2-1-large (SD 2.1, 768², v-prediction): v2-1-base's topology on a 96²
+# latent, so 9216/2304/576/144 queries where v2-1-base has 4096/1024/256/64
+V2L_K2_SHAPES = [((2, 5, 9216, 9216), 5), ((2, 10, 2304, 2304), 5),
+                 ((2, 20, 576, 576), 5), ((2, 20, 144, 144), 1),
+                 ((1, 5, 9216, 77), 5), ((1, 10, 2304, 77), 5),
+                 ((1, 20, 576, 77), 5), ((2, 20, 144, 77), 1)]
+V2L_K1_SHAPES = [((1, 5, 9216, 77), 5), ((1, 10, 2304, 77), 5),
+                 ((1, 20, 576, 77), 5)]
+V2L_K5_SHAPES = [((2, 5, 9216, 77), 5), ((2, 10, 2304, 77), 5),
+                 ((2, 20, 576, 77), 5), ((2, 20, 144, 77), 1)]
 # Off the paths: Lq not a multiple of the 64-query block, and Lk past one
 # 80-key chunk (the tensor-core kernel's two-pass route).
 EXTRA_SHAPES = {'cross_attention_acc': [(1, 5, 100, 77), (1, 5, 128, 200)],
@@ -264,6 +308,15 @@ BATCH = 4
 BATCH_PROMPTS = ['A dog runs across the field', 'A cat sits on the red sofa',
                  'A brown horse eats green grass', 'A small bird flies over the sea']
 BATCH_SEEDS = [0, 7, 11, 42]
+# phase 12's captions_val2014.json for --action coco --word dog
+COCO_CAPTIONS = [{'id': 1, 'caption': 'A dog sleeps on a porch'},
+                 {'id': 2, 'caption': 'A red car parked by the road'},
+                 {'id': 3, 'caption': 'Two dogs and a dog play in the snow'},
+                 {'id': 4, 'caption': 'A brown dog chases a ball'},
+                 {'id': 5, 'caption': 'A man walks his dog in the park'},
+                 {'id': 6, 'caption': 'A cat watches a bird'},
+                 {'id': 7, 'caption': 'A dog swims in a lake'},
+                 {'id': 8, 'caption': 'A small dog wears a hat'}]
 DTYPES = ('bf16', 'fp32')
 #: The launch counter of each kernel's route, by dtype.
 ROUTE = {'bf16': {'flash_attention': 'flash_attention_wgmma',
@@ -295,10 +348,11 @@ def expected(kernels, dtype: str, **counts) -> dict:
 
 def check_traced(out, tc, side: int, label: str):
     """A traced run's image must be (side, side, 3) and finite, its "dog"
-    map (64, 64), finite, ≥ 0 and not constant."""
+    map on the trace's grid, finite, ≥ 0 and not constant."""
     import numpy as np
     import torch
 
+    grid = int(tc.latent_hw ** 0.5)
     image = out.images[0]
     word = tc.compute_global_heat_map().compute_word_heat_map('dog').heatmap
     print(f'{label} image {image.shape} range [{image.min():.4f}, {image.max():.4f}]; '
@@ -306,7 +360,7 @@ def check_traced(out, tc, side: int, label: str):
           f'{word.max().item():.4e}]')
     check(image.shape == (side, side, 3) and bool(np.isfinite(image).all()),
           f'{label} image')
-    check(tuple(word.shape) == (64, 64) and bool(torch.isfinite(word).all())
+    check(tuple(word.shape) == (grid, grid) and bool(torch.isfinite(word).all())
           and bool((word >= 0).all()) and word.max().item() > word.min().item(),
           f'{label} word heat map')
 
@@ -488,12 +542,13 @@ def parity(kernels, A):
 
     k1_shapes = [sh for sh, _ in K1_SHAPES] + EXTRA_SHAPES['cross_attention_acc']
     k5_shapes = [sh for sh, _ in K5_SHAPES] + EXTRA_SHAPES['cross_attention_probs']
-    # SDXL's shapes at its one head dim, 64, and v1's each at its own
-    paths = {name: [(HD, sh) for sh, _ in shapes] + [(hd, sh) for sh, _, hd in v1]
-             for name, shapes, v1 in (
-                 ('flash_attention', SDXL_K2_SHAPES, V1_K2_SHAPES),
-                 ('cross_attention_acc', SDXL_K1_SHAPES, V1_K1_SHAPES),
-                 ('cross_attention_probs', SDXL_K5_SHAPES, V1_K5_SHAPES))}
+    # SDXL's and v2-1-large's shapes at their one head dim, 64, and v1's
+    # each at its own
+    paths = {name: [(HD, sh) for sh, _ in shapes + v2l] + [(hd, sh) for sh, _, hd in v1]
+             for name, shapes, v2l, v1 in (
+                 ('flash_attention', SDXL_K2_SHAPES, V2L_K2_SHAPES, V1_K2_SHAPES),
+                 ('cross_attention_acc', SDXL_K1_SHAPES, V2L_K1_SHAPES, V1_K1_SHAPES),
+                 ('cross_attention_probs', SDXL_K5_SHAPES, V2L_K5_SHAPES, V1_K5_SHAPES))}
     for dtype in (torch.float32, torch.bfloat16):
         dname = 'bf16' if dtype == torch.bfloat16 else 'fp32'
         for layout in ('head_major', 'packed'):
@@ -731,6 +786,9 @@ PATH_SHAPES = {
                     ('cross_attention_probs', _at_hd(SDXL_K5_SHAPES))),
     'v1': (('flash_attention', V1_K2_SHAPES), ('cross_attention_acc', V1_K1_SHAPES),
            ('cross_attention_probs', V1_K5_SHAPES)),
+    'v2-1-large': (('flash_attention', _at_hd(V2L_K2_SHAPES)),
+                   ('cross_attention_acc', _at_hd(V2L_K1_SHAPES)),
+                   ('cross_attention_probs', _at_hd(V2L_K5_SHAPES))),
     # v2-1-base at a batch of 4 prompts (phase 12)
     'v2-1-base b4': tuple((name, [((BATCH * shape[0], *shape[1:]), n, hd)
                                   for shape, n, hd in _at_hd(shapes)])
@@ -1700,16 +1758,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
         # --action coco --word dog: the lemma filter, 4 prompts in one call
         coco_in = os.path.join(tmp, 'coco')
         os.makedirs(coco_in)
-        captions = [{'id': 1, 'caption': 'A dog sleeps on a porch'},
-                    {'id': 2, 'caption': 'A red car parked by the road'},
-                    {'id': 3, 'caption': 'Two dogs and a dog play in the snow'},
-                    {'id': 4, 'caption': 'A brown dog chases a ball'},
-                    {'id': 5, 'caption': 'A man walks his dog in the park'},
-                    {'id': 6, 'caption': 'A cat watches a bird'},
-                    {'id': 7, 'caption': 'A dog swims in a lake'},
-                    {'id': 8, 'caption': 'A small dog wears a hat'}]
         with open(os.path.join(coco_in, 'captions_val2014.json'), 'w') as f:
-            json_mod.dump({'annotations': captions}, f)
+            json_mod.dump({'annotations': COCO_CAPTIONS}, f)
         coco_out = os.path.join(tmp, 'coco-out')
         kernels.reset_launches()
         run_captured(generate_cli.main, ['--action', 'coco', '-i', coco_in, '-o', coco_out,
@@ -1842,6 +1892,271 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
     return b4_launches
 
 
+@contextlib.contextmanager
+def fp32_convolutions():
+    """cuDNN's TF32 off (PyTorch's default is on) for the block, then the
+    flag as it was: the other side of the A/B of what ``--dtype float32``
+    computes (3xTF32 attention and fp32 linear layers either way)."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def conv_difference(pipe, trace, label: str):
+    """What fp32 convolutions change in a ``float32`` pipeline's result
+    against cuDNN's TF32 ones: one traced call of ``PROMPT`` each way, the
+    8-bit images' largest and mean difference and the per-token maps'
+    least Spearman (printed)."""
+    import numpy as np
+    from daam_tpu_torch.experiment import _to_pil
+
+    runs = []
+    for scope in (contextlib.nullcontext, fp32_convolutions):
+        with scope():
+            out, _, tc = timed_call(pipe, True, trace)
+        runs.append((np.asarray(_to_pil(out.images[0])).astype(int),
+                     tc.compute_global_heat_map().heat_maps))
+    (im_a, maps_a), (im_b, maps_b) = runs
+    rho = min(spearman(maps_a[t], maps_b[t]) for t in range(maps_a.shape[0]))
+    print(f'{label}: fp32 against TF32 convolutions, one traced call of {PROMPT!r}: image '
+          f'max abs diff {int(np.abs(im_a - im_b).max())}/255 (mean '
+          f'{np.abs(im_a - im_b).mean():.4f}), per-token heat-map spearman min {rho:.6f}')
+
+
+def conv_ab(StableDiffusionPipeline, trace):
+    """``--conv-ab``: what ``--dtype float32`` costs and computes with
+    cuDNN's TF32 convolutions (PyTorch's default, which the port keeps)
+    against fp32 ones.  v2-1-base 512² fp32: s/step traced and untraced
+    each way, what fp32 convolutions change in one traced call
+    (``conv_difference``), the batch-4 call against four batch-1 calls each
+    way (``batch_vs_single``), images/s at batch 1 and 4 each way; then
+    v2-1-large 768² fp32: s/step each way and ``conv_difference``."""
+    import torch
+
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
+    label = 'v2-1-base 512^2 fp32'
+    step_times(pipe, trace, label)
+    with fp32_convolutions():
+        step_times(pipe, trace, f'{label}, fp32 convolutions')
+    conv_difference(pipe, trace, label)
+    batch_vs_single(pipe, trace, 'TF32 convolutions')
+    images_per_s(pipe, trace, label)
+    with fp32_convolutions():
+        batch_vs_single(pipe, trace, 'fp32 convolutions')
+        images_per_s(pipe, trace, f'{label}, fp32 convolutions')
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-large', device='cuda')
+    label = 'v2-1-large 768^2 fp32'
+    step_times(pipe, trace, label)
+    with fp32_convolutions():
+        step_times(pipe, trace, f'{label}, fp32 convolutions')
+    conv_difference(pipe, trace, label)
+
+
+def batch_vs_single(pipe, trace, label: str):
+    """Each of ``BATCH_PROMPTS`` in one batch-4 traced call against its
+    batch-1 call, as ``same_generation`` holds them (8-bit images within
+    2/255, maps at Spearman ≥ 0.999)."""
+    import numpy as np
+    from daam_tpu_torch.experiment import _to_pil
+
+    out, _, tc = timed_call(pipe, True, trace, prompt=BATCH_PROMPTS, seeds=BATCH_SEEDS)
+    batch = [(np.asarray(_to_pil(out.images[i])), tc.compute_global_heat_map(batch_idx=i)
+              .heat_maps) for i in range(BATCH)]
+    for i, (prompt, seed) in enumerate(zip(BATCH_PROMPTS, BATCH_SEEDS)):
+        one, _, tc = timed_call(pipe, True, trace, prompt=[prompt], seeds=[seed])
+        same_generation(batch[i], (np.asarray(_to_pil(one.images[0])),
+                                   tc.compute_global_heat_map().heat_maps),
+                        f'{label} {prompt!r}, batch {BATCH} vs batch 1')
+
+
+# --------------------------------------------------------------------------
+# phase 13: SD 2.1 at 768² with v-prediction
+# --------------------------------------------------------------------------
+
+def v2l_full_width(StableDiffusionPipeline, trace, kernels):
+    """Phase 13: ``v2-1-large`` (SD 2.1's 768-px checkpoint, v-prediction)
+    at 768², random weights from seed 0, in fp32 (the CLI's default) and
+    bf16: a traced 10-step DDIM run (a 768² image, one untiled VAE decode
+    of the 96² latent, 96² maps for every token, 15 × 10 K1 and 32 × 10 K2
+    on the dtype's route), the save -> load pair (16 K5 and 16 K2 per
+    evaluation, replayed maps at Spearman ≥ 0.999), s/step traced and
+    untraced; peak device memory and host RSS.  Returns the launch counts
+    of the fp32 and bf16 traced runs, K5's from the save run of the same
+    dtype."""
+    import torch
+
+    runs = {}
+    for dtype in ('fp32', 'bf16'):
+        t0 = time.perf_counter()
+        pipe = StableDiffusionPipeline.from_pretrained(
+            'v2-1-large', device='cuda',
+            dtype=torch.bfloat16 if dtype == 'bf16' else torch.float32)
+        torch.cuda.synchronize()
+        label = f'v2-1-large 768^2 {dtype}'
+        print(f'{label}: init (random weights) {time.perf_counter() - t0:.2f} s, '
+              f'{type(pipe.scheduler).__name__} {pipe.scheduler.prediction_type}')
+        check(pipe.config.prediction_type == pipe.scheduler.prediction_type
+              == 'v_prediction', f'{label}: v-prediction')
+
+        decodes = []  # the input shape of every VAE decoder call
+        vae_decode = pipe.vae.decode
+
+        def recording_decode(z):
+            decodes.append(tuple(z.shape))
+            return vae_decode(z)
+        pipe.vae.decode = recording_decode
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        out, cold_steps, tc = timed_call(pipe, True, trace)
+        launches = dict(kernels.launches)
+        pipe.vae.decode = vae_decode
+        print(f'{label} launches: {launches}; first traced call {sum(cold_steps):.3f} s; '
+              f'VAE decoder calls {decodes}; peak device memory '
+              f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
+        check_traced(out, tc, 768, label)
+        maps = tc.compute_global_heat_map().heat_maps
+        check(tuple(maps.shape[1:]) == (96, 96) and bool(torch.isfinite(maps).all()),
+              f'{label}: per-token maps {tuple(maps.shape)}')
+        check(decodes == [(1, 4, 96, 96)], f'{label}: untiled VAE decode {decodes}')
+        check(launches == expected(kernels, dtype, cross_attention_acc=K1_PER_EVAL * STEPS,
+                                   flash_attention=K2_PER_EVAL * STEPS),
+              f'{label} launch counts {launches}')
+        torch.cuda.reset_peak_memory_stats()
+        with HostPeak() as host:
+            save = transplant(pipe, trace, kernels, label, dtype, other_prompt=False)
+        launches['cross_attention_probs'] = save['cross_attention_probs']
+        print(f'{label} save -> load pair: peak device memory '
+              f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, peak host RSS '
+              f'{host.peak / 1e9:.3f} GB ({host.start / 1e9:.3f} GB before it)')
+        step_times(pipe, trace, label)
+        runs[dtype] = launches
+        del pipe, tc, out, maps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs['fp32'], runs['bf16']
+
+
+# --------------------------------------------------------------------------
+# phase 14: the native BPE and data-parallel generation
+# --------------------------------------------------------------------------
+
+def native_tokenizer():
+    """Phase 1b: ``default_tokenizer()`` is the native (C++) BPE, built
+    under the checkout's ``build/``, and gives the Python BPE's tokens and
+    padded ids on the CLI's prompts (``template`` over
+    ``data/vocab-small.tsv`` and ``cconj``, phase 12's COCO captions and
+    batch)."""
+    import os
+    import random
+
+    import numpy as np
+    from daam_tpu_torch.native import NativeBpeTokenizer, library_path
+    from daam_tpu_torch.run import generate as generate_cli
+    from daam_tpu_torch.tokenization import (BUNDLED_VOCAB_DIR, ClipBpeTokenizer,
+                                             default_tokenizer)
+
+    t0 = time.perf_counter()
+    native = default_tokenizer()
+    build_s = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    check(isinstance(native, NativeBpeTokenizer), f'default_tokenizer() is {type(native)}')
+    check(library_path().is_relative_to(os.path.join(root, 'build')),
+          f'the BPE library at {library_path()}')
+    random.seed(0)
+    np.random.seed(0)
+    corpus = [PROMPT, PROMPT2, *BATCH_PROMPTS, *(c['caption'] for c in COCO_CAPTIONS)]
+    for argv in (['--action', 'template', '-tdf', os.path.join(root, 'data', 'vocab-small.tsv'),
+                  '--template', 'a {numeral} {noun} and {numeral} {noun}',
+                  '--gen-limit', '50'],
+                 ['--action', 'cconj', '--gen-limit', '50']):
+        args = generate_cli.build_parser().parse_args(argv)
+        corpus += [p for _, p in generate_cli.collect_prompts(args)[0]]
+    python = ClipBpeTokenizer.from_pretrained(BUNDLED_VOCAB_DIR)
+    for text in corpus:
+        check(native.tokenize(text) == python.tokenize(text), f'tokens of {text!r}')
+    ids = (native(corpus, return_tensors='np'), python(corpus, return_tensors='np'))
+    check(all(np.array_equal(ids[0][k], ids[1][k]) for k in ('input_ids', 'attention_mask')),
+          'padded ids and masks')
+    t0 = time.perf_counter()
+    native(corpus * 10)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python(corpus * 10)
+    python_s = time.perf_counter() - t0
+    print(f'native BPE: {library_path()} (first default_tokenizer() {build_s:.2f} s, '
+          f'the build included); {len(corpus)} CLI prompts, tokens and ids equal to the '
+          f'Python BPE; {10 * len(corpus)} prompts encoded in {native_s:.4f} s, Python '
+          f'{python_s:.4f} s (host clock)')
+
+
+def data_parallel(StableDiffusionPipeline, trace, kernels):
+    """Phase 14: ``init_distributed`` into a world-size-1 NCCL group on
+    127.0.0.1 (a free port), ``fetch_global`` through NCCL's all_gather on
+    a card tensor, and ``generate_batch`` of 3 prompts at v2-1-base 512²
+    fp32, 10 traced steps (15 K1 and 32 K2 per evaluation on ``*_tf32x3``),
+    whose images and maps must equal those of the same prompts run one by
+    one (prompt i seeded i); the group is destroyed at the end."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from daam_tpu_torch.parallel import (fetch_global, generate_batch, init_distributed,
+                                         is_multi_process)
+
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    check(init_distributed(f'tcp://127.0.0.1:{port}', world_size=1, rank=0) is False,
+          'a one-process group')
+    try:
+        check(dist.get_backend() == 'nccl' and dist.get_world_size() == 1
+              and not is_multi_process(), f'the group: {dist.get_backend()}')
+        x = torch.arange(12.0, device='cuda').reshape(3, 4)
+        check(np.array_equal(fetch_global(x), x.cpu().numpy()), 'fetch_global through NCCL')
+        pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
+        prompts = BATCH_PROMPTS[:3]
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace(pipe) as tc:
+            out = generate_batch(pipe, prompts, num_inference_steps=STEPS, seed=0)
+            maps = [tc.compute_global_heat_map(batch_idx=i).heat_maps for i in range(3)]
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        print(f'generate_batch, NCCL world size 1, {len(prompts)} prompts ({STEPS} steps): '
+              f'{secs:.3f} s; launches {launches}')
+        check(launches == expected(kernels, 'fp32',
+                                   cross_attention_acc=K1_PER_EVAL * STEPS * len(prompts),
+                                   flash_attention=K2_PER_EVAL * STEPS * len(prompts)),
+              f'generate_batch launch counts {launches}')
+        for i, prompt in enumerate(prompts):
+            with trace(pipe) as tc:
+                one = pipe(prompt, num_inference_steps=STEPS,
+                           generator=torch.Generator('cuda').manual_seed(i))
+                one_maps = tc.compute_global_heat_map().heat_maps
+            image, ref = np.asarray(out.images[i]), np.asarray(one.images[0])
+            print(f'generate_batch {prompt!r} vs a run of it alone: image max abs diff '
+                  f'{int(np.abs(image.astype(int) - ref.astype(int)).max())}/255, maps max '
+                  f'abs diff {(maps[i] - one_maps).abs().max().item():.3e}')
+            check(image.shape == (512, 512, 3) and np.array_equal(image, ref)
+                  and torch.equal(maps[i], one_maps), f'generate_batch {prompt!r}')
+        del pipe, tc, out, one, maps
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), 'the group is torn down')
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def card_tests():
     """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
     and without ``tests/conftest.py`` (which imports JAX); fails on a
@@ -1896,6 +2211,10 @@ def main(argv=None):
                         help="build, time the kernels (phase 6b) and v2-1-base's "
                              'fp32 steps (phase 9) only; no checks beyond the '
                              'build, no result line')
+    parser.add_argument('--conv-ab', action='store_true',
+                        help='build, then time fp32 pipelines with TF32 and with fp32 '
+                             'convolutions only; no checks beyond the build, no result '
+                             'line')
     args = parser.parse_args(argv)
 
     import torch
@@ -1931,6 +2250,10 @@ def main(argv=None):
         replay_step_times(pipe, trace, 'v2-1-base 512^2 fp32')
         print(smi)
         return
+    if args.conv_ab:
+        conv_ab(StableDiffusionPipeline, trace)
+        print(smi)
+        return
     # one per head dim, but the cross-attention kernels: acc, and P in fp32
     # and bf16, per head dim
     n_hd = len(kernels.HEAD_DIMS)
@@ -1944,6 +2267,9 @@ def main(argv=None):
         for name in tensor_core:
             check(any(' 0 bytes spill stores, 0 bytes spill loads' in x
                       for x in report[name]), f'{name} spills registers')
+
+    # 1b. the native BPE: built here, and the tokenizer every pipeline takes
+    native_tokenizer()
 
     # 2-3. parity, with TF32 off for the fp32 checks
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -2009,6 +2335,12 @@ def main(argv=None):
     worst_b4 = batch_parity(kernels, A)
     b4_launches = batched_generation(StableDiffusionPipeline, trace, kernels)
 
+    # 13. SD 2.1 at 768² with v-prediction, fp32 and bf16
+    v2l_launches_fp32, v2l_launches = v2l_full_width(StableDiffusionPipeline, trace, kernels)
+
+    # 14. data-parallel generation in a one-process NCCL group
+    data_parallel(StableDiffusionPipeline, trace, kernels)
+
     replaces = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
                 'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',
                 'cross_attention_probs': 'daam_tpu/ops/pallas_attention.py:405'}
@@ -2044,6 +2376,9 @@ def main(argv=None):
     # run, max abs errors from phase 12a
     print(json.dumps({'b4_kernels': kernel_lines('v2-1-base b4', None, b4_launches,
                                                  errs=worst_b4)}))
+    # per v2-1-large evaluation (768²), launches from phase 13
+    print(json.dumps({'v2l_kernels': kernel_lines('v2-1-large', v2l_launches,
+                                                  v2l_launches_fp32)}))
     print(smi)
     print(json.dumps({'kernels': kernel_lines('v2-1-base', launches, launches_fp32)}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,11 @@
 """daam_tpu_torch — DAAM heat maps for Stable Diffusion in PyTorch and CUDA.
 
 The PyTorch port of ``daam_tpu``: the same module names and public surface
-(but for ``daam_tpu``'s JAX-only layers: ``parallel`` and the persistent
-compilation cache), with the Pallas kernels of the traced path rewritten
-as hand-written CUDA kernels for Hopper (``csrc/attention.cu``).  It never
-imports JAX.
+(but for ``daam_tpu``'s JAX-only layers: the mesh's tensor and sequence
+parallelism and the persistent compilation cache; ``parallel`` keeps the
+data-parallel ``generate_batch`` over ``torch.distributed``), with the
+Pallas kernels of the traced path rewritten as hand-written CUDA kernels
+for Hopper (``csrc/attention.cu``).  It never imports JAX.
 """
 
 from ._version import __version__  # noqa: F401

@@ -297,21 +297,27 @@ class GenerationExperiment:
         (self.path / 'generation.pt').unlink(missing_ok=True)
 
     def save_heat_map(self, word: str, tokenizer: Any = None,
-                      output_prefix: str = '', absolute: bool = False) -> Path:
+                      crop: Optional[int] = None, output_prefix: str = '',
+                      absolute: bool = False) -> Path:
+        """Write ``{output_prefix}{word}.heat_map.png``.  ``crop`` is taken
+        for the reference's signature and, as in ``daam_tpu`` and the
+        reference, not applied to the saved overlay."""
         out = (self.path / self.subtype /
                f'{output_prefix}{word.lower()}.heat_map.png')
         self.heat_map(tokenizer).compute_word_heat_map(word).expand_as(
             self.image, color_normalize=not absolute, out_file=out, plot=True)
         return out
 
-    def save_all_heat_maps(self, tokenizer: Any = None) -> Dict[str, Path]:
-        """One ``{word}.heat_map.png`` per word of the prompt; words the
-        tokenizer cannot find in the prompt are skipped."""
+    def save_all_heat_maps(self, tokenizer: Any = None,
+                           crop: Optional[int] = None) -> Dict[str, Path]:
+        """One ``{word}.heat_map.png`` per word of the prompt; a word whose
+        map fails (not found by the tokenizer, punctuation, truncation) is
+        skipped, as ``daam_tpu`` skips it."""
         path_map: Dict[str, Path] = {}
         for word in self.prompt.split(' '):
             try:
-                path_map[word] = self.save_heat_map(word, tokenizer)
-            except ValueError:
+                path_map[word] = self.save_heat_map(word, tokenizer, crop=crop)
+            except Exception:
                 pass
         return path_map
 

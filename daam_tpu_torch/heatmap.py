@@ -77,13 +77,22 @@ def _jet_composite(image_u8: np.ndarray, heat: np.ndarray,
 
 
 def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
-                          out_file=None, color_normalize: bool = True):
-    """Jet-colormap heat-map overlay (reference ``daam/heatmap.py:20-53``):
-    a matplotlib figure titled with ``word``, as ``daam_tpu`` draws it.
-    Where matplotlib is not installed, ``out_file`` receives the composite
-    itself, at the image's size, without title or axes."""
+                          out_file=None, crop: Optional[int] = None,
+                          color_normalize: bool = True, ax=None):
+    """Jet-colormap heat-map overlay (reference ``daam/heatmap.py:20-53``),
+    drawn as ``daam_tpu`` draws it (``daam_tpu/heatmap.py:57-80``): image
+    and map cropped by ``crop`` pixels on each side, the composite shown on
+    ``ax`` and titled with ``ax.set_title`` when an axes is given, else on a
+    cleared current figure titled with ``word``; ``out_file`` receives the
+    current figure.  Where matplotlib is not installed, ``out_file``
+    receives the composite itself, at the (cropped) image's size, without
+    title or axes."""
+    im = np.asarray(im)
     heat_map = np.squeeze(np.asarray(heat_map, dtype=np.float32))
-    composite = _jet_composite(np.asarray(im), heat_map, color_normalize)
+    if crop:
+        im = im[crop:-crop, crop:-crop]
+        heat_map = heat_map[crop:-crop, crop:-crop]
+    composite = _jet_composite(im, heat_map, color_normalize)
     try:
         import matplotlib.pyplot as plt
     except ImportError:
@@ -92,11 +101,14 @@ def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
             u8 = np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
             PIL.Image.fromarray(u8).save(out_file)
         return
-    plt.clf()
-    plt.rcParams.update({'font.size': 24})
-    plt.imshow(composite)
+    target = ax
+    if target is None:
+        plt.clf()
+        plt.rcParams.update({'font.size': 24})
+        target = plt
+    target.imshow(composite)
     if word is not None:
-        plt.title(word)
+        (plt.title if ax is None else ax.set_title)(word)
     if out_file is not None:
         plt.savefig(out_file)
 
@@ -121,10 +133,10 @@ class WordHeatMap:
                            device=torch.as_tensor(self.heatmap).device)
 
     def plot_overlay(self, image, out_file=None, color_normalize: bool = True,
-                     **expand_kwargs):
+                     ax=None, **expand_kwargs):
         plot_overlay_heat_map(image, self.expand_as(image, **expand_kwargs),
                               word=self.word, out_file=out_file,
-                              color_normalize=color_normalize)
+                              color_normalize=color_normalize, ax=ax)
 
     def expand_as(self, image, absolute: bool = False,
                   threshold: Optional[float] = None, plot: bool = False,

@@ -2,9 +2,10 @@
 
 A copy of the pure-Python BPE of ``daam_tpu/tokenization.py`` and of its
 vocabulary-free ``HashWordTokenizer`` (held equal to them, ids and tokens,
-by ``tests/test_torch_shared.py``); the native C++ BPE of
-``daam_tpu/native`` is not ported yet.  The tokenizer's word/subword behavior
-is load-bearing for heat-map queries (reference ``daam/utils.py:73-91``).
+by ``tests/test_torch_shared.py``); :func:`default_tokenizer` prefers the
+native C++ BPE of :mod:`daam_tpu_torch.native` where it builds.  The
+tokenizer's word/subword behavior is load-bearing for heat-map queries
+(reference ``daam/utils.py:73-91``).
 The bundled vocabulary is read by file path from ``daam_tpu/data/clip-bpe``
 in the checkout; nothing of ``daam_tpu`` is imported.
 """
@@ -303,14 +304,18 @@ class HashWordTokenizer(_TokenizerBase):
 #: ``daam_tpu``; used when no checkpoint supplies its own ``tokenizer/`` files.
 BUNDLED_VOCAB_DIR = Path(__file__).resolve().parents[1] / 'daam_tpu' / 'data' / 'clip-bpe'
 
-_DEFAULT_CACHE: Dict[Tuple[str, Optional[int]], ClipBpeTokenizer] = {}
+_DEFAULT_CACHE: Dict[Tuple[str, Optional[int], bool], _TokenizerBase] = {}
 
 
 def default_tokenizer(model_dir: Optional[Union[str, Path]] = None,
-                      pad_id: Optional[int] = None) -> ClipBpeTokenizer:
+                      pad_id: Optional[int] = None,
+                      prefer_native: bool = True) -> _TokenizerBase:
     """The BPE tokenizer of ``model_dir`` (or its ``tokenizer/`` subdir) when
-    it holds ``vocab.json``/``merges.txt``, else of the bundled vocabulary.
-    Instances are cached per (path, pad_id)."""
+    it holds ``vocab.json``/``merges.txt``, else of the bundled vocabulary
+    (``daam_tpu/tokenization.py:322-360``): the native (C++) BPE when
+    ``prefer_native`` and it builds here, else the Python BPE, with the
+    same ids and tokens.  Instances are cached per (path, pad_id,
+    prefer_native)."""
     candidates = []
     if model_dir is not None:
         model_dir = Path(model_dir)
@@ -318,9 +323,17 @@ def default_tokenizer(model_dir: Optional[Union[str, Path]] = None,
     candidates.append(BUNDLED_VOCAB_DIR)
     for cand in candidates:
         if (cand / 'vocab.json').exists() and (cand / 'merges.txt').exists():
-            key = (str(cand), pad_id)
+            key = (str(cand), pad_id, prefer_native)
             if key not in _DEFAULT_CACHE:
-                _DEFAULT_CACHE[key] = ClipBpeTokenizer.from_pretrained(
-                    cand, pad_id=pad_id)
+                _DEFAULT_CACHE[key] = _load_bpe(cand, pad_id, prefer_native)
             return _DEFAULT_CACHE[key]
     raise FileNotFoundError(f'no vocab.json/merges.txt in {candidates}')
+
+
+def _load_bpe(path: Path, pad_id: Optional[int], prefer_native: bool) -> _TokenizerBase:
+    if prefer_native:
+        from .native import NativeBpeTokenizer, native_available
+
+        if native_available():  # warns once, naming the build log, if not
+            return NativeBpeTokenizer.from_pretrained(path, pad_id=pad_id)
+    return ClipBpeTokenizer.from_pretrained(path, pad_id=pad_id)

@@ -16,7 +16,8 @@ setuptools.setup(
     package_data={'daam_tpu': ['data/clip-bpe/vocab.json',
                                'data/clip-bpe/merges.txt',
                                'native/*.cpp', 'native/*.inc'],
-                  'daam_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+                  'daam_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                     'native/*.cpp', 'native/*.inc']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'numpy', 'pillow', 'matplotlib>=3.5', 'scipy',

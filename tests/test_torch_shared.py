@@ -180,6 +180,36 @@ def test_public_names_cover_daam_tpu():
     assert daam_tpu_torch.DiffusionPipeline is daam_tpu_torch.StableDiffusionPipeline
 
 
+@pytest.mark.parametrize('name', ['heatmap.plot_overlay_heat_map',
+                                  'heatmap.WordHeatMap.plot_overlay',
+                                  'experiment.GenerationExperiment.save_heat_map',
+                                  'experiment.GenerationExperiment.save_all_heat_maps'])
+def test_overlay_signatures_equal(name):
+    """The overlay API takes daam_tpu's parameters, in its order, with its
+    defaults."""
+    import importlib
+    import inspect
+
+    def resolve(package):
+        module, *attrs = name.split('.')
+        obj = importlib.import_module(f'{package}.{module}')
+        for attr in attrs:
+            obj = getattr(obj, attr)
+        return obj
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+    assert params(resolve('daam_tpu_torch')) == params(resolve('daam_tpu'))
+
+
+@pytest.mark.parametrize('name', ['bpe.cpp', 'unicode_ranges.inc'])
+def test_native_bpe_sources_equal(name):
+    """The native BPE core is ``daam_tpu/native``'s, byte for byte."""
+    assert (REPO / 'daam_tpu_torch' / 'native' / name).read_bytes() == \
+        (REPO / 'daam_tpu' / 'native' / name).read_bytes()
+
+
 def test_raw_heat_map_collection_equal():
     """``update``, blocks, iteration, ``len``, ``factors``, ``layers`` and
     ``heads`` as ``daam_tpu``'s collection gives them."""
