@@ -23,7 +23,7 @@ first on the import path), which is how two commits are compared in one
 call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14):
+order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
@@ -205,8 +205,23 @@ order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14):
     v2-1-base 512² fp32 (10 traced steps, 15 × 10 × 3 K1 and 32 × 10 × 3
     K2 on ``*_tf32x3``) must give each prompt the image and maps of a run
     of it alone, bit for bit; the group is destroyed.
+15. The port against ``daam_tpu`` at full width, with no JAX here: for each
+    golden ``tests/make_torch_goldens.py`` made with ``daam_tpu`` on a CPU
+    (``tests/fixtures/torch_goldens/``: ``v2-1-base`` 512², 10 steps, and
+    ``xl-base-1.0`` 1024², 2 steps, fp32 DDIM, traced), the weights are
+    made again by ``init_random_params`` (``daam_tpu``'s host init, numpy
+    only, bf16 from seed 0) and their per-module sums must equal the
+    golden's before anything runs; then the modules are loaded in fp32 on
+    the card with TF32 off (matmul and cuDNN; restored afterwards), the
+    golden's initial latents injected, and the traced pipeline run: the
+    image within 2/255 of the golden's, the maps at per-token Spearman ≥
+    0.99 and within rtol 0.05, atol 0.02 (``_assert_close`` of
+    ``tests/test_e2e_fidelity_torch.py``), and the launches 15 × 10
+    cross_attention_acc and 32 × 10 flash_attention (SDXL: 60 × 2 and
+    140 × 2), every one on ``*_tf32x3``.  It prints the latents' max abs
+    error step by step, the seconds of the numpy init and the s/step.
 
-The whole run takes ~4–6 min of command time on one H100.
+The whole run takes ~7 min of command time on one H100.
 
 Before the card's name and power limit, ``{"v1_kernels": [...]}`` gives
 the same keys as the ``kernels`` line for v1's path (launches from phase
@@ -317,6 +332,11 @@ COCO_CAPTIONS = [{'id': 1, 'caption': 'A dog sleeps on a porch'},
                  {'id': 6, 'caption': 'A cat watches a bird'},
                  {'id': 7, 'caption': 'A dog swims in a lake'},
                  {'id': 8, 'caption': 'A small dog wears a hat'}]
+#: phase 15: the goldens made with daam_tpu (tests/make_torch_goldens.py),
+#: and the K1 and K2 launches of each one's traced run
+GOLDENS = 'tests/fixtures/torch_goldens'
+GOLDEN_LAUNCHES = {'v2-1-base': (K1_PER_EVAL * STEPS, K2_PER_EVAL * STEPS),
+                   'xl-base-1.0': (SDXL_K1_PER_EVAL * 2, SDXL_K2_PER_EVAL * 2)}
 DTYPES = ('bf16', 'fp32')
 #: The launch counter of each kernel's route, by dtype.
 ROUTE = {'bf16': {'flash_attention': 'flash_attention_wgmma',
@@ -2157,6 +2177,107 @@ def data_parallel(StableDiffusionPipeline, trace, kernels):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 15: the port against daam_tpu's goldens at full width
+# --------------------------------------------------------------------------
+
+def maps_close(ours, theirs, label: str):
+    """``tests/test_e2e_fidelity_torch.py::_assert_close``: per-token
+    Spearman ≥ 0.99 on every map with structure (a flat map's ranks are
+    noise), then |ours − theirs| ≤ 0.02 + 0.05·|theirs| everywhere."""
+    import numpy as np
+    import torch
+
+    check(ours.shape == theirs.shape, f'{label} maps {ours.shape} vs {theirs.shape}')
+    rhos = []
+    for a, b in zip(ours, theirs):
+        if a.max() - a.min() < 1e-4 * max(float(np.abs(a).max()), 1e-9):
+            continue
+        rhos.append(spearman(torch.from_numpy(a), torch.from_numpy(b)))
+    worst = min(rhos) if rhos else 1.0
+    excess = float((np.abs(ours - theirs) - (0.02 + 0.05 * np.abs(theirs))).max())
+    print(f'{label} maps: min Spearman {worst:.6f} over {len(rhos)} tokens, max abs err '
+          f'{float(np.abs(ours - theirs).max()):.3e}, allclose margin {-excess:.3e}')
+    check(worst >= 0.99 and excess <= 0, f'{label} maps against the golden')
+
+
+def golden_parity(trace, kernels) -> dict:
+    """Phase 15: each golden of ``GOLDENS`` against the port on the card,
+    fp32 with TF32 off; returns the launch counts of each traced run."""
+    import os
+
+    import numpy as np
+    import torch
+    from daam_tpu_torch.models import weights as W
+    from daam_tpu_torch.models.configs import get_pipeline_config
+    from daam_tpu_torch.pipeline.sd import _pipeline_class
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counts = {}
+    try:
+        for preset, (k1, k2) in GOLDEN_LAUNCHES.items():
+            with np.load(os.path.join(root, GOLDENS, f'{preset}.npz')) as g:
+                golden = {k: g[k] for k in g.files}
+            config = get_pipeline_config(preset)
+            t0 = time.perf_counter()
+            params = W.init_random_params(config, seed=0)
+            init_s = time.perf_counter() - t0
+            sums = W.param_sums(params)
+            print(f'{preset} golden: numpy init {init_s:.2f} s; module sums ' + ', '.join(
+                f'{n} {sums[n]!r} (golden {s!r})'
+                for n, s in zip(golden['module_names'].tolist(),
+                                golden['module_sums'].tolist())))
+            check([sums[n] for n in golden['module_names']] == golden['module_sums'].tolist(),
+                  f'{preset} weight sums against the golden')
+            modules = W.load_modules(config, W.from_jax_params(params), device='cuda',
+                                     dtype=torch.float32)
+            del params
+            pipe = _pipeline_class(config)(config, **modules)
+            del modules
+            check(np.array_equal(pipe._encode_tokens([PROMPT])[0].cpu().numpy(),
+                                 golden['token_ids']), f'{preset} token ids')
+            stepped, marks = [], []
+
+            def on_step(i, t, latents):
+                stepped.append(latents.float().cpu().numpy())
+                marks.append(time.perf_counter())
+
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with trace(pipe) as tc:
+                out = pipe(PROMPT, num_inference_steps=len(golden['latents']),
+                           latents=golden['latents_init'], output_type='np',
+                           callback=on_step, callback_steps=1)
+                maps = tc.compute_global_heat_map().heat_maps.float().cpu().numpy()
+            launches = counts[preset] = dict(kernels.launches)
+            steps_s = [b - a for a, b in zip([t0] + marks, marks)]
+            errs = [float(np.abs(a - b).max()) for a, b in zip(stepped, golden['latents'])]
+            print(f'{preset} golden: latents max abs err by step '
+                  + ', '.join(f'{i + 1}: {e:.3e}' for i, e in enumerate(errs)))
+            print(f'{preset} golden (fp32, TF32 off): s/step '
+                  + ', '.join(f'{x:.4f}' for x in steps_s) + f'; launches {launches}')
+            image = np.clip(out.images[0] * 255 + 0.5, 0, 255).astype(np.uint8)
+            diff = np.abs(image.astype(int) - golden['image'].astype(int))
+            print(f'{preset} golden: image {image.shape} max abs diff {int(diff.max())}/255, '
+                  f'mean {float(diff.mean()):.4f}/255')
+            check(image.shape == golden['image'].shape and int(diff.max()) <= 2,
+                  f'{preset} image against the golden')
+            maps_close(maps, golden['heat_maps'], f'{preset} golden')
+            check(launches == expected(kernels, 'fp32', cross_attention_acc=k1,
+                                       flash_attention=k2),
+                  f'{preset} golden launch counts {launches}')
+            del pipe, tc, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return counts
+
+
 def card_tests():
     """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
     and without ``tests/conftest.py`` (which imports JAX); fails on a
@@ -2340,6 +2461,10 @@ def main(argv=None):
 
     # 14. data-parallel generation in a one-process NCCL group
     data_parallel(StableDiffusionPipeline, trace, kernels)
+
+    # 15. the port against daam_tpu's goldens at full width, fp32, TF32 off
+    golden_launches = golden_parity(trace, kernels)
+    print(json.dumps({'golden_launches': golden_launches}))
 
     replaces = {'flash_attention': 'daam_tpu/ops/pallas_attention.py:169',
                 'cross_attention_acc': 'daam_tpu/ops/pallas_attention.py:517',

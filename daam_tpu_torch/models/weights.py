@@ -13,6 +13,13 @@ and diffusers checkpoint directories read from disk.
   ``add_embedding`` included) and ``_convert_vae`` (``:420``, the encoder
   included when the tree has one).  Dense kernels are transposed and conv
   kernels go from ``(kh, kw, in, out)`` back to ``(out, in, kh, kw)``.
+* :func:`to_jax_params` is its exact inverse: diffusers-named state dicts
+  (the port's modules' own) back into ``daam_tpu``'s parameter tree, and
+  :func:`save_params`/:func:`load_params` read and write that tree as
+  ``daam_tpu``'s ``.npz`` (``models/weights.py:152-183``).
+* :func:`init_random_params` rebuilds ``daam_tpu``'s host init
+  (``_init_random_params_host``, ``:77-145``) bit for bit with numpy alone,
+  so weights made where JAX runs can be made again on the card.
 * :func:`load_modules` builds the modules from such state dicts
   (``strict=True``).
 * :func:`load_diffusers_checkpoint` reads a local diffusers directory
@@ -25,12 +32,13 @@ and diffusers checkpoint directories read from disk.
 """
 
 import json
+import math
 import mmap
 import re
 import struct
 from dataclasses import replace
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +50,10 @@ from .configs import (MODEL_PRESETS, CLIPTextConfig, PipelineConfig, UNetConfig,
 from .unet import UNet2DConditionModel
 from .vae import AutoencoderKL
 
-__all__ = ['init_random', 'fill_random', 'from_jax_params', 'load_modules',
-           'build_modules', 'load_diffusers_checkpoint', 'read_safetensors']
+__all__ = ['init_random', 'fill_random', 'from_jax_params', 'to_jax_params',
+           'init_random_params', 'save_params', 'load_params', 'param_sums',
+           'load_modules', 'build_modules', 'load_diffusers_checkpoint',
+           'read_safetensors']
 
 
 def _build(name: str, config: PipelineConfig, with_encoder: bool = False
@@ -146,30 +156,44 @@ def load_modules(config: PipelineConfig, state_dicts: Dict[str, Dict[str, Any]],
 # daam_tpu pytree -> diffusers state dicts
 # --------------------------------------------------------------------------
 
-def _dense(k) -> np.ndarray:
-    """flax (in, out) -> torch (out, in)."""
-    return np.ascontiguousarray(np.asarray(k).T)
+def _host(x):
+    """A leaf as it is held on the host: a tensor stays a tensor (numpy has
+    no bfloat16), anything else array-like becomes a numpy array."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _conv(k) -> np.ndarray:
+def _permute(x, axes):
+    x = _host(x)
+    if isinstance(x, torch.Tensor):
+        return x.permute(axes).contiguous()
+    return np.ascontiguousarray(np.transpose(x, axes))
+
+
+def _dense(k):
+    """flax (in, out) -> torch (out, in), and back."""
+    return _permute(k, (1, 0))
+
+
+def _conv(k):
     """flax HWIO -> torch OIHW (inverse of ``daam_tpu`` ``_conv_kernel``)."""
-    return np.ascontiguousarray(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+    return _permute(k, (3, 2, 0, 1))
 
 
-def _kernel(k) -> np.ndarray:
-    return _conv(k) if np.ndim(k) == 4 else _dense(k)
+def _kernel(k):
+    k = _host(k)
+    return _conv(k) if k.ndim == 4 else _dense(k)
 
 
 def _put_linear(out, prefix: str, p: Dict):
     """A flax Dense or Conv subtree (``kernel``/``bias``) -> ``weight``/``bias``."""
     out[prefix + 'weight'] = _kernel(p['kernel'])
     if 'bias' in p:
-        out[prefix + 'bias'] = np.asarray(p['bias'])
+        out[prefix + 'bias'] = _host(p['bias'])
 
 
 def _put_norm(out, prefix: str, p: Dict):
-    out[prefix + 'weight'] = np.asarray(p['scale'])
-    out[prefix + 'bias'] = np.asarray(p['bias'])
+    out[prefix + 'weight'] = _host(p['scale'])
+    out[prefix + 'bias'] = _host(p['bias'])
 
 
 def _put_resnet(out, prefix: str, p: Dict):
@@ -247,9 +271,9 @@ def _unet_state_dict(p: Dict) -> Dict[str, np.ndarray]:
 def _clip_state_dict(p: Dict) -> Dict[str, np.ndarray]:
     pre = 'text_model.'
     out = {pre + 'embeddings.token_embedding.weight':
-           np.asarray(p['token_embedding']['embedding']),
+           _host(p['token_embedding']['embedding']),
            pre + 'embeddings.position_embedding.weight':
-           np.asarray(p['position_embedding'])}
+           _host(p['position_embedding'])}
     for i in range(_count(p, r'layers_\d+')):
         lp, layer = f'{pre}encoder.layers.{i}.', p[f'layers_{i}']
         _put_norm(out, lp + 'layer_norm1.', layer['layer_norm1'])
@@ -323,12 +347,238 @@ _CONVERTERS = {'text_encoder': _clip_state_dict,
 def from_jax_params(params: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
     """``daam_tpu`` params ``{'text_encoder', 'unet', 'vae'}`` (and SDXL's
     ``'text_encoder_2'``) → diffusers-named state dicts for the modules
-    present (numpy arrays; anything array-like is accepted as a leaf).
-    Another entry raises."""
+    present: host tensors stay tensors (bfloat16 included), anything else
+    array-like becomes numpy.  Another entry raises."""
     unknown = set(params) - set(_CONVERTERS)
     if unknown:
         raise ValueError(f'cannot convert {sorted(unknown)}')
     return {name: _CONVERTERS[name](tree) for name, tree in params.items()}
+
+
+# --------------------------------------------------------------------------
+# diffusers state dicts -> daam_tpu pytree, the .npz format, the host init
+# --------------------------------------------------------------------------
+
+#: How a diffusers key's module path becomes ``daam_tpu``'s, rule by rule in
+#: order (each the inverse of a ``_put_*`` above); what is left of the dotted
+#: path then names the flax subtree.  ``'vae'`` moves the quant convs into
+#: their half, whose keys then take ``'vae_half'``.
+_BLOCK_RULES = [
+    (r'^(down|up)_blocks\.(\d+)\.resnets\.(\d+)\.', r'\1_\2_resnet_\3.'),
+    (r'^(down|up)_blocks\.(\d+)\.attentions\.(\d+)\.', r'\1_\2_attn_\3.'),
+    (r'^mid_block\.resnets\.(\d+)\.', r'mid_resnet_\1.'),
+    (r'\.transformer_blocks\.(\d+)\.', r'.transformer_blocks_\1.'),
+    (r'\.to_out\.0\.', '.to_out.'),
+    (r'\.ff\.net\.0\.proj\.', '.ff.proj_in.'),
+    (r'\.ff\.net\.2\.', '.ff.proj_out.'),
+]
+_PATH_RULES = {
+    'unet': _BLOCK_RULES + [
+        (r'^mid_block\.attentions\.0\.', 'mid_attn_0.'),
+        (r'^down_blocks\.(\d+)\.downsamplers\.0\.conv\.', r'down_\1_downsample.conv.'),
+        (r'^up_blocks\.(\d+)\.upsamplers\.0\.conv\.', r'up_\1_upsample.conv.')],
+    'vae': [(r'^post_quant_conv\.', 'decoder.post_quant_conv.'),
+            (r'^quant_conv\.', 'encoder.quant_conv.')],
+    'vae_half': _BLOCK_RULES + [
+        (r'^mid_block\.attentions\.0\.', 'mid_attn.'),
+        (r'^down_blocks\.(\d+)\.downsamplers\.0\.conv\.', r'down_\1_downsample.'),
+        (r'^up_blocks\.(\d+)\.upsamplers\.0\.conv\.', r'up_\1_upsample.')],
+    'text_encoder': [(r'^text_model\.embeddings\.', ''),
+                     (r'^text_model\.encoder\.layers\.(\d+)\.', r'layers_\1.'),
+                     (r'^text_model\.', ''), (r'\.mlp\.', '.')],
+}
+
+
+def _levels(keys, prefix: str) -> int:
+    return 1 + max(int(m[1]) for k in keys
+                   for m in [re.match(prefix + r'(\d+)\.', k)] if m)
+
+
+def _jax_path(rules: str, key: str, levels: Optional[int] = None) -> Tuple[str, ...]:
+    """``key`` rewritten by ``_PATH_RULES[rules]`` and split; ``levels``
+    renumbers ``up_blocks.j`` (diffusers counts from the deepest level) to
+    its resolution level ``levels - 1 - j``."""
+    for pattern, repl in _PATH_RULES[rules]:
+        key = re.sub(pattern, repl, key)
+    if levels is not None:
+        key = re.sub(r'^up_(\d+)_', lambda m: f'up_{levels - 1 - int(m[1])}_', key)
+    return tuple(key.split('.'))
+
+
+def _to_jax_leaf(path: Tuple[str, ...], value):
+    """(flax path, leaf) of a diffusers ``weight``: embeddings as they are
+    (the position embedding is a bare parameter), norms' 1-D weight as
+    ``scale``, Dense kernels (in, out), convolutions HWIO."""
+    x = _host(value)
+    if path[-1] == 'bias':
+        return path, x
+    owner = path[:-1]
+    if owner[-1] == 'token_embedding':
+        return owner + ('embedding',), x
+    if owner[-1] == 'position_embedding':
+        return owner, x
+    if x.ndim == 1:
+        return owner + ('scale',), x
+    return owner + ('kernel',), _permute(x, (2, 3, 1, 0) if x.ndim == 4 else (1, 0))
+
+
+def _module_to_jax(name: str, sd: Dict[str, Any]) -> Dict[str, Any]:
+    def path_of(key):
+        if name == 'unet':
+            return _jax_path('unet', key, unet_levels)
+        if name == 'vae':
+            half, *rest = _jax_path('vae', key)
+            return (half,) + _jax_path('vae_half', '.'.join(rest),
+                                       decoder_levels if half == 'decoder' else None)
+        return _jax_path('text_encoder', key)
+
+    unet_levels = _levels(sd, r'down_blocks\.') if name == 'unet' else None
+    decoder_levels = _levels(sd, r'decoder\.up_blocks\.') if name == 'vae' else None
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        path, leaf = _to_jax_leaf(path_of(key), value)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def to_jax_params(state_dicts: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Diffusers-named state dicts (the port's modules', as numpy arrays or
+    host tensors) → ``daam_tpu``'s parameter tree: the exact inverse of
+    :func:`from_jax_params`, so ``to_jax_params(from_jax_params(p)) == p``
+    leaf for leaf, and the reverse.  Dense kernels come out (in, out),
+    convolutions HWIO, norms as ``scale``/``bias``; SDXL's
+    ``text_encoder_2`` and ``add_embedding`` convert like the rest, and the
+    VAE with or without its encoder.  Leaves keep their kind (tensor or
+    array) and dtype.  Another entry raises."""
+    unknown = set(state_dicts) - set(_CONVERTERS)
+    if unknown:
+        raise ValueError(f'cannot convert {sorted(unknown)}')
+    return {name: _module_to_jax(name, sd) for name, sd in state_dicts.items()}
+
+
+#: ``daam_tpu``'s order of the modules in its host init (``:87-116``)
+_INIT_ORDER = ('text_encoder', 'text_encoder_2', 'unet', 'vae')
+
+
+def init_random_params(config: PipelineConfig, seed: int = 0,
+                       dtype=torch.bfloat16) -> Dict[str, Any]:
+    """``daam_tpu``'s random parameters, made again with numpy alone: the
+    counterpart of ``daam_tpu.models.weights._init_random_params_host``
+    (``:77-145``), equal to it bit for bit.  The key tree is
+    :func:`to_jax_params` over :func:`build_modules`' shapes on the ``meta``
+    device (the VAE's decode half, as ``vae.init(..., method=decode)``
+    gives), walked as ``daam_tpu`` walks ``jax.eval_shape``'s tree: the
+    modules in the order text encoder, SDXL's second text encoder, UNet,
+    VAE, and every dict below them key-sorted.  One
+    ``np.random.RandomState(seed & 0xFFFFFFFF)`` fills them: ``scale``
+    leaves 1, other leaves of at most one dimension 0, and the rest
+    N(0, fan_in^-½) with fan_in the product of all but the last axis of the
+    flax shape, drawn in float64 and rounded to fp32, then cast to
+    ``dtype``.  Leaves are CPU tensors; one leaf's draw at a time is held
+    beside them (v2-1-base draws about 1.27 B normals, SDXL about 3.5 B).
+
+    ``daam_tpu.init_random_params(dtype=float32)`` draws through
+    ``jax.random`` instead, which this cannot match: equal fp32 weights on
+    both sides are made by drawing in bfloat16 and casting up, here and
+    there.  ``load_modules(config, from_jax_params(params), device=...)``
+    builds the modules."""
+    shapes = to_jax_params({name: module.state_dict() for name, module in
+                            build_modules(config, device='meta').items()})
+    rng = np.random.RandomState(seed & 0xFFFFFFFF)
+
+    def fill(tree):
+        out = {}
+        for key in sorted(tree):
+            leaf = tree[key]
+            if isinstance(leaf, dict):
+                out[key] = fill(leaf)
+            elif key == 'scale':
+                out[key] = torch.ones(leaf.shape, dtype=dtype)
+            elif leaf.dim() <= 1:
+                out[key] = torch.zeros(leaf.shape, dtype=dtype)
+            else:
+                fan_in = int(np.prod(leaf.shape[:-1])) or 1
+                draw = rng.normal(0.0, (1.0 / fan_in) ** 0.5,
+                                  size=tuple(leaf.shape)).astype(np.float32)
+                out[key] = torch.from_numpy(draw).to(dtype)
+                del draw
+        return out
+
+    return {name: fill(shapes[name]) for name in _INIT_ORDER if name in shapes}
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield '/'.join(prefix + (key,)), value
+
+
+def param_sums(params: Dict[str, Any]) -> Dict[str, float]:
+    """The float64 sum of each module's weights taken in fp32: each leaf
+    summed by numpy in float64 (its pairwise order is fixed by the shape),
+    the leaves' sums added exactly (``math.fsum``), so equal weights give
+    equal sums on any machine and in any leaf order."""
+    sums = {}
+    for name, tree in params.items():
+        leaf_sums = []
+        for _, leaf in _flatten(tree):
+            leaf = _host(leaf)
+            if isinstance(leaf, torch.Tensor):
+                leaf = leaf.float().numpy()
+            leaf_sums.append(np.asarray(leaf, np.float32).astype(np.float64).sum())
+        sums[name] = math.fsum(leaf_sums)
+    return sums
+
+
+#: numpy has no bfloat16: ``daam_tpu``'s ``save_params`` writes a bf16 leaf
+#: as its raw 2-byte pattern (dtype ``V2``), and so does the port.
+_BF16_NPZ = np.dtype('V2')
+
+
+def save_params(params: Dict[str, Any], path) -> None:
+    """Save a ``daam_tpu`` parameter tree (numpy arrays or host tensors) as
+    one ``.npz`` of flat slash-joined keys, ``daam_tpu``'s format
+    (``models/weights.py:160-166``).  A bfloat16 leaf is stored as
+    ``daam_tpu.save_params`` stores one: its raw 16-bit patterns under the
+    2-byte void dtype ``V2`` (numpy has no bfloat16); :func:`load_params`
+    reads them back as bfloat16."""
+    arrays = {}
+    for key, leaf in _flatten(params):
+        leaf = _host(leaf)
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().cpu()
+            leaf = (leaf.view(torch.int16).numpy().view(_BF16_NPZ)
+                    if leaf.dtype == torch.bfloat16 else leaf.numpy())
+        arrays[key] = leaf
+    np.savez(path, **arrays)
+
+
+def load_params(path, dtype=None) -> Dict[str, Any]:
+    """Load a tree saved by :func:`save_params` or ``daam_tpu``'s
+    ``save_params``, as CPU tensors: ``V2`` leaves are bfloat16 bit
+    patterns, the rest keep their numpy dtype.  ``dtype`` (a torch dtype)
+    casts the floating leaves only, as ``daam_tpu``'s does (``:169-183``)."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for flat_key in data.files:
+            arr = data[flat_key]
+            if arr.dtype == _BF16_NPZ:
+                leaf = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            else:
+                leaf = torch.from_numpy(arr)
+            if dtype is not None and leaf.is_floating_point():
+                leaf = leaf.to(dtype)
+            node = tree
+            *parts, last = flat_key.split('/')
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[last] = leaf
+    return tree
 
 
 # --------------------------------------------------------------------------
