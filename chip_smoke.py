@@ -15,9 +15,13 @@ v-prediction, the native BPE, data-parallel generation, timings.
     python3 chip_smoke.py --conv-ab       # what ``--dtype float32`` costs with
                                           # cuDNN's TF32 convolutions against
                                           # fp32 ones (``conv_ab``) only
+    python3 chip_smoke.py --flash-fp32    # the build, then fp32 flash_attention
+                                          # at every head dim (``flash_fp32``)
+                                          # only: parity and event times
 
-``--kernel-times`` and ``--conv-ab`` check nothing beyond the build and
-print no result line; a copy of this script placed in another checkout times that
+``--kernel-times``, ``--conv-ab`` and ``--flash-fp32`` check nothing beyond
+the build (``--flash-fp32`` its own parity cases) and print no result line;
+a copy of this script placed in another checkout times that
 checkout's kernels and fp32 pipeline (the script's own directory comes
 first on the import path), which is how two commits are compared in one
 call.
@@ -28,9 +32,11 @@ order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
 1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
    (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``,
-   ``flash_attention_tf32x3_kernel``, ``cross_attention_tf32x3_kernel``; the
-   cross-attention ones with the acc and both P epilogues) is missing or
-   spills.
+   ``flash_attention_tf32x3_wgmma_kernel`` and ``split_kv_tf32x3_kernel``
+   at the head dims of ``TF32X3_WGMMA_HEAD_DIMS``,
+   ``flash_attention_tf32x3_kernel`` at the others,
+   ``cross_attention_tf32x3_kernel``; the cross-attention ones with the acc
+   and both P epilogues) is missing or spills.
 1b. The native BPE (``daam_tpu_torch/native/bpe.cpp``), built with g++
    under ``build/daam_tpu_torch/bpe/``: ``default_tokenizer()`` must be the
    ``NativeBpeTokenizer`` and give the Python BPE's tokens, padded ids and
@@ -91,7 +97,9 @@ order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
    and v2-1-base at a batch of 4 at hd 64):
    its time by CUDA events (back-to-back launches after a warm-up), its
    device time per launch (torch.profiler's self device time over 20
-   launches, so the wrappers' host cost does not stand in for kernel time),
+   launches, so the wrappers' host cost does not stand in for kernel time;
+   fp32 flash_attention at the head dims of ``TF32X3_WGMMA_HEAD_DIMS`` is
+   two device kernels a call, the split of K and V and the attention),
    its plain version's time, its bound, and the bound's share of the device
    time.  The bound is the larger of the bytes the call must move (each
    input read once, each output written once) over the H100's 3.35 TB/s and
@@ -770,16 +778,25 @@ def bound(name, shape, dtype='bf16', hd=HD):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def padded_work(name, dtype, hd) -> float:
+def padded_work(kernels, name, dtype, hd, shape) -> float:
     """The tensor-core work of a route over the work its bound counts (4 ·
     B·H·Lq·Lk·hd FLOP): bf16 flash_attention (wgmma) runs S = Q Kᵀ on hd
     rounded up to its k16 step and O = P V on whole 64-column panels past
     hd 32; bf16 K1 and K5 (mma.sync m16n8k16) run both products on hd
-    rounded up to 16; the fp32 routes (m16n8k8) on hd itself."""
+    rounded up to 16; the fp32 routes (3xTF32, k8 steps) on hd itself, and
+    fp32 flash_attention on whole 128-query blocks and whole key tiles
+    (wgmma: 64 keys, 32 at hd 80; mma.sync: 64, 32 at hd 128, 16 at 160)."""
     def up(x, step):
         return -(-x // step) * step
     if dtype == 'fp32':
-        return 1.0
+        if name != 'flash_attention':
+            return 1.0
+        _, _, Lq, Lk = shape
+        if hd in getattr(kernels, 'TF32X3_WGMMA_HEAD_DIMS', ()):  # not in older checkouts
+            bk = 64 if hd <= 64 else 32
+        else:
+            bk = 16 if hd > 128 else 32 if hd == 128 else 64
+        return up(Lq, 128) * up(Lk, bk) / (Lq * Lk)
     if name == 'flash_attention':
         return (up(hd, 16) + (hd if hd in (16, 32) else up(hd, 64))) / (2 * hd)
     return up(hd, 16) / hd
@@ -874,7 +891,11 @@ def _kernel_times(kernels, A, model, dtype):
     for row in rows:
         name, shape, per_eval, hd = row['name'], row['shape'], row['per_eval'], row['hd']
         d_ms, n_kernels = dev[f'{name} {dtype} {shape}']
-        check(n_kernels == 1, f'{name} {shape}: {n_kernels} device kernels a call')
+        # fp32 flash_attention on wgmma: the split of K and V, then the
+        # attention (kernels of older checkouts: one kernel a call)
+        want_kernels = 2 if (name == 'flash_attention' and dtype == 'fp32' and hd in getattr(
+            kernels, 'TF32X3_WGMMA_HEAD_DIMS', ())) else 1
+        check(n_kernels == want_kernels, f'{name} {shape}: {n_kernels} device kernels a call')
         (b_ms, by) = row['bound']
         tot = totals.setdefault(name, {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0,
                                        'bound_ms': 0.0, 'core_bound_ms': 0.0,
@@ -897,8 +918,8 @@ def _kernel_times(kernels, A, model, dtype):
             extra += (f' sdpa={row["lib_ms"]:.4f} ms (device {lib_dev:.4f}); '
                       f'{tflops:.1f} TFLOP/s on the device, '
                       f'{100 * tflops / peak:.1f}% of the {dtype} peak')
-        work = padded_work(name, dtype, hd)
-        if work != 1.0:  # the bound counts hd; the products run on more
+        work = padded_work(kernels, name, dtype, hd, shape)
+        if work != 1.0:  # the bound counts hd, Lq, Lk; the products run on more
             extra += f' padded products: {work:.2f}x the bound\'s FLOP;'
         print(f'time {model} {name:21s} {dtype} B,H,Lq,Lk={shape} hd={hd} x{per_eval}/eval '
               f'event={row["ms"]:.4f} ms device={d_ms:.4f} ms '
@@ -2278,6 +2299,40 @@ def golden_parity(trace, kernels) -> dict:
     return counts
 
 
+#: ``--flash-fp32``: parity cases (ragged Lq and Lk, Lk below one k8 step)
+#: and the timed self-attention shapes, at every head dim
+FLASH_FP32_PARITY = [(1, 2, 100, 150), (2, 3, 130, 77), (1, 1, 64, 5)]
+FLASH_FP32_TIMES = [(2, 8, 4096, 4096), (2, 8, 1024, 1024)]
+
+
+def flash_fp32(kernels, A):
+    """``--flash-fp32``: fp32 flash_attention at every head dim of
+    ``HEAD_DIMS`` against its plain version (TF32 off; max abs error ≤
+    1e-4) and its event time (the better of two rounds of 20 launches) at
+    ``FLASH_FP32_TIMES``, with TFLOP/s and the share of the 3xTF32 peak."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    ok = True
+    for hd in kernels.HEAD_DIMS:
+        for shape in FLASH_FP32_PARITY:
+            q, k, v = qkv(*shape, 'packed', torch.float32, gen, hd)
+            err = (kernels.flash_attention(q, k, v)
+                   - A.flash_attention_plain(q, k, v)).abs().max().item()
+            ok &= err <= TOL['fp32']
+            print(f'flash fp32 parity hd={hd} B,H,Lq,Lk={shape} max_abs_err={err:.3e}')
+        for shape in FLASH_FP32_TIMES:
+            q, k, v = qkv(*shape, 'packed', torch.float32, gen, hd)
+            ms = min(event_ms(lambda: kernels.flash_attention(q, k, v)) for _ in range(2))
+            B, H, Lq, Lk = shape
+            tflops = 4 * B * H * Lq * Lk * hd / ms / 1e9
+            print(f'flash fp32 time hd={hd} B,H,Lq,Lk={shape} event={ms:.4f} ms '
+                  f'{tflops:.1f} TFLOP/s, {100 * 3 * tflops / TF32_PEAK_TFLOPS:.1f}% '
+                  f'of the 3xTF32 peak')
+    check(ok, 'flash_attention fp32 parity')
+
+
 def card_tests():
     """Phase 8: ``tests/test_torch_cuda.py`` on the card, in a subprocess
     and without ``tests/conftest.py`` (which imports JAX); fails on a
@@ -2332,6 +2387,9 @@ def main(argv=None):
                         help="build, time the kernels (phase 6b) and v2-1-base's "
                              'fp32 steps (phase 9) only; no checks beyond the '
                              'build, no result line')
+    parser.add_argument('--flash-fp32', action='store_true',
+                        help='build, then check and time fp32 flash_attention at every '
+                             'head dim only; no result line')
     parser.add_argument('--conv-ab', action='store_true',
                         help='build, then time fp32 pipelines with TF32 and with fp32 '
                              'convolutions only; no checks beyond the build, no result '
@@ -2362,6 +2420,9 @@ def main(argv=None):
     report = ptxas_report(kernels.build_log)
     for name, lines in report.items():
         print(f'  {name}: ' + '; '.join(lines))
+    for line in kernels.build_log.splitlines():
+        if 'warning' in line.lower() or 'Performance Loss' in line:
+            print(f'  build: {line.strip()}')
     if args.kernel_times:
         for model in PATH_SHAPES:
             for dtype in DTYPES:
@@ -2375,12 +2436,19 @@ def main(argv=None):
         conv_ab(StableDiffusionPipeline, trace)
         print(smi)
         return
+    if args.flash_fp32:
+        flash_fp32(kernels, A)
+        print(smi)
+        return
     # one per head dim, but the cross-attention kernels: acc, and P in fp32
-    # and bf16, per head dim
-    n_hd = len(kernels.HEAD_DIMS)
+    # and bf16, per head dim; fp32 flash_attention on wgmma at the head dims
+    # it serves, on mma.sync at the others
+    n_hd, n_wt = len(kernels.HEAD_DIMS), len(kernels.TF32X3_WGMMA_HEAD_DIMS)
     for family, count in (('flash_attention_wgmma_kernel', n_hd),
                           ('cross_attention_mma_kernel', 3 * n_hd),
-                          ('flash_attention_tf32x3_kernel', n_hd),
+                          ('flash_attention_tf32x3_wgmma_kernel', n_wt),
+                          ('split_kv_tf32x3_kernel', n_wt),
+                          ('flash_attention_tf32x3_kernel', n_hd - n_wt),
                           ('cross_attention_tf32x3_kernel', 3 * n_hd)):
         tensor_core = [n for n in report if family in n]
         check(len(tensor_core) == count,

@@ -54,48 +54,69 @@
 //   TFLOP/s, a third of the bf16 peak: each warpgroup's exp2 and its
 //   products take turns), against 2.17 ms for the plain PyTorch version,
 //   and 0.90 ms of device time over one UNet evaluation's K2 launches.
-//   fp32 (what daam-torch runs by default) goes to
-//   flash_attention_tf32x3_kernel.  Plain TF32 would round each operand to
-//   10 mantissa bits (2^-11 relative) and miss the fp32 gate of 1e-4, and
-//   the CUDA cores (67 TFLOP/s) bound the work at 3.7 ms per evaluation;
-//   the former CUDA-core kernel took 3.97 ms at (2, 5, 4096, 4096) and
-//   23.6 ms per evaluation.  So both products run as 3xTF32: each fp32
+//   fp32 (what daam-torch runs by default) runs both products as 3xTF32:
+//   plain TF32 would round each operand to 10 mantissa bits (2^-11
+//   relative) and miss the fp32 gate of 1e-4, and the CUDA cores (67
+//   TFLOP/s) bound the work at 3.7 ms per SD 2.1 evaluation.  Each fp32
 //   operand x is split into hi = tf32(x) and lo = tf32(x - hi), and
 //   hi·hi + hi·lo + lo·hi, summed in fp32, is the product within ~2^-21
 //   relative: three TF32 products (bound 1.52 ms per evaluation at 495
-//   TFLOP/s).  TF32 wgmma takes only K-major operands from shared memory,
-//   and V (keys x hd, hd contiguous) is MN-major for P V, so the kernel
-//   uses mma.sync m16n8k8, whose fragments it loads itself:
+//   TFLOP/s).  At hd 16 to 128 they run on wgmma m64nNk8, Hopper's only way
+//   to that rate, as split_kv_tf32x3_kernel and then
+//   flash_attention_tf32x3_wgmma_kernel:
+//   - TF32 wgmma reads only K-major operands from shared memory.  k (keys x
+//     hd, hd contiguous) is K-major for S = Q Kᵀ as it lies; v is not for
+//     P V.  So split_kv_tf32x3_kernel splits k and v once per call into
+//     stage images in device memory (WtTile): k hi and lo in 32-byte
+//     swizzled panels, v transposed (hd rows of keys) in 128-byte swizzled
+//     panels.  Splitting in each 128-query block instead (a producer
+//     warpgroup beside two consumers) repeated the work Lq / 128 times and
+//     held the products to 0.69 ms at (2, 5, 4096, 4096);
+//   - a 256-thread block owns (b, h, 128 queries), a warpgroup per 64
+//     rows; its thread 0 keeps the next tiles' images in flight, one bulk
+//     copy (cp.async.bulk) each, through a ring of three stages (two at hd
+//     128; 64-key tiles, 32 past hd 64) whose mbarriers mark them full and
+//     empty.  A ninth warp would cap every thread at 168 registers (three
+//     warps on one of the SM's four register files), where hd 64 spilled
+//     and ptxas serialized the products; 256 threads get 255;
+//   - S = Q Kᵀ per k8 step: (Q lo, k hi) with Q lo from shared memory,
+//     then (Q hi, k lo) and (Q hi, k hi) with Q hi from registers (with Q
+//     lo in registers too, ptxas handed some of them to P lo at hd 64);
+//   - the online softmax runs on the fp32 S fragment (row max and sum over
+//     a quad, exp2 with the scale folded in, keys past Lk at -inf); P is not
+//     rounded, as the Pallas body's p.astype(v.dtype) is a no-op in fp32;
+//   - P never leaves registers: the S fragment gives lane (g, t) keys 2t
+//     and 2t + 1 of an n8 tile, the TF32 A fragment wants columns t and
+//     t + 4, so P is stored in A order and the split wrote each 8 keys of
+//     vᵀ in the matching column order.  P hi is P itself (the tensor core
+//     reads its top 19 bits), so (P, vᵀ lo) and (P, vᵀ hi) go first, then
+//     P lo = tf32(P - hi) replaces P in place for (P lo, vᵀ hi);
+//   - O is divided by the row sum at the end and stored with 8-byte stores.
+//   On an H100 80GB HBM3 at a 700 W power limit the pair takes 0.428 ms of
+//   device time at (2, 5, 4096, 4096) (100 TFLOP/s of fp32 work, 61% of the
+//   3xTF32 bound) and 3.01 ms per SD 2.1 evaluation, against 0.837 and 5.22
+//   ms for the mma.sync kernel below and 8.25 ms for SDPA in fp32.  Its two
+//   launches cost more than one at Lq 64 and 256 and at Lk 77, where the
+//   mma.sync kernel took 7-10 us and the pair takes 13-23 us.
+//   hd 160 (SD 1.x's lowest levels) stays on flash_attention_tf32x3_kernel:
+//   its Q lo and two 32-key stages would pass 227 KB.  That kernel splits in
+//   the block and runs mma.sync m16n8k8 (~316 TFLOP/s of TF32 on this card,
+//   scripts/mma_sync_rate.cu, so ~105 TFLOP/s of fp32 work at most):
 //   - a 256-thread block owns (b, h, 128 queries), 16 per warp; cp.async
-//     copies the q tile once; k and v tiles (64 keys, 32 at hd 128, 16 at
-//     hd 160) pass
-//     through registers, where each element is split once for the whole
-//     block (split in each warp, it was split eight times), and their hi
-//     and lo parts go
-//     to a two-stage ring in shared memory; the next tile's loads fly while
-//     this tile's products run, and one barrier a tile suffices.  fp32 rows
-//     are padded to hd + 4 floats, so the eight rows of an ldmatrix and the
-//     32 loads of a V fragment hit 32 banks; keys past Lk load as zeros and
-//     are scored -inf;
+//     copies the q tile once; 16-key k and v tiles pass through registers,
+//     where each element is split once for the whole block, and their hi
+//     and lo parts go to a two-stage ring in shared memory; the next tile's
+//     loads fly while this tile's products run, and one barrier a tile
+//     suffices.  fp32 rows are padded to hd + 4 floats, so the eight rows of
+//     an ldmatrix and the 32 loads of a V fragment hit 32 banks;
 //   - q and k fragments come by ldmatrix, which moves each float as two b16
 //     halves and so hands lane (g, t) row g, column t of an 8 x 4 float
-//     block: the tf32 A and B layouts.  Each warp splits its q fragment per
-//     k8 step;
-//   - the online softmax runs on the fp32 S fragment (row max and sum over
-//     a quad, exp2 with the scale folded in); P is not rounded, as the
-//     Pallas body's p.astype(v.dtype) is a no-op in fp32;
-//   - P never leaves registers: the S fragment gives lane (g, t) keys 2t
-//     and 2t + 1 of an n8 tile, the k8 A fragment wants columns t and t + 4,
-//     so each P V step reads its columns as keys in that permuted order and
-//     loads V's B fragment (plain 32-bit shared loads: ldmatrix.trans moves
-//     only 16-bit elements) from rows 2t and 2t + 1;
-//   - O is divided by the row sum at the end and stored with 8-byte stores.
-//   On an H100 80GB HBM3 at a 700 W power limit it takes 0.836 ms at
-//   (2, 5, 4096, 4096) (51 TFLOP/s) and 5.22 ms of device time per SD 2.1
-//   evaluation, against 1.34 and 8.23 ms for SDPA in fp32.  mma.sync
-//   m16n8k8 TF32 peaks at ~316 TFLOP/s on that card
-//   (scripts/mma_sync_rate.cu), so 3xTF32 on it cannot pass ~105 TFLOP/s
-//   of fp32 work; the split, the loads and the softmax take the rest.
+//     block: the tf32 A and B layouts;
+//   - P's A fragment comes from the S fragment by permuting keys within
+//     each k8 step, and V's B fragment (plain 32-bit shared loads:
+//     ldmatrix.trans moves only 16-bit elements) from rows 2t and 2t + 1.
+//   It takes 0.054 ms at (2, 8, 256, 256) and 3.19 ms at (2, 8, 4096, 4096)
+//   (54 TFLOP/s).
 // * cross_attention_acc (K1, the DAAM capture) and cross_attention_probs
 //   (K5, replacing cross_attention_probs :405; body _cross_attn_kernel
 //   :347, the 'full'/'cond' capture behind save_heads) are memory bound.
@@ -156,13 +177,15 @@
 //
 // No kernel synchronizes with the host or allocates memory; the
 // Python wrapper (daam_tpu_torch/ops/kernels.py) checks shapes, strides and
-// types, allocates o, and raises on the error code each entry point returns.
+// types, allocates o (and fp32 flash_attention's split K/V scratch), and
+// raises on the error code each entry point returns.
 //
-// tests/torch_emulate/warp.h runs every kernel but the wgmma one on the
+// tests/torch_emulate/warp.h runs every kernel but the bf16 wgmma one on the
 // CPU: it defines DAAM_EMULATE, stands in for the CUDA headers and
-// hopper.cuh's cp.async, ldmatrix, mma.sync (bf16 and TF32) and TF32
-// rounding, and defines the three macros below its own way.  The TMA and
-// wgmma pieces (flash_attention_wgmma_kernel) are left out there.
+// hopper.cuh's cp.async, ldmatrix, mma.sync (bf16 and TF32), TF32 wgmma with
+// A from registers, mbarriers and bulk copies, and defines the three macros
+// below its own way.  The TMA tensor-map pieces
+// (flash_attention_wgmma_kernel) are left out there.
 
 #include <math.h>
 #include <stdio.h>
@@ -175,8 +198,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "hopper.cuh"
-
 // y = 2^x, approximate (2 ulp), flushing denormals.
 #define DAAM_EX2(y, x) asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x))
 // The block's dynamic shared memory as an array `name` of `type`.
@@ -185,6 +206,8 @@
 #define DAAM_LAUNCH(grid, threads, smem, stream, ...) \
   __VA_ARGS__<<<grid, threads, smem, stream>>>
 #endif
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -233,6 +256,13 @@ __device__ __forceinline__ void split_tf32(const uint32_t (&x)[4], uint32_t (&hi
                                            uint32_t (&lo)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(x[i]), hi[i], lo[i]);
+}
+
+// The lo part of an fp32 value x (raw bits) whose hi part is x itself, as
+// the tensor core reads it: its top 19 bits.  x - hi is exact in fp32 and
+// rounded to TF32 here, so hi + lo = x + O(2^-21 x).
+__device__ __forceinline__ uint32_t tf32_lo(uint32_t x) {
+  return tf32_round(__uint_as_float(x) - __uint_as_float(x & 0xffffe000u));
 }
 
 // d += a b on the tensor cores in 3xTF32 (mma.sync m16n8k8, fp32 sums).
@@ -285,12 +315,12 @@ constexpr int FT_THREADS = 256;
 // a warp's 32 loads of a V fragment (rows 2t and 2t + 1, column g), each
 // fall in 32 different banks (hd + 4 is 4 mod 8 at every head dim).  A
 // stage of the ring holds a tile's k and v, each split into its TF32 hi
-// and lo parts: four arrays of BK rows.  The tile shrinks with hd so that
-// q and two stages fit in 227 KB (hd 80: 210 KB; hd 160 at 32 keys would
-// need 246 KB, so it takes 16).
+// and lo parts: four arrays of BK rows.  Only hd 160 comes here
+// (wgmma_tf32x3_serves takes the others), where q and two stages of 32
+// keys would need 246 KB, so a tile holds 16.
 template <int HD>
 struct FtTile {
-  static constexpr int BK = HD > 128 ? 16 : HD == 128 ? 32 : 64;  // keys per tile
+  static constexpr int BK = 16;                       // keys per tile
   static constexpr int STR = HD + 4;
   static constexpr int KV = BK * STR;                 // floats of one array
   static constexpr int SMEM = (FT_BQ * STR + 2 * 4 * KV) * 4;  // q, two stages
@@ -505,6 +535,360 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     for (int jd = 0; jd < HD / 8; ++jd)
       *reinterpret_cast<float2*>(ob + (r + 8) * row + 8 * jd) =
           make_float2(oacc[jd][2] * inv1, oacc[jd][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention, fp32, on the tensor cores (wgmma, 3xTF32)
+// ---------------------------------------------------------------------------
+
+constexpr int WT_BQ = 128;            // queries per block: 64 per consumer warpgroup
+constexpr int WT_THREADS = 256;       // two warpgroups; thread 0 also copies
+// (a ninth warp would put three warps on one of the SM's four register files
+// and cap every thread at 168 registers, as ptxas compiles a 288- or
+// 384-thread block, setmaxnreg or not)
+constexpr int WT_SPLIT_THREADS = 128;
+
+// The head dims flash_attention_tf32x3_wgmma_kernel serves; the others stay
+// on flash_attention_tf32x3_kernel (mma.sync).  A thread holds its O
+// fragment (hd / 2 floats), Q's hi fragment (hd / 2) and a 32- or 64-key S
+// fragment; at hd 160 the block's Q lo and two 32-key stages would pass
+// 227 KB of shared memory.
+constexpr bool wgmma_tf32x3_serves(int hd) {
+  return hd == 16 || hd == 32 || hd == 40 || hd == 64 || hd == 80 || hd == 128;
+}
+
+// One stage image: a tile of BK keys of k and v, each split into its TF32
+// hi and lo parts, laid out as wgmma reads K-major B operands:
+// - k hi and k lo (keys x hd, hd contiguous) as hd / 8 panels of BK rows of
+//   32 bytes (one k8 step of S = Q Kᵀ each), 32-byte swizzle;
+// - vᵀ hi and vᵀ lo (hd x keys, keys contiguous) as BK / 32 panels of hd
+//   rows of 128 bytes (four k8 steps of O += P V each), 128-byte swizzle,
+//   the columns of each 8 keys permuted (wt_v_at).
+// split_kv_tf32x3_kernel writes the images of every tile to device memory
+// once per call, and flash_attention_tf32x3_wgmma_kernel copies them whole
+// into a ring of STAGES stages, beside Q's lo part.  Past hd 64 the tiles
+// hold 32 keys, so that three stages fit 227 KB at hd 80 and two at 128.
+template <int HD>
+struct WtTile {
+  static constexpr int BK = HD > 64 ? 32 : 64;        // keys per tile
+  static constexpr int CH = HD / 4;                   // 16-byte chunks of a row
+  static constexpr int PART = BK * HD * 4;            // bytes of one split part
+  static constexpr int STAGE = 4 * PART;              // k hi, k lo, vᵀ hi, vᵀ lo
+  static constexpr int QLO = 64 * HD * 4;             // a warpgroup's Q lo
+  static constexpr int STAGES = 1024 + 3 * STAGE + 2 * QLO + 48 <= 227 * 1024 ? 3 : 2;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * QLO + 16 * STAGES;
+  static_assert(PART % 1024 == 0, "WtTile: hd must be a multiple of 8");
+};
+
+// Byte offset of element (row r, column 4 c) in a k part of BK rows (or in
+// a warpgroup's Q lo, 64 rows): panel c / 2, row r, 16-byte unit c % 2
+// swizzled by bit 2 of the row (32-byte swizzle: address bit 4 ^= bit 7).
+template <int BK>
+__device__ __forceinline__ int wt_k_at(int r, int c) {
+  return (c / 2) * BK * 32 + r * 32 + (((c ^ (r >> 2)) & 1) << 4);
+}
+
+// Byte offset of v's element (key r, column d) in a vᵀ part.  The S
+// fragment gives lane (g, t) keys 2t and 2t + 1 of each n8 tile, and P goes
+// in as the A fragment of a k8 step unshuffled, whose columns t and t + 4
+// those keys become; so key r of each 8 is column (r % 8) / 2 + 4 (r % 2)
+// of its k8 step, and vᵀ's row d holds the keys in that order.  Panel
+// col / 32, row d, 16-byte unit (col % 32) / 4 swizzled by d % 8 (128-byte
+// swizzle: address bits 4-6 ^= bits 7-9).
+template <int HD>
+__device__ __forceinline__ int wt_v_at(int r, int d) {
+  const int col = (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+  const int c32 = col % 32;
+  return (col / 32) * HD * 128 + d * 128 + ((((c32 >> 2) ^ d) & 7) << 4) + (c32 & 3) * 4;
+}
+
+// Block (tile, h, b): the stage image of keys tile * BK .. + BK - 1 of head h
+// of sample b (keys past Lk as zeros: their scores are set to -inf, and
+// P = 0 must meet finite v), built in shared memory and written to
+// kv[b][h][tile] with 16-byte stores.
+template <int HD>
+__global__ void __launch_bounds__(WT_SPLIT_THREADS)
+split_kv_tf32x3_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                       uint8_t* __restrict__ kv, int H, int Lk, int n_tiles, Strides ks,
+                       Strides vs) {
+  using T = WtTile<HD>;
+  constexpr int BK = T::BK;
+  DAAM_DYNAMIC_SMEM(uint8_t, img);
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  // k: 8 keys by 4 chunks a warp, so each key's row is read 64 bytes at a
+  // time and eight lanes in a row store to eight different rows of a panel.
+  for (int e = threadIdx.x; e < BK * T::CH; e += WT_SPLIT_THREADS) {
+    const int c = (e / 8) % T::CH, r = 8 * (e / (8 * T::CH)) + e % 8;
+    const int key = tile * BK + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < Lk) x = *reinterpret_cast<const float4*>(kb + key * ks.l + 4 * c);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(img + wt_k_at<BK>(r, c)) = hi;
+    *reinterpret_cast<uint4*>(img + T::PART + wt_k_at<BK>(r, c)) = lo;
+  }
+  // v transposed: a warp's lanes take 32 consecutive keys of one chunk, so
+  // its stores into a vᵀ row (one panel) hit 32 banks.
+  for (int e = threadIdx.x; e < BK * T::CH; e += WT_SPLIT_THREADS) {
+    const int r = e % BK, c = e / BK, key = tile * BK + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < Lk) x = *reinterpret_cast<const float4*>(vb + key * vs.l + 4 * c);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t hi, lo;
+      split_tf32(xs[j], hi, lo);
+      *reinterpret_cast<uint32_t*>(img + 2 * T::PART + wt_v_at<HD>(r, 4 * c + j)) = hi;
+      *reinterpret_cast<uint32_t*>(img + 3 * T::PART + wt_v_at<HD>(r, 4 * c + j)) = lo;
+    }
+  }
+  __syncthreads();
+  uint4* out = reinterpret_cast<uint4*>(
+      kv + (((long long)b * H + h) * n_tiles + tile) * T::STAGE);
+  for (int i = threadIdx.x; i < T::STAGE / 16; i += WT_SPLIT_THREADS)
+    out[i] = reinterpret_cast<const uint4*>(img)[i];
+}
+
+template <int HD>
+__global__ void __launch_bounds__(WT_THREADS, 1)
+flash_attention_tf32x3_wgmma_kernel(const float* __restrict__ q, const uint8_t* __restrict__ kv,
+                                    float* __restrict__ o, int H, int Lq, int Lk, Strides qs,
+                                    float scale_log2) {
+  using namespace hopper;
+  using T = WtTile<HD>;
+  constexpr int BK = T::BK, STAGES = T::STAGES;
+  DAAM_DYNAMIC_SMEM(uint8_t, wt_smem);
+  // 128-byte swizzle repeats every 1024 bytes; the ring starts on that
+  // boundary (every part is a multiple of 1024 bytes).
+  const uint32_t ring = (smem_u32(wt_smem) + 1023) & ~1023u;
+  const uint32_t qlo = ring + STAGES * T::STAGE;   // + wg * T::QLO
+  const uint32_t full = qlo + 2 * T::QLO;          // + 8 * stage
+  const uint32_t empty = full + 8 * STAGES;        // + 8 * stage
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * WT_BQ;
+  const int n_tiles = (Lk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);     // thread 0's arrival, then the bytes
+      mbar_init(empty + 8 * s, 256);  // every thread, after its products
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Thread 0 also keeps the stage images in flight, one bulk copy of
+  // T::STAGE bytes a tile: up to STAGES tiles ahead, as the stages come
+  // free (test_wait: it does not block its warpgroup on the other), and
+  // blocking only for the tile about to be consumed.
+  const uint8_t* src = kv + ((long long)b * H + h) * n_tiles * T::STAGE;
+  int next_load = 0;
+  auto refill = [&](int upto, bool block) {
+    for (upto = min(upto, n_tiles); next_load < upto; ++next_load) {
+      const int s = next_load % STAGES;
+      const uint32_t parity = ((next_load / STAGES) & 1) ^ 1;  // its previous use done
+      if (block) mbar_wait(empty + 8 * s, parity);
+      else if (!mbar_test(empty + 8 * s, parity)) break;
+      mbar_arrive_expect_tx(full + 8 * s, T::STAGE);
+      bulk_load(ring + s * T::STAGE, src + (long long)next_load * T::STAGE, T::STAGE,
+                full + 8 * s);
+    }
+  };
+
+  // Warpgroup wg owns queries q0 + 64 wg .. + 63; a thread holds rows r and
+  // r + 8 (r = 16 warp + lane / 4) of S and O (wgmma_tf32_rs).
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = q0 + wg * 64 + warp * 16 + g;
+
+  // Q's A fragments, split once: hd / 8 k8 steps of 4 hi in registers;
+  // the lo parts go to the warpgroup's Q lo in shared memory, laid out as a
+  // k part of 64 rows (the (Q lo, k hi) product reads them from there).
+  // With lo in registers too, ptxas gave some of them to P's lo part in the
+  // loop at hd 64, and the next tile's S read P lo as Q lo.
+  uint32_t qh[HD / 8][4];
+  uint8_t* qlo_wg = wt_smem + (qlo - smem_u32(wt_smem)) + wg * T::QLO;
+  {
+    const float* qb = q + b * qs.b + h * qs.h;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+        uint32_t lo;
+        split_tf32(row < Lq ? qb[row * qs.l + col] : 0.f, qh[kk][i], lo);
+        const int r = warp * 16 + g + 8 * (i & 1);  // row within the warpgroup
+        *reinterpret_cast<uint32_t*>(qlo_wg + wt_k_at<64>(r, 2 * kk + (i >> 1)) + 4 * t) = lo;
+      }
+  }
+  fence_proxy_async();  // the Q lo stores, before wgmma reads them
+  __syncthreads();
+  const uint64_t ql = make_desc(qlo + wg * T::QLO, 16, 256, 3);
+  float oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, log2 domain
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the sums
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    if (threadIdx.x == 0) {
+      refill(tile + 1, true);
+      refill(tile + STAGES, false);
+    }
+    __syncwarp();
+    const int s = tile % STAGES;
+    mbar_wait(full + 8 * s, (tile / STAGES) & 1);
+    // One descriptor per part; a step adds its byte offset / 16 to the
+    // start address field.
+    const uint32_t st = ring + s * T::STAGE;
+    const uint64_t kh = make_desc(st, 16, 256, 3), kl = make_desc(st + T::PART, 16, 256, 3);
+    const uint64_t vh = make_desc(st + 2 * T::PART, 16, 1024, 1);
+    const uint64_t vl = make_desc(st + 3 * T::PART, 16, 1024, 1);
+
+    // S = Q Kᵀ in 3xTF32, small terms first: k8 step kk reads panel kk of
+    // Q lo and of the k parts (SBO: 8 rows of 32 bytes).
+    float sacc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      const uint32_t off = kk * BK * 32 / 16;
+      wgmma_tf32_ss<BK>(sacc, ql + kk * 64 * 32 / 16, kh + off, kk > 0);
+      wgmma_tf32_rs<BK>(sacc, qh[kk], kl + off, 1);
+      wgmma_tf32_rs<BK>(sacc, qh[kk], kh + off, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // Keys past Lk were zero-filled, which scores 0, not -inf.
+    if ((tile + 1) * BK > Lk) {
+      const int col0 = tile * BK + 2 * t;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col0 + 8 * j + (e & 1) >= Lk) sacc[4 * j + e] = -INFINITY;
+    }
+
+    // Online softmax over the tile, rows reduced across the 4 lanes of a
+    // quad.  Key 0 lies in the first tile, so the new max is finite and
+    // the first tile's correction is exp2(-inf) = 0.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      oacc[4 * j] *= c0;
+      oacc[4 * j + 1] *= c0;
+      oacc[4 * j + 2] *= c1;
+      oacc[4 * j + 3] *= c1;
+    }
+    // Unnormalized P = exp(s - m) in fp32, in place (the Pallas body's
+    // p.astype(v.dtype) is no rounding in fp32), summed.  The S fragment
+    // of n8 tile j holds (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1);
+    // P is stored as (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1),
+    // the A fragment of k8 step j of P V (rows g, g + 8, g, g + 8), whose
+    // columns t and t + 4 the keys 2t and 2t + 1 become (wt_v_at), so
+    // four consecutive registers go in as they are.
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p00 = ex2(fmaf(sacc[4 * j], scale_log2, -mn0));
+      const float p01 = ex2(fmaf(sacc[4 * j + 1], scale_log2, -mn0));
+      const float p10 = ex2(fmaf(sacc[4 * j + 2], scale_log2, -mn1));
+      const float p11 = ex2(fmaf(sacc[4 * j + 3], scale_log2, -mn1));
+      l0 += p00 + p01;
+      l1 += p10 + p11;
+      sacc[4 * j] = p00;
+      sacc[4 * j + 1] = p10;
+      sacc[4 * j + 2] = p01;
+      sacc[4 * j + 3] = p11;
+    }
+
+    // O += P V in 3xTF32.  P's hi is P itself (the tensor core reads its
+    // top 19 bits), so P hi·(vᵀ lo, vᵀ hi) go first, straight from the
+    // S fragment; then P lo = tf32(P - hi) replaces P in place for
+    // P lo·vᵀ hi.  k8 step u reads keys 8u .. 8u + 7, 32 bytes on along a
+    // 128-byte row of vᵀ, a panel (hd rows, SBO 8 rows of 128 bytes) per
+    // 4 steps.
+    auto pv = [&](uint64_t vt, int u) {
+      const uint32_t pa[4] = {__float_as_uint(sacc[4 * u]), __float_as_uint(sacc[4 * u + 1]),
+                              __float_as_uint(sacc[4 * u + 2]),
+                              __float_as_uint(sacc[4 * u + 3])};
+      wgmma_tf32_rs<HD>(oacc, pa, vt + ((u / 4) * HD * 128 + (u % 4) * 32) / 16, 1);
+    };
+    fence_regs(sacc);
+    fence_regs(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < BK / 8; ++u) {
+      pv(vl, u);
+      pv(vh, u);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(sacc);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = __uint_as_float(tf32_lo(__float_as_uint(sacc[i])));
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < BK / 8; ++u) pv(vh, u);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    mbar_arrive(empty + 8 * s);  // this thread's products have read stage s
+  }
+
+  // O / l, (B, Lq, H*hd): a quad's four lanes store a row's 32 bytes of an
+  // n8 tile.
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const long long row = (long long)H * HD;
+  float* ob = o + (long long)b * Lq * row + h * HD + 2 * t;
+  if (r0 < Lq) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(ob + r0 * row + 8 * j) =
+          make_float2(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+  }
+  if (r0 + 8 < Lq) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(ob + (r0 + 8) * row + 8 * j) =
+          make_float2(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
   }
 }
 
@@ -1396,6 +1780,41 @@ cudaError_t launch_flash_tf32x3(int device, const void* q, const void* k, const 
   return cudaGetLastError();
 }
 
+// Bytes of the stage images of every tile of every (b, h): the scratch
+// split_kv_tf32x3_kernel writes.
+template <int HD>
+long long wt_scratch_bytes(int B, int H, int Lk) {
+  using T = WtTile<HD>;
+  return (long long)B * H * ((Lk + T::BK - 1) / T::BK) * T::STAGE;
+}
+
+// The split of k and v into `scratch` (wt_scratch_bytes), then the
+// attention over it; two launches on one stream.
+template <int HD>
+cudaError_t launch_flash_tf32x3_wgmma(int device, const void* q, const void* k, const void* v,
+                                      void* o, void* scratch, int B, int H, int Lq, int Lk,
+                                      Strides qs, Strides ks, Strides vs, float scale,
+                                      cudaStream_t stream) {
+  using T = WtTile<HD>;
+  static bool split_set[64] = {}, smem_set[64] = {};
+  cudaError_t err = opt_in_smem(split_kv_tf32x3_kernel<HD>, device, T::STAGE, split_set);
+  if (err == cudaSuccess)
+    err = opt_in_smem(flash_attention_tf32x3_wgmma_kernel<HD>, device, T::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  uint8_t* kv = static_cast<uint8_t*>(scratch);
+  const int n_tiles = (Lk + T::BK - 1) / T::BK;
+  DAAM_LAUNCH(dim3(n_tiles, H, B), WT_SPLIT_THREADS, T::STAGE, stream,
+              split_kv_tf32x3_kernel<HD>)(static_cast<const float*>(k),
+                                          static_cast<const float*>(v), kv, H, Lk, n_tiles, ks,
+                                          vs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  DAAM_LAUNCH(dim3((Lq + WT_BQ - 1) / WT_BQ, H, B), WT_THREADS, T::SMEM, stream,
+              flash_attention_tf32x3_wgmma_kernel<HD>)(
+      static_cast<const float*>(q), kv, static_cast<float*>(o), H, Lq, Lk, qs, scale * LOG2E);
+  return cudaGetLastError();
+}
+
 // The fp32 kernels: acc (ACC) or P of type PT.  Every Lk fits.
 template <int HD, typename PT, bool ACC>
 cudaError_t launch_cross_tf32x3(int device, const void* q, const void* k, const void* v,
@@ -1555,21 +1974,45 @@ int cross_dispatch(int device, int hd, const void* q, const void* k, const void*
 // Plain C interface, bound with ctypes.  Each returns the cudaError_t of its
 // launch (0 on success).
 
-// fp32 only, on the tensor cores in 3xTF32; every view's base must be
-// 16-byte aligned and its b, l, h strides multiples of 4 elements (16
-// bytes), as cp.async requires.  bf16 goes to daam_flash_attention_wgmma.
+// Bytes of device memory daam_flash_attention_tf32x3 needs as scratch at
+// this call's head dim and sizes (0 where flash_attention_tf32x3_kernel
+// serves hd; -1 for a head dim without kernels).
+extern "C" long long daam_flash_attention_tf32x3_scratch(int hd, int B, int H, int Lk) {
+  long long bytes = -1;
+  by_head_dim(hd, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    if constexpr (wgmma_tf32x3_serves(HD)) bytes = wt_scratch_bytes<HD>(B, H, Lk);
+    else bytes = 0;
+    return 0;
+  });
+  return bytes;
+}
+
+// fp32 only, on the tensor cores in 3xTF32: split_kv_tf32x3_kernel, then
+// flash_attention_tf32x3_wgmma_kernel, at the head dims they serve
+// (wgmma_tf32x3_serves; `scratch`: 16-byte aligned, of
+// daam_flash_attention_tf32x3_scratch bytes), else
+// flash_attention_tf32x3_kernel (mma.sync; `scratch` unused).  Every view's
+// base must be 16-byte aligned and its b, l, h strides multiples of 4
+// elements (16 bytes), as the 16-byte loads and cp.async require.  bf16 goes
+// to daam_flash_attention_wgmma.
 extern "C" int daam_flash_attention_tf32x3(int device, int hd, const void* q,
                                            const void* k, const void* v, void* o,
-                                           int B, int H, int Lq, int Lk, int qsb,
-                                           int qsl, int qsh, int ksb, int ksl,
+                                           void* scratch, int B, int H, int Lq, int Lk,
+                                           int qsb, int qsl, int qsh, int ksb, int ksl,
                                            int ksh, int vsb, int vsl, int vsh,
                                            float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Strides qs{qsb, qsl, qsh}, ks{ksb, ksl, ksh}, vs{vsb, vsl, vsh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return by_head_dim(hd, [&](auto c) {
-    return launch_flash_tf32x3<decltype(c)::value>(device, q, k, v, o, B, H, Lq, Lk, qs, ks,
-                                                   vs, scale, static_cast<cudaStream_t>(stream));
+    constexpr int HD = decltype(c)::value;
+    if constexpr (wgmma_tf32x3_serves(HD))
+      return launch_flash_tf32x3_wgmma<HD>(device, q, k, v, o, scratch, B, H, Lq, Lk, qs, ks,
+                                           vs, scale, st);
+    else
+      return launch_flash_tf32x3<HD>(device, q, k, v, o, B, H, Lq, Lk, qs, ks, vs, scale, st);
   });
 }
 

@@ -28,13 +28,17 @@ import torch
 
 __all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
            'launches', 'reset_launches', 'load_library', 'tma_view_error',
-           'cross_route_error', 'HEAD_DIMS']
+           'cross_route_error', 'HEAD_DIMS', 'TF32X3_WGMMA_HEAD_DIMS']
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'daam_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 HEAD_DIMS = (16, 32, 40, 64, 80, 128, 160)
+#: The head dims at which fp32 :func:`flash_attention` runs
+#: ``flash_attention_tf32x3_wgmma_kernel`` (``wgmma_tf32x3_serves`` in
+#: ``csrc/attention.cu``); the others run ``flash_attention_tf32x3_kernel``.
+TF32X3_WGMMA_HEAD_DIMS = (16, 32, 40, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
@@ -108,7 +112,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i = ctypes.c_void_p, ctypes.c_int
     common = [i, i, ptr, ptr, ptr, ptr]  # device, hd, q, k, v, o
     dims = [i] * 4 + [i] * 9 + [ctypes.c_float, ptr]
-    for fn, extra in ((lib.daam_flash_attention_tf32x3, []),
+    for fn, extra in ((lib.daam_flash_attention_tf32x3, [ptr]),
                       (lib.daam_flash_attention_wgmma, []),
                       (lib.daam_cross_attention_acc_tf32x3, [ptr]),
                       (lib.daam_cross_attention_acc_mma, [ptr]),
@@ -116,6 +120,8 @@ def load_library() -> ctypes.CDLL:
                       (lib.daam_cross_attention_probs_mma, [ptr, i, i])):
         fn.argtypes = common + extra + dims
         fn.restype = i
+    lib.daam_flash_attention_tf32x3_scratch.argtypes = [i] * 4
+    lib.daam_flash_attention_tf32x3_scratch.restype = ctypes.c_longlong
     lib.daam_error_string.argtypes = [i]
     lib.daam_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -225,13 +231,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     ``q``: (B, Lq, H, hd), ``k``/``v``: (B, Lk, H, hd) views with a
     contiguous hd axis.  Returns (B, Lq, H·hd).
 
-    The kernel is chosen by dtype; both run on the tensor cores.  bf16 takes
-    ``flash_attention_wgmma_kernel`` (wgmma for both products, TMA loads),
-    fp32 ``flash_attention_tf32x3_kernel`` (mma.sync for both products in
-    3xTF32: each operand split into two TF32 parts and three products
-    taken, which keeps fp32 accuracy; cp.async loads).  TMA and cp.async
-    both read in 16-byte pieces, so every view needs a 16-byte-aligned base
-    and b, l, h strides that are multiples of 16 bytes
+    The kernel is chosen by dtype; all run on the tensor cores.  bf16 takes
+    ``flash_attention_wgmma_kernel`` (wgmma for both products, TMA loads).
+    fp32 runs both products in 3xTF32 (each operand split into two TF32
+    parts and three products taken, which keeps fp32 accuracy): at the
+    head dims of :data:`TF32X3_WGMMA_HEAD_DIMS` on wgmma, as
+    ``split_kv_tf32x3_kernel`` (K and V split once per call into a scratch
+    tensor this wrapper allocates, V transposed) and
+    ``flash_attention_tf32x3_wgmma_kernel`` (its thread 0 bulk-copies the
+    split tiles into a ring of stages); at the others on
+    ``flash_attention_tf32x3_kernel`` (mma.sync, cp.async loads).  Each call
+    counts once on ``launches['flash_attention_tf32x3']``.  TMA, cp.async
+    and the split's loads all read in 16-byte pieces, so every view needs a
+    16-byte-aligned base and b, l, h strides that are multiples of 16 bytes
     (:func:`tma_view_error`; any other view raises).
     """
     B, Lq, Lk, H, hd = _check_qkv(q, k, v)
@@ -240,14 +252,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         why = tma_view_error(t.shape, t.stride(), t.data_ptr(), t.element_size())
         if why:
             raise ValueError(f'{name}: {q.dtype} flash_attention reads its inputs '
-                             f'by {"TMA" if bf16 else "16-byte cp.async"}: {why}')
+                             f'by {"TMA" if bf16 else "16-byte loads (cp.async)"}: '
+                             f'{why}')
     o = torch.empty(B, Lq, H * hd, dtype=q.dtype, device=q.device)
     strides, scale, stream = _args(q, k, v)
     lib = load_library()
-    launch = (lib.daam_flash_attention_wgmma if bf16
-              else lib.daam_flash_attention_tf32x3)
-    err = launch(q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), B, H, Lq, Lk, *strides, scale, stream)
+    if bf16:
+        err = lib.daam_flash_attention_wgmma(
+            q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), B, H, Lq, Lk, *strides, scale, stream)
+    else:
+        # the split K/V tiles the wgmma route copies from (0 bytes on the
+        # mma.sync route; -1 for a head dim without kernels, which raises)
+        n = lib.daam_flash_attention_tf32x3_scratch(hd, B, H, Lk)
+        scratch = (torch.empty(n, dtype=torch.uint8, device=q.device)
+                   if n > 0 else None)
+        err = lib.daam_flash_attention_tf32x3(
+            q.device.index, hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, H, Lq, Lk, *strides, scale, stream)
     _raise_on(err, 'flash_attention')
     launches['flash_attention'] += 1
     launches['flash_attention_wgmma' if bf16 else 'flash_attention_tf32x3'] += 1

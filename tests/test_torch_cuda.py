@@ -171,7 +171,23 @@ def test_cross_attention_probs_kernel_matches_plain_on_card(hd, Lk, probs_dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('hd', [40, 64])
+@pytest.mark.parametrize('hd', kernels.TF32X3_WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize('Lk', [1, 7, 63, 65, 100, 300])
+def test_fp32_flash_attention_wgmma_at_ragged_lk_on_card(hd, Lk, cuda_device):
+    """fp32 K2 on its wgmma kernel at Lk that are not a multiple of its
+    key tile (64 keys, 32 at hd 80 and 128), below one k8 step among them, and at
+    Lq = 130 (a second 128-query block of 2 rows), both layouts."""
+    B, H, Lq = 2, 3, 130
+    n = kernels.launches['flash_attention_tf32x3']
+    for view in (_packed_view, _head_major_view):
+        q, k, v = (view(t).to(cuda_device) for t in _qkv(B, H, Lq, Lk, hd, seed=hd + Lk))
+        torch.testing.assert_close(kernels.flash_attention(q, k, v),
+                                   A.flash_attention_plain(q, k, v), rtol=0, atol=1e-4)
+    assert kernels.launches['flash_attention_tf32x3'] == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [40, 64, 80])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_kernels_at_cfg_batch_8_on_card(dtype, hd, cuda_device):
     """Batch 4 of prompts, CFG batch 8: K2 on the unconditional half, K1 on

@@ -2,15 +2,20 @@
 
 ``cross_attention_mma_kernel`` (``daam_tpu_torch/csrc/attention.cu``: bf16
 ``cross_attention_acc`` and ``cross_attention_probs``) and the fp32 3xTF32
-kernels ``flash_attention_tf32x3_kernel`` and
-``cross_attention_tf32x3_kernel`` (fp32 ``cross_attention_acc`` and
+kernels ``split_kv_tf32x3_kernel`` and
+``flash_attention_tf32x3_wgmma_kernel`` (fp32 ``flash_attention`` at the
+head dims they serve: K and V split once a call, then ``wgmma`` on stages
+a producer warp bulk-copies),
+``flash_attention_tf32x3_kernel`` (the other head dims, on ``mma.sync``)
+and ``cross_attention_tf32x3_kernel`` (fp32 ``cross_attention_acc`` and
 ``cross_attention_probs``) need nvcc and a card.  Here
 ``tests/torch_emulate/run_case.cpp`` includes ``attention.cu`` after
 ``tests/torch_emulate/warp.h``, a CPU stand-in for the CUDA runtime and the
-warp-level operations the kernels use (cp.async, ldmatrix, mma.sync
-m16n8k16 in bf16 and m16n8k8 in TF32, whose operands it truncates to TF32
-as the tensor core reads them, ``__shfl_xor_sync``, barriers; one thread
-per CUDA thread), and g++ builds it.  ``run_case`` calls the kernels' C
+operations the kernels use (cp.async, ldmatrix, mma.sync m16n8k16 in bf16
+and m16n8k8 in TF32, wgmma m64nNk8 in TF32 with B read through its swizzled
+shared-memory descriptor, every TF32 operand truncated as the tensor core
+reads it, mbarriers with their phases and transaction bytes, bulk copies,
+``__shfl_xor_sync``; one thread per CUDA thread), and g++ builds it.  ``run_case`` calls the kernels' C
 entry points and holds the result against a float64 reference that rounds
 the inputs and P to bf16 where the bf16 kernel does: bf16 O within 1.6e-2
 (one bf16 ulp below 2), fp32 O within 1e-5 (3xTF32 products, ~2^-21
@@ -109,9 +114,9 @@ def test_cross_route_takes_every_size_the_cuda_core_route_took(run_case, hd):
 
 # fp32 K2: every head dim in both layouts at the ragged Lq = 100 (one
 # partial 128-query block) and Lk = 150 (two full 64-key tiles and a ragged
-# one at hd 64; 32-key tiles at hd 128, 16-key ones at hd 160); Lk below
-# one k8 step; Lk at one tile's edge; Lk = 77 with B = 2; hd 40 and 160,
-# whose last k and v piece is a thread's partial one.
+# one up to hd 64, 32-key tiles at hd 80 and 128, 16-key ones at hd 160 on
+# mma.sync); Lk below one k8 step; Lk at one tile's edge; Lk = 77 with
+# B = 2; hd 160, whose last k and v piece is a thread's partial one.
 FLASH_SHAPES = ([(1, 2, 100, 150, hd, layout) for hd in kernels.HEAD_DIMS
                  for layout in ('head_major', 'packed')]
                 + [(1, 1, 64, 5, 32, 'packed'), (1, 1, 64, 64, 64, 'head_major'),
@@ -122,8 +127,46 @@ FLASH_SHAPES = ([(1, 2, 100, 150, hd, layout) for hd in kernels.HEAD_DIMS
 
 @pytest.mark.parametrize('shape', FLASH_SHAPES, ids=lambda s: '-'.join(map(str, s)))
 def test_flash_attention_tf32x3_emulated(run_case, shape):
+    """The head dims of ``TF32X3_WGMMA_HEAD_DIMS`` run
+    ``split_kv_tf32x3_kernel`` and ``flash_attention_tf32x3_wgmma_kernel``,
+    the others ``flash_attention_tf32x3_kernel``; O within 1e-5 of
+    float64."""
     out = run_case('flash', *shape)
     assert out.count(' ok') == 1, out
+
+
+def _wgmma_tiles():
+    """{hd: keys per tile} of the wgmma route, as WtTile sets them."""
+    return {16: 64, 32: 64, 40: 64, 64: 64, 80: 32, 128: 32}
+
+
+# fp32 K2 on wgmma, at every head dim it serves: Lk at one tile's (one
+# stage's) edge, four tiles and a ragged fifth (the ring of stages wraps),
+# Lk below one k8 step, and two 128-query blocks, the second holding 2 rows
+# (Lq not a multiple of 128).
+WGMMA_FLASH_SHAPES = [shape for hd, bk in _wgmma_tiles().items() for shape in (
+    (1, 1, 64, bk, hd, 'packed'), (1, 1, 64, 4 * bk + 5, hd, 'head_major'),
+    (1, 1, 64, 5, hd, 'head_major'), (1, 1, 130, bk + 1, hd, 'packed'))]
+
+
+@pytest.mark.parametrize('shape', WGMMA_FLASH_SHAPES, ids=lambda s: '-'.join(map(str, s)))
+def test_flash_attention_tf32x3_wgmma_edges_emulated(run_case, shape):
+    out = run_case('flash', *shape)
+    assert out.count(' ok') == 1, out
+
+
+def test_wgmma_route_head_dims_and_tiles(run_case):
+    """``kernels.TF32X3_WGMMA_HEAD_DIMS`` lists exactly the head dims
+    ``wgmma_tf32x3_serves`` sends to the wgmma kernel (SD 2.x's and SDXL's
+    64, SD 1.x's 40 and 80 among them), each with the keys per tile above,
+    a ring of three stages (two at hd 128) and a block within 227 KB of
+    shared memory."""
+    rows = [tuple(map(int, line.split())) for line in run_case('wgmma32').splitlines()]
+    assert tuple(hd for hd, *_ in rows) == kernels.TF32X3_WGMMA_HEAD_DIMS
+    assert {40, 64, 80} <= set(kernels.TF32X3_WGMMA_HEAD_DIMS)
+    assert {hd: bk for hd, bk, *_ in rows} == _wgmma_tiles()
+    assert all(stages == (2 if hd == 128 else 3) and smem <= SMEM_MAX
+               for hd, _, stages, smem in rows)
 
 
 # fp32 K1: the bf16 kernel's cases, and Lk below one k8 step, two full

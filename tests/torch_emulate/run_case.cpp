@@ -8,10 +8,15 @@
 //   run_case acc    B H Lq Lk hd layout              bf16, two calls into one acc
 //   run_case acc32  B H Lq Lk hd layout              fp32 (3xTF32), the same
 //   run_case flash  B H Lq Lk hd layout              fp32 (3xTF32) flash_attention
+//       (flash_attention_tf32x3_wgmma_kernel where it serves hd, else
+//       flash_attention_tf32x3_kernel)
 //   run_case probs  B H Lq Lk hd layout pdtype cond  bf16, pdtype f32 or bf16
 //   run_case probs32 B H Lq Lk hd layout pdtype cond fp32 (3xTF32), the same
 //   run_case smem   hd Lk p_size                     prints ma_smem_bytes
 //   run_case smem32 hd Lk                            prints mt_smem_bytes
+//   run_case wgmma32                                 prints each head dim fp32
+//       flash_attention serves on wgmma, with its keys per tile, its stages
+//       and its block's shared memory (WtTile)
 //   run_case tf32                                    the kernels' tf32_round
 //       against cvt.rna.tf32.f32's definition (warp.h)
 //   run_case refuse acc|f32|bf16 hd Lk              prints what the bf16
@@ -168,9 +173,11 @@ void run_flash(const Shape& s, std::mt19937& rng) {
   const View<float> q = make_view<float>(s, s.Lq, rng, 4);
   const View<float> k = make_view<float>(s, s.Lk, rng, 0), v = make_view<float>(s, s.Lk, rng, 0);
   std::vector<float> o((size_t)s.B * s.Lq * s.H * s.hd);
+  std::vector<float4> scratch(daam_flash_attention_tf32x3_scratch(s.hd, s.B, s.H, s.Lk) / 16);
   if (launch_error(daam_flash_attention_tf32x3(
-          0, s.hd, q.ptr(), k.ptr(), v.ptr(), o.data(), s.B, s.H, s.Lq, s.Lk, q.sb, q.sl,
-          q.sh, k.sb, k.sl, k.sh, v.sb, v.sl, v.sh, 1.f / std::sqrt((float)s.hd), nullptr))) {
+          0, s.hd, q.ptr(), k.ptr(), v.ptr(), o.data(), scratch.data(), s.B, s.H, s.Lq, s.Lk,
+          q.sb, q.sl, q.sh, k.sb, k.sl, k.sh, v.sb, v.sl, v.sh, 1.f / std::sqrt((float)s.hd),
+          nullptr))) {
     ++failures;
     return;
   }
@@ -252,6 +259,16 @@ int main(int argc, char** argv) {
       check(b);
     printf("tf32_round differs from cvt.rna.tf32.f32 on %ld of %ld inputs\n", bad, n);
     return bad ? 1 : 0;
+  }
+  if (argc == 2 && std::string(argv[1]) == "wgmma32") {
+    for (int hd : {16, 32, 40, 64, 80, 128, 160})
+      by_head_dim(hd, [&](auto c) {
+        constexpr int HD = decltype(c)::value;
+        if constexpr (wgmma_tf32x3_serves(HD))
+          printf("%d %d %d %d\n", HD, WtTile<HD>::BK, WtTile<HD>::STAGES, WtTile<HD>::SMEM);
+        return 0;
+      });
+    return 0;
   }
   if (argc == 4 && std::string(argv[1]) == "smem32") {
     printf("%lld\n", mt_smem_bytes(atoi(argv[2]), atoi(argv[3])));

@@ -1,18 +1,27 @@
-// A CPU stand-in for the CUDA runtime and the warp-level PTX operations the
-// kernels of daam_tpu_torch/csrc/attention.cu use, so that their arithmetic
-// and indexing run on a machine without a GPU
-// (tests/test_torch_kernel_emulation.py): one std::thread per CUDA thread,
-// pthread barriers for __syncthreads and __syncwarp, and exchange buffers
-// for the warp collectives (__shfl_xor_sync, ldmatrix, mma.sync m16n8k16 in
-// bf16 and m16n8k8 in TF32, and cvt.rna.tf32.f32 as a reference), whose
-// element layouts
-// follow the PTX ISA.  cp.async copies at once;
+// A CPU stand-in for the CUDA runtime and the PTX operations the kernels of
+// daam_tpu_torch/csrc/attention.cu use, so that their arithmetic and indexing
+// run on a machine without a GPU (tests/test_torch_kernel_emulation.py): one
+// std::thread per CUDA thread, pthread barriers for __syncthreads,
+// __syncwarp and a warpgroup's collective wgmma,
+// and exchange buffers for the warp collectives (__shfl_xor_sync, ldmatrix,
+// mma.sync m16n8k16 in bf16 and m16n8k8 in TF32, and cvt.rna.tf32.f32 as a
+// reference), whose element layouts follow the PTX ISA.  wgmma m64nNk8 in
+// TF32 (A from registers, B K-major in shared memory) gathers each warp's A
+// fragments after a barrier over the warpgroup's 128 threads and reads B
+// through its matrix descriptor (start, SBO, 32-, 64- or 128-byte swizzle
+// decoded from the bits); every TF32 operand is truncated as the tensor core
+// reads it, and the products run at once (wgmma.fence, commit and wait and
+// the proxy fence are no-ops); the SS form reads A through its descriptor
+// the same way.  mbarriers keep a pending arrival count, a pending transaction
+// byte count and a phase under one mutex per block (arrive, expect-tx, and
+// wait on or test a phase's parity as try_wait and test_wait do); a bulk copy lands at
+// once and completes its bytes on its barrier.  cp.async copies at once;
 // shared memory is filled with 0xff bytes (NaN as bf16 or float) and every
-// cp.async or ldmatrix address, and a canary past the block's dynamic
-// shared memory, is checked.  Included before attention.cu, it defines
-// DAAM_EMULATE, which leaves out the CUDA headers, hopper.cuh and the TMA
-// and wgmma kernel (flash_attention_wgmma_kernel), and defines the kernel
-// file's DAAM_EX2, DAAM_DYNAMIC_SMEM and DAAM_LAUNCH.
+// cp.async, ldmatrix, bulk copy or wgmma address, and a canary past the block's
+// dynamic shared memory, is checked.  Included before attention.cu, it
+// defines DAAM_EMULATE, which leaves out the CUDA headers, hopper.cuh's PTX
+// wrappers and the TMA and bf16 wgmma kernel (flash_attention_wgmma_kernel),
+// and defines the kernel file's DAAM_EX2, DAAM_DYNAMIC_SMEM and DAAM_LAUNCH.
 #pragma once
 #include <pthread.h>
 #include <cstdint>
@@ -24,6 +33,9 @@
 #include <cstdlib>
 #include <functional>
 #include <algorithm>
+#include <condition_variable>
+#include <map>
+#include <mutex>
 #define __global__
 #define __device__
 #define __host__
@@ -68,11 +80,19 @@ inline cudaError_t cudaSetDevice(int) { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 
 // ---- the emulated machine
+struct EmuMbar {
+  uint32_t count, pending, phase;
+  long long tx;  // transaction bytes still expected in this phase
+};
 struct EmuBlock {
   uint8_t* smem;
   size_t smem_bytes;
   pthread_barrier_t block_bar;
   pthread_barrier_t warp_bar[32];
+  pthread_barrier_t wg_bar[8];     // a warpgroup's 128 threads
+  std::mutex mu;                   // guards the mbarriers
+  std::condition_variable cv;
+  std::map<uint32_t, EmuMbar> mbars;  // by shared-memory address
   uint64_t xch[32][32][8];  // [warp][lane][slot]
 };
 extern thread_local EmuBlock* emu_blk;
@@ -90,6 +110,10 @@ inline float __shfl_xor_sync(unsigned, float x, int m) {
   return y;
 }
 inline size_t __cvta_generic_to_shared(const void* p) { return (const uint8_t*)p - emu_blk->smem; }
+inline void emu_wg_sync() {
+  if (emu_tid() / 128 >= 8) emu_fail("warpgroup past the eighth");
+  pthread_barrier_wait(&emu_blk->wg_bar[emu_tid() / 128]);
+}
 
 // cvt.rna.tf32.f32 by its definition, on the value: to 10 mantissa bits,
 // to nearest, ties away from zero; infinity and NaN pass through.  The
@@ -105,7 +129,6 @@ inline uint32_t emu_cvt_rna_tf32(float x) {
   return __float_as_uint(std::copysign(r, x));
 }
 namespace hopper {
-inline uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
 inline void cp_async16(uint32_t dst, const void* src, uint32_t n) {
   if (dst % 16 || ((uintptr_t)src) % 16) emu_fail("cp.async address not 16-byte aligned");
   if (dst + 16 > emu_blk->smem_bytes) emu_fail("cp.async past the dynamic shared memory");
@@ -189,6 +212,135 @@ inline void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
     d[i] += acc;
   }
 }
+
+// mbarriers and bulk copies
+inline EmuMbar& emu_mbar(uint32_t bar) {  // under emu_blk->mu
+  auto it = emu_blk->mbars.find(bar);
+  if (it == emu_blk->mbars.end()) emu_fail("mbarrier used before mbar_init");
+  return it->second;
+}
+inline void mbar_init(uint32_t bar, uint32_t count) {
+  if (bar % 8 || bar + 8 > emu_blk->smem_bytes) emu_fail("mbarrier address");
+  std::lock_guard<std::mutex> lock(emu_blk->mu);
+  emu_blk->mbars[bar] = {count, count, 0, 0};
+}
+inline void fence_barrier_init() {}
+// The phase completes once all `count` arrivals and every expected byte are
+// in; the next one starts.
+inline void emu_mbar_settle(EmuMbar& m) {  // under emu_blk->mu
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.count;
+    emu_blk->cv.notify_all();
+  }
+}
+inline void mbar_arrive(uint32_t bar) {
+  std::lock_guard<std::mutex> lock(emu_blk->mu);
+  EmuMbar& m = emu_mbar(bar);
+  if (m.pending == 0) emu_fail("mbarrier arrival past its count");
+  --m.pending;
+  emu_mbar_settle(m);
+}
+inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lock(emu_blk->mu);
+  EmuMbar& m = emu_mbar(bar);
+  if (m.pending == 0) emu_fail("mbarrier arrival past its count");
+  m.tx += bytes;
+  --m.pending;
+  emu_mbar_settle(m);
+}
+inline bool mbar_test(uint32_t bar, uint32_t parity) {
+  std::lock_guard<std::mutex> lock(emu_blk->mu);
+  return (emu_mbar(bar).phase & 1) != (parity & 1);
+}
+// cp.async.bulk global -> shared: lands now, then its bytes complete on bar.
+inline void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  if (dst % 16 || bytes % 16 || ((uintptr_t)src) % 16) emu_fail("bulk copy not 16-byte aligned");
+  if (dst + bytes > emu_blk->smem_bytes) emu_fail("bulk copy past the dynamic shared memory");
+  memcpy(emu_blk->smem + dst, src, bytes);
+  std::lock_guard<std::mutex> lock(emu_blk->mu);
+  EmuMbar& m = emu_mbar(bar);
+  m.tx -= bytes;
+  if (m.tx < 0) emu_fail("bulk copy bytes past the barrier's expected transaction count");
+  emu_mbar_settle(m);
+}
+// Returns once the phase of parity `parity` has completed: the current
+// phase's parity differs from it (a fresh barrier's "previous" phase, parity
+// 1, counts as completed).
+inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lock(emu_blk->mu);
+  emu_blk->cv.wait(lock, [&] { return (emu_mbar(bar).phase & 1) != (parity & 1); });
+}
+// wgmma: the products run at the call, so the fences, commits and waits
+// have nothing to order.
+inline void fence_proxy_async() {}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N> inline void wgmma_wait() {}
+template <int N> inline void fence_regs(float (&)[N]) {}
+
+// Element (n, k) of a K-major k8 TF32 operand through its descriptor db:
+// row n at start + (n / 8) SBO + (n % 8) W, its k-th 4 bytes, then the
+// swizzle (address bits 4.. ^= bits 7.., as many as W / 16 - 1 spans).
+inline float emu_wgmma_b(uint64_t db, int n, int k) {
+  const uint32_t start = (uint32_t)(db & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((db >> 32) & 0x3FFF) << 4;
+  const uint32_t layout = (uint32_t)(db >> 62);
+  if (layout == 0) emu_fail("wgmma: only a swizzled K-major B is emulated");
+  const uint32_t width = 256u >> layout;  // 1: 128 bytes, 2: 64, 3: 32
+  if (start % width + 32 > width) emu_fail("wgmma: a k8 step must lie within one swizzled row");
+  uint32_t a = start + (n / 8) * sbo + (n % 8) * width + 4 * k;
+  a ^= ((a >> 7) & (width / 16 - 1)) << 4;
+  if (a + 4 > emu_blk->smem_bytes) emu_fail("wgmma operand past the dynamic shared memory");
+  uint32_t v;
+  memcpy(&v, emu_blk->smem + a, 4);
+  return emu_tf32(v);
+}
+// D (64 x N) (+)= A (64 x 8, registers) B (8 x N), TF32, one warpgroup:
+// warp w holds A's and D's rows 16 w .. 16 w + 15 in mma_m16n8k8_tf32's A
+// layout, and d[4 j + e] = (g + 8 (e / 2), 8 j + 2 t + e % 2).
+template <int N>
+inline void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma m64nNk8: N a multiple of 8 to 256");
+  const int lane = emu_tid() % 32;
+  uint64_t* s = emu_slot(lane);
+  for (int i = 0; i < 4; ++i) s[i] = a[i];
+  emu_wg_sync();  // the warpgroup's 128 threads have posted their A fragments
+  float A[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l / 4, t = l % 4;
+    const uint64_t* x = emu_slot(l);
+    A[g][t] = emu_tf32((uint32_t)x[0]); A[g + 8][t] = emu_tf32((uint32_t)x[1]);
+    A[g][t + 4] = emu_tf32((uint32_t)x[2]); A[g + 8][t + 4] = emu_tf32((uint32_t)x[3]);
+  }
+  const int g = lane / 4, t = lane % 4;
+  for (int j = 0; j < N / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int row = g + 8 * (e / 2), n = 8 * j + 2 * t + e % 2;
+      float acc = 0.f;  // a product of two TF32 values is exact in fp32
+      for (int k = 0; k < 8; ++k) acc += A[row][k] * emu_wgmma_b(db, n, k);
+      d[4 * j + e] = scale_d ? d[4 * j + e] + acc : acc;
+    }
+  emu_wg_sync();  // every thread has read the slots
+}
+// The same with A (64 x 8) K-major in shared memory through descriptor da:
+// a thread reads its own rows 16 w + g and 16 w + g + 8.
+template <int N>
+inline void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(N % 8 == 0 && N >= 8 && N <= 256, "wgmma m64nNk8: N a multiple of 8 to 256");
+  emu_wg_sync();  // a warpgroup's collective
+  const int w = emu_tid() % 128 / 32, g = emu_tid() % 32 / 4, t = emu_tid() % 4;
+  float A[2][8];
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 8; ++k) A[h][k] = emu_wgmma_b(da, 16 * w + g + 8 * h, k);
+  for (int j = 0; j < N / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int n = 8 * j + 2 * t + e % 2;
+      float acc = 0.f;
+      for (int k = 0; k < 8; ++k) acc += A[e / 2][k] * emu_wgmma_b(db, n, k);
+      d[4 * j + e] = scale_d ? d[4 * j + e] + acc : acc;
+    }
+}
 }  // namespace hopper
 
 thread_local uint3s threadIdx, blockIdx;
@@ -207,6 +359,7 @@ inline void emu_launch(dim3 grid, int threads, size_t smem_bytes, cudaStream_t, 
         memset(blk.smem + smem_bytes, 0xa5, kCanary);
         pthread_barrier_init(&blk.block_bar, nullptr, threads);
         for (int w = 0; w < threads / 32; ++w) pthread_barrier_init(&blk.warp_bar[w], nullptr, 32);
+        for (int w = 0; w < threads / 128; ++w) pthread_barrier_init(&blk.wg_bar[w], nullptr, 128);
         std::vector<std::thread> ts;
         for (int t = 0; t < threads; ++t)
           ts.emplace_back([&, t] {
@@ -220,6 +373,7 @@ inline void emu_launch(dim3 grid, int threads, size_t smem_bytes, cudaStream_t, 
           if (blk.smem[smem_bytes + i] != 0xa5) emu_fail("write past the dynamic shared memory");
         pthread_barrier_destroy(&blk.block_bar);
         for (int w = 0; w < threads / 32; ++w) pthread_barrier_destroy(&blk.warp_bar[w]);
+        for (int w = 0; w < threads / 128; ++w) pthread_barrier_destroy(&blk.wg_bar[w]);
       }
 }
 
