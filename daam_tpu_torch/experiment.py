@@ -28,6 +28,7 @@ from .coco import (COCO80_LABELS, COCO80_INDICES, UNUSED_LABELS,  # noqa: F401
                    COCOSTUFF27_LABELS, COCO80_ONTOLOGY, COCO80_TO_27,
                    build_word_list_coco80)
 from .evaluate import load_mask
+from .profiling import span
 
 __all__ = ['GenerationExperiment', 'COCO80_LABELS', 'COCOSTUFF27_LABELS',
            'COCO80_INDICES', 'COCO80_ONTOLOGY', 'COCO80_TO_27',
@@ -253,30 +254,31 @@ class GenerationExperiment:
         checkpoint that the reference's ``GenerationExperiment.load`` reads
         (``daam/experiment.py:337``); the default is ``daam_tpu``'s pickled
         numpy payload.  :meth:`load` reads both."""
-        if path is not None:
-            self.path = Path(path) / self.id
-        path = self.path
-        tokenizer = tokenizer or self.tokenizer
-        image = _to_pil(self.image)
+        with span('experiment.save'):
+            if path is not None:
+                self.path = Path(path) / self.id
+            path = self.path
+            tokenizer = tokenizer or self.tokenizer
+            image = _to_pil(self.image)
 
-        (path / self.subtype).mkdir(parents=True, exist_ok=True)
-        if reference_format:
-            _write_reference_payload(
-                path / self.subtype / 'generation.pt', image,
-                self.global_heat_map, self.prompt, self.seed, self.subtype)
-        else:
-            (path / self.subtype / 'generation.pt').write_bytes(
-                pickle.dumps(self._payload()))
-        image.save(path / self.subtype / 'output.png')
-        (path / 'prompt.txt').write_text(self.prompt)
-        (path / 'seed.txt').write_text(str(self.seed))
+            (path / self.subtype).mkdir(parents=True, exist_ok=True)
+            if reference_format:
+                _write_reference_payload(
+                    path / self.subtype / 'generation.pt', image,
+                    self.global_heat_map, self.prompt, self.seed, self.subtype)
+            else:
+                (path / self.subtype / 'generation.pt').write_bytes(
+                    pickle.dumps(self._payload()))
+            image.save(path / self.subtype / 'output.png')
+            (path / 'prompt.txt').write_text(self.prompt)
+            (path / 'seed.txt').write_text(str(self.seed))
 
-        for name, mask in (self.truth_masks or {}).items():
-            _write_mask_png(path / f'{name.lower()}.gt.png', mask)
+            for name, mask in (self.truth_masks or {}).items():
+                _write_mask_png(path / f'{name.lower()}.gt.png', mask)
 
-        if heat_maps and tokenizer is not None:
-            self.save_all_heat_maps(tokenizer)
-        self.save_annotations()
+            if heat_maps and tokenizer is not None:
+                self.save_all_heat_maps(tokenizer)
+            self.save_annotations()
 
     def save_annotations(self, path: Optional[Path] = None):
         if self.annotations is not None:

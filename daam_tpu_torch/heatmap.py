@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from .evaluate import compute_ioa
 from .nlp import cached_nlp
+from .profiling import span
 from .utils import compute_token_merge_indices
 
 __all__ = ['GlobalHeatMap', 'RawHeatMapCollection', 'WordHeatMap',
@@ -87,30 +88,32 @@ def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
     current figure.  Where matplotlib is not installed, ``out_file``
     receives the composite itself, at the (cropped) image's size, without
     title or axes."""
-    im = np.asarray(im)
-    heat_map = np.squeeze(np.asarray(heat_map, dtype=np.float32))
-    if crop:
-        im = im[crop:-crop, crop:-crop]
-        heat_map = heat_map[crop:-crop, crop:-crop]
-    composite = _jet_composite(im, heat_map, color_normalize)
-    try:
-        import matplotlib.pyplot as plt
-    except ImportError:
+    with span('overlay.composite'):
+        im = np.asarray(im)
+        heat_map = np.squeeze(np.asarray(heat_map, dtype=np.float32))
+        if crop:
+            im = im[crop:-crop, crop:-crop]
+            heat_map = heat_map[crop:-crop, crop:-crop]
+        composite = _jet_composite(im, heat_map, color_normalize)
+    with span('overlay.encode'):
+        try:
+            import matplotlib.pyplot as plt
+        except ImportError:
+            if out_file is not None:
+                import PIL.Image
+                u8 = np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
+                PIL.Image.fromarray(u8).save(out_file)
+            return
+        target = ax
+        if target is None:
+            plt.clf()
+            plt.rcParams.update({'font.size': 24})
+            target = plt
+        target.imshow(composite)
+        if word is not None:
+            (plt.title if ax is None else ax.set_title)(word)
         if out_file is not None:
-            import PIL.Image
-            u8 = np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
-            PIL.Image.fromarray(u8).save(out_file)
-        return
-    target = ax
-    if target is None:
-        plt.clf()
-        plt.rcParams.update({'font.size': 24})
-        target = plt
-    target.imshow(composite)
-    if word is not None:
-        (plt.title if ax is None else ax.set_title)(word)
-    if out_file is not None:
-        plt.savefig(out_file)
+            plt.savefig(out_file)
 
 
 class WordHeatMap:
@@ -149,12 +152,13 @@ class WordHeatMap:
             arr = np.asarray(image)
             size = (arr.shape[0], arr.shape[1])
 
-        im = bicubic_resize(torch.as_tensor(self.heatmap), size)
-        if not absolute:
-            im = (im - im.min()) / (im.max() - im.min() + 1e-8)
-        if threshold:
-            im = (im > threshold).float()
-        im = im.cpu().numpy()
+        with span('overlay.resize'):
+            im = bicubic_resize(torch.as_tensor(self.heatmap), size)
+            if not absolute:
+                im = (im - im.min()) / (im.max() - im.min() + 1e-8)
+            if threshold:
+                im = (im > threshold).float()
+            im = im.cpu().numpy()
         if plot:
             self.plot_overlay(image, **plot_kwargs)
         return im
@@ -187,10 +191,11 @@ class GlobalHeatMap:
 
     def compute_word_heat_map(self, word: str, word_idx: Optional[int] = None,
                               offset_idx: int = 0) -> WordHeatMap:
-        merge_idxs, word_idx = compute_token_merge_indices(
-            self.tokenizer, self.prompt, word, word_idx, offset_idx)
-        maps = torch.as_tensor(self.heat_maps)
-        return WordHeatMap(maps[merge_idxs].mean(0), word, word_idx)
+        with span('maps.word'):
+            merge_idxs, word_idx = compute_token_merge_indices(
+                self.tokenizer, self.prompt, word, word_idx, offset_idx)
+            maps = torch.as_tensor(self.heat_maps)
+            return WordHeatMap(maps[merge_idxs].mean(0), word, word_idx)
 
     def parsed_heat_maps(self) -> Iterable[ParsedHeatMap]:
         """One map per word of the parsed prompt that the tokenizer finds

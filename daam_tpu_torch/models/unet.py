@@ -36,7 +36,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import cross_attention, flash_attention
+from ..profiling import span
 from .configs import UNetConfig
+
+# the blocks' span names, made once rather than at every evaluation
+_DOWN_SPANS = tuple(f'unet.down.{k}' for k in range(8))
+_UP_SPANS = tuple(f'unet.up.{k}' for k in range(8))
 
 __all__ = ['UNet2DConditionModel', 'ResnetBlock2D', 'timestep_embedding']
 
@@ -348,24 +353,27 @@ class UNet2DConditionModel(nn.Module):
 
         h = self.conv_in(sample.to(dtype))
         skips = [h]
-        for blk in self.down_blocks:
-            for i, res in enumerate(blk.resnets):
-                h = attend(blk, i, res(h, temb))
-                skips.append(h)
-            if hasattr(blk, 'downsamplers'):
-                h = blk.downsamplers[0].conv(h)
-                skips.append(h)
+        for k, blk in enumerate(self.down_blocks):
+            with span(_DOWN_SPANS[k]):
+                for i, res in enumerate(blk.resnets):
+                    h = attend(blk, i, res(h, temb))
+                    skips.append(h)
+                if hasattr(blk, 'downsamplers'):
+                    h = blk.downsamplers[0].conv(h)
+                    skips.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = attend(self.mid_block, 0, h)
-        h = self.mid_block.resnets[1](h, temb)
+        with span('unet.mid'):
+            h = self.mid_block.resnets[0](h, temb)
+            h = attend(self.mid_block, 0, h)
+            h = self.mid_block.resnets[1](h, temb)
 
-        for blk in self.up_blocks:
-            for i, res in enumerate(blk.resnets):
-                h = attend(blk, i, res(torch.cat([h, skips.pop()], dim=1), temb))
-            if hasattr(blk, 'upsamplers'):
-                h = F.interpolate(h, scale_factor=2, mode='nearest')
-                h = blk.upsamplers[0].conv(h)
+        for k, blk in enumerate(self.up_blocks):
+            with span(_UP_SPANS[k]):
+                for i, res in enumerate(blk.resnets):
+                    h = attend(blk, i, res(torch.cat([h, skips.pop()], dim=1), temb))
+                if hasattr(blk, 'upsamplers'):
+                    h = F.interpolate(h, scale_factor=2, mode='nearest')
+                    h = blk.upsamplers[0].conv(h)
 
         h = F.silu(self.conv_norm_out(h))
         w = self.conv_out

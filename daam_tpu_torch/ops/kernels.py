@@ -26,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from .. import profiling
+
 __all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
            'launches', 'reset_launches', 'load_library', 'tma_view_error',
            'cross_route_error', 'HEAD_DIMS', 'TF32X3_WGMMA_HEAD_DIMS']
@@ -42,18 +44,18 @@ TF32X3_WGMMA_HEAD_DIMS = (16, 32, 40, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 
-#: Kernel launches since the last :func:`reset_launches`, by launcher name.
+#: Kernel launches since the last :func:`reset_launches`, by launcher name:
+#: the ``launches`` group of the program's counters
+#: (:func:`daam_tpu_torch.profiling.counters`).
 #: ``flash_attention_wgmma``, ``cross_attention_acc_mma`` and
 #: ``cross_attention_probs_mma`` count the launches of the bf16 routes,
 #: ``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
 #: ``cross_attention_probs_tf32x3`` those of the fp32 routes (all on the
 #: tensor cores); the launcher's own total counts them too.
-launches = {'flash_attention': 0, 'flash_attention_wgmma': 0,
-            'flash_attention_tf32x3': 0,
-            'cross_attention_acc': 0, 'cross_attention_acc_mma': 0,
-            'cross_attention_acc_tf32x3': 0,
-            'cross_attention_probs': 0, 'cross_attention_probs_mma': 0,
-            'cross_attention_probs_tf32x3': 0}
+launches = profiling.counter_group('launches', (
+    'flash_attention', 'flash_attention_wgmma', 'flash_attention_tf32x3',
+    'cross_attention_acc', 'cross_attention_acc_mma', 'cross_attention_acc_tf32x3',
+    'cross_attention_probs', 'cross_attention_probs_mma', 'cross_attention_probs_tf32x3'))
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.

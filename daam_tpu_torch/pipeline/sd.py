@@ -29,7 +29,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import profiling
 from ..models.configs import PipelineConfig, cross_attention_layout, get_pipeline_config
+from ..profiling import span
 from ..tokenization import default_tokenizer
 from ..utils import randn_tensor
 from .schedulers import DDIMScheduler, get_scheduler
@@ -157,12 +159,13 @@ class StableDiffusionPipeline:
         (``daam_tpu/pipeline/sd.py:212-228``, without the TPU padding)."""
         T = self.tokenizer.model_max_length
         blocks = {}
-        for factor, names, _ids in capture_spec:
-            per_layer = []
-            for n in names:
-                heads, h, w = self._layer_grid(n, latent_h, latent_w)
-                per_layer.append(accs[n].view(batch_size, heads, T, h, w))
-            blocks[factor] = torch.stack(per_layer, dim=1)
+        with span('finalize_acc'):
+            for factor, names, _ids in capture_spec:
+                per_layer = []
+                for n in names:
+                    heads, h, w = self._layer_grid(n, latent_h, latent_w)
+                    per_layer.append(accs[n].view(batch_size, heads, T, h, w))
+                blocks[factor] = torch.stack(per_layer, dim=1)
         return blocks
 
     # ------------------------------------------------------------- generate
@@ -186,10 +189,11 @@ class StableDiffusionPipeline:
         shape = (B, self.config.unet.in_channels, latent_h, latent_w)
         scheduler = self.scheduler
 
-        context_c, added_c = self._text_forward(input_ids)
-        context_u, added_u = self._text_forward(neg_ids)
-        context = torch.cat([context_u, context_c], dim=0)  # [uncond; cond]
-        added = self._merge_added(added_u, added_c, height, width)
+        with span('text_encode'):
+            context_c, added_c = self._text_forward(input_ids)
+            context_u, added_u = self._text_forward(neg_ids)
+            context = torch.cat([context_u, context_c], dim=0)  # [uncond; cond]
+            added = self._merge_added(added_u, added_c, height, width)
         if latents is None:
             latents = randn_tensor(shape, generator, self.device) \
                 * scheduler.init_noise_sigma
@@ -211,52 +215,69 @@ class StableDiffusionPipeline:
         prev = {n: a.clone() for n, a in accs.items()} if snaps is not None else None
 
         for i in range(n_steps):
-            latent_in = scheduler.scale_model_input(
-                state, torch.cat([latents, latents], dim=0), i)
-            t = state['timesteps'][i]
-            rep = (None if replay is None else
-                   {n: r[i].to(self.device) for n, r in replay.items()})
-            eps = self.unet(latent_in, t.expand(2 * B), context,
-                            added_cond=added, capture=capture,
-                            acc=accs if capture == 'acc' else None, replay=rep)
-            if save_heads:
-                eps, probs = eps
-                for n, a in (accs or {}).items():
-                    a += probs[n][B:].transpose(2, 3)  # CFG conditional half
-                for n, p in probs.items():
-                    pending.setdefault(n, []).append(p.to(self.heads_dtype))
-                if (i + 1) % chunk == 0 or i == n_steps - 1:
-                    for n, ps in pending.items():
-                        saved.setdefault(n, []).append(torch.stack(ps).cpu())
-                    pending = {}
-            if snaps is not None and ((i + 1) % snapshot_steps == 0
-                                      or i == n_steps - 1):
-                diff = {n: a - prev[n] for n, a in accs.items()}
-                snaps.append({f: b.half().cpu() for f, b in self.finalize_acc(
-                    diff, capture_spec, B, latent_h, latent_w).items()})
-                prev = {n: a.clone() for n, a in accs.items()}
-            eps_u, eps_c = eps.chunk(2)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-            latents, state = scheduler.step(state, i, eps, latents)
-            if callback is not None:
-                callback(i, t, latents)
+            with span('step', step=i):
+                with span('scheduler'):
+                    latent_in = scheduler.scale_model_input(
+                        state, torch.cat([latents, latents], dim=0), i)
+                    t = state['timesteps'][i]
+                rep = None
+                if replay is not None:
+                    nbytes = sum(r[i].nbytes for r in replay.values())
+                    profiling.count('heads_h2d_bytes', nbytes)
+                    with span('heads.h2d', bytes=nbytes):
+                        rep = {n: r[i].to(self.device) for n, r in replay.items()}
+                with span('unet'):
+                    eps = self.unet(latent_in, t.expand(2 * B), context,
+                                    added_cond=added, capture=capture,
+                                    acc=accs if capture == 'acc' else None, replay=rep)
+                if save_heads:
+                    eps, probs = eps
+                    for n, a in (accs or {}).items():
+                        a += probs[n][B:].transpose(2, 3)  # CFG conditional half
+                    for n, p in probs.items():
+                        pending.setdefault(n, []).append(p.to(self.heads_dtype))
+                    if (i + 1) % chunk == 0 or i == n_steps - 1:
+                        nbytes = sum(len(ps) * ps[0].nbytes for ps in pending.values())
+                        profiling.count('heads_d2h_bytes', nbytes)
+                        with span('heads.d2h', bytes=nbytes):
+                            for n, ps in pending.items():
+                                saved.setdefault(n, []).append(torch.stack(ps).cpu())
+                        pending = {}
+                if snaps is not None and ((i + 1) % snapshot_steps == 0
+                                          or i == n_steps - 1):
+                    diff = {n: a - prev[n] for n, a in accs.items()}
+                    snaps.append({f: b.half().cpu() for f, b in self.finalize_acc(
+                        diff, capture_spec, B, latent_h, latent_w).items()})
+                    prev = {n: a.clone() for n, a in accs.items()}
+                with span('scheduler'):
+                    eps_u, eps_c = eps.chunk(2)
+                    eps = eps_u + guidance_scale * (eps_c - eps_u)
+                    latents, state = scheduler.step(state, i, eps, latents)
+                if callback is not None:
+                    with span('callback'):
+                        callback(i, t, latents)
 
         blocks = (self.finalize_acc(accs, capture_spec, B, latent_h, latent_w)
                   if accs else None)
         images = self._decode(latents)
-        saved = ({n: torch.cat(chunks) for n, chunks in saved.items()}
-                 if save_heads else None)
+        if save_heads:
+            nbytes = sum(c.nbytes for chunks in saved.values() for c in chunks)
+            with span('heads.cat', bytes=nbytes):
+                saved = {n: torch.cat(chunks) for n, chunks in saved.items()}
+        else:
+            saved = None
         return images, blocks, saved, snaps
 
     # --------------------------------------------------------------- decode
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents (B, 4, h, w) → fp32 images (B, H, W, 3) in [0, 1], tiled
         under ``vae_tiling`` (``daam_tpu/pipeline/sd.py:340-342``)."""
-        if self.vae_tiling is True or (self.vae_tiling == 'auto' and max(
-                latents.shape[2:]) > self.vae_tile_threshold):
-            return self._tiled_decode(latents)
-        images = self.vae.decode(latents / self.config.vae.scaling_factor)
-        return (images / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        with span('decode'):
+            if self.vae_tiling is True or (self.vae_tiling == 'auto' and max(
+                    latents.shape[2:]) > self.vae_tile_threshold):
+                return self._tiled_decode(latents)
+            images = self.vae.decode(latents / self.config.vae.scaling_factor)
+            return (images / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
 
     def _tiled_decode(self, latents: torch.Tensor, tile: int = 64,
                       overlap: int = 16) -> torch.Tensor:
@@ -350,53 +371,56 @@ class StableDiffusionPipeline:
         The images pass :meth:`run_safety_checker`; the trace records the
         checked ones.
         """
-        tr = self._active_trace
-        if tr is not None:
-            tr._on_call_start(prompt)
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         B = len(prompts)
-        if negative_prompt is None:
-            negatives = [''] * B
-        elif isinstance(negative_prompt, str):
-            negatives = [negative_prompt] * B
-        else:
-            negatives = list(negative_prompt)
-        height = height or self.config.image_size
-        width = width or self.config.image_size
-        if guidance_scale is None:
-            guidance_scale = self.config.default_guidance_scale
+        with profiling.request(fresh=False), \
+                span('call', batch=B, steps=num_inference_steps):
+            tr = self._active_trace
+            if tr is not None:
+                tr._on_call_start(prompt)
+            if negative_prompt is None:
+                negatives = [''] * B
+            elif isinstance(negative_prompt, str):
+                negatives = [negative_prompt] * B
+            else:
+                negatives = list(negative_prompt)
+            height = height or self.config.image_size
+            width = width or self.config.image_size
+            if guidance_scale is None:
+                guidance_scale = self.config.default_guidance_scale
 
-        capture_spec = tr.capture_spec(self) if tr is not None else None
-        save_heads = bool(tr and tr.save_heads)
-        load_heads = bool(tr and tr.load_heads)
-        # Accumulator snapshots for per-step maps; the save_heads replay
-        # buffer supersedes them (exact per-step maps).
-        snapshot_steps = (tr.time_chunk_steps
-                          if tr is not None and tr.time_chunk_steps
-                          and not (save_heads or load_heads) else None)
-        replay = None
-        if load_heads:
-            replay = tr.replay_buffer(
-                self.scheduler.num_scan_steps(num_inference_steps))
-            self._validate_replay(replay, B, height, width)
-        images, blocks, saved, snaps = self._generate(
-            self._encode_tokens(prompts), self._encode_tokens(negatives),
-            num_inference_steps, height, width, generator, latents,
-            guidance_scale, capture_spec,
-            callback if callback_steps is not None else None,
-            save_heads=save_heads, replay=replay,
-            snapshot_steps=snapshot_steps)
+            capture_spec = tr.capture_spec(self) if tr is not None else None
+            save_heads = bool(tr and tr.save_heads)
+            load_heads = bool(tr and tr.load_heads)
+            # Accumulator snapshots for per-step maps; the save_heads replay
+            # buffer supersedes them (exact per-step maps).
+            snapshot_steps = (tr.time_chunk_steps
+                              if tr is not None and tr.time_chunk_steps
+                              and not (save_heads or load_heads) else None)
+            replay = None
+            if load_heads:
+                replay = tr.replay_buffer(
+                    self.scheduler.num_scan_steps(num_inference_steps))
+                self._validate_replay(replay, B, height, width)
+            images, blocks, saved, snaps = self._generate(
+                self._encode_tokens(prompts), self._encode_tokens(negatives),
+                num_inference_steps, height, width, generator, latents,
+                guidance_scale, capture_spec,
+                callback if callback_steps is not None else None,
+                save_heads=save_heads, replay=replay,
+                snapshot_steps=snapshot_steps)
 
-        images = images.float().cpu().numpy()
-        out = _to_pil(images) if output_type == 'pil' else list(images)
-        out, nsfw = self.run_safety_checker(out, prompts)
-        if tr is not None:
-            tr._on_call_end(prompts, out, blocks or {}, saved,
-                            num_inference_steps, time_blocks=snaps)
-        if callback is not None and callback_steps is None:
-            for i in range(num_inference_steps):
-                callback(i, None, None)
-        return PipelineOutput(images=out, nsfw_content_detected=nsfw)
+            with span('to_host'):
+                images = images.float().cpu().numpy()
+                out = _to_pil(images) if output_type == 'pil' else list(images)
+            out, nsfw = self.run_safety_checker(out, prompts)
+            if tr is not None:
+                tr._on_call_end(prompts, out, blocks or {}, saved,
+                                num_inference_steps, time_blocks=snaps)
+            if callback is not None and callback_steps is None:
+                for i in range(num_inference_steps):
+                    callback(i, None, None)
+            return PipelineOutput(images=out, nsfw_content_detected=nsfw)
 
     def _validate_replay(self, replay, batch_size: int, height: int,
                          width: int):

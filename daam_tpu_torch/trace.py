@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple, Type, Union
 import numpy as np
 import torch
 
+from . import profiling
 from .experiment import GenerationExperiment
 from .heatmap import GlobalHeatMap, RawHeatMapCollection, bicubic_resize
 from .hook import AggregateHooker, ObjectHooker, UNetCrossAttentionLocator
@@ -193,8 +194,15 @@ class DiffusionHeatMapHooker(AggregateHooker):
             safe = f'{safe[:40]}-{hashlib.md5(key.encode()).hexdigest()[:8]}'
         return Path(cache_dir()) / 'heads' / f'{safe}.npz'
 
+    def _hook_impl(self):
+        super()._hook_impl()
+        # every span of this context shares one request id
+        self._request = profiling.request()
+        self._request.__enter__()
+
     def _unhook_impl(self):
         super()._unhook_impl()
+        self._request.__exit__(None, None, None)
         if self.save_heads and self.persist_heads \
                 and self.data_dir in _HEAD_CACHE:
             path = self.heads_path()
@@ -257,11 +265,12 @@ class DiffusionHeatMapHooker(AggregateHooker):
                  if batch_idx < len(self.last_images) else self.last_image)
         prompt = (self.last_prompts[batch_idx]
                   if batch_idx < len(self.last_prompts) else self.last_prompt)
-        return GenerationExperiment(
-            image,
-            self.compute_global_heat_map(**compute_kwargs).heat_maps.cpu().numpy(),
-            prompt, seed=seed, id=id, subtype=subtype, path=path,
-            tokenizer=self.pipe.tokenizer)
+        with profiling.span('experiment.to_experiment'):
+            return GenerationExperiment(
+                image,
+                self.compute_global_heat_map(**compute_kwargs).heat_maps.cpu().numpy(),
+                prompt, seed=seed, id=id, subtype=subtype, path=path,
+                tokenizer=self.pipe.tokenizer)
 
     def _aggregate_source(self, source, batch_idx, factors, head_idx,
                           layer_idx) -> torch.Tensor:
@@ -306,12 +315,13 @@ class DiffusionHeatMapHooker(AggregateHooker):
                       if batch_idx < len(self.last_prompts) else self.last_prompt)
         if factors is not None:
             factors = set(factors)
-        maps = self._aggregate_source(self.batch_heat_maps, batch_idx,
-                                      factors, head_idx, layer_idx)
-        n_tokens = len(self.pipe.tokenizer.tokenize(prompt))
-        maps = maps[:n_tokens + 2]  # +1 SOS, +1 padding (ref trace.py:127)
-        if normalize:
-            maps = maps / (maps[1:-1].sum(0, keepdim=True) + 1e-6)
+        with profiling.span('maps.global'):
+            maps = self._aggregate_source(self.batch_heat_maps, batch_idx,
+                                          factors, head_idx, layer_idx)
+            n_tokens = len(self.pipe.tokenizer.tokenize(prompt))
+            maps = maps[:n_tokens + 2]  # +1 SOS, +1 padding (ref trace.py:127)
+            if normalize:
+                maps = maps / (maps[1:-1].sum(0, keepdim=True) + 1e-6)
         return GlobalHeatMap(self.pipe.tokenizer, prompt, maps)
 
     def compute_time_global_heat_maps(self, prompt: Optional[str] = None,

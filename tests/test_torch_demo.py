@@ -7,8 +7,8 @@ reproduces and gives the image of a batch-1 call, ``_overlay_b64`` is
 ``_jet_composite`` without matplotlib, the counterfactual runs save → load,
 ``get_tokenizing_mapping`` and the dependency SVG equal ``daam_tpu``'s, the
 handler answers a POST to ``/generate``, and ``--gradio`` wires a stub
-Gradio.  Then the profiler helpers: a Chrome trace, stage timers, and
-``time_pipeline``.
+Gradio.  Then the profiler helpers: a Chrome trace with the program's
+spans, and ``time_pipeline``.
 """
 
 import base64
@@ -242,22 +242,26 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path, pipe):
 
     with profile_trace(str(tmp_path / 'prof')) as prof:
         pipe('a dog', num_inference_steps=1)
-    events = json.loads((tmp_path / 'prof' / 'trace.json').read_text())['traceEvents']
+    doc = json.loads((tmp_path / 'prof' / 'trace.json').read_text())
+    events = doc['traceEvents']
     assert any('conv' in str(e.get('name', '')) for e in events)
     assert len(prof.key_averages()) > 0
+    # the program's spans, on a track of their own and the profiler's clock
+    spans = [e for e in events if e.get('cat') == 'span']
+    unet = [e for e in spans if e['name'] == 'unet']
+    assert unet and unet[0]['ph'] == 'X' and unet[0]['dur'] > 0
+    assert {e['pid'] for e in spans} == {'daam_tpu_torch spans'}
+    assert {'request', 'parent', 'id'} <= set(unet[0]['args'])
+    ops = [e for e in events if e.get('ph') == 'X' and e.get('cat') != 'span']
+    call = [e for e in spans if e['name'] == 'call'][0]
+    convs = [e for e in ops if e['name'] == 'aten::conv2d']
+    assert convs and all(call['ts'] - 100 <= e['ts'] and e['ts'] + e['dur'] <= call['ts']
+                         + call['dur'] + 100 for e in convs)
 
 
 def test_step_timer_and_time_pipeline(pipe):
-    from daam_tpu_torch.profiling import StepTimer, time_pipeline
+    from daam_tpu_torch.profiling import time_pipeline
 
-    timer = StepTimer('cpu')
-    for _ in range(3):
-        with timer.stage('sum'):
-            torch.ones(64, 64).sum()
-    assert timer.record('mul', lambda x: x * 2, 3) == 6
-    summary = timer.summary()
-    assert set(summary) == {'sum', 'mul'} and len(timer.times['sum']) == 3
-    assert 'sum=' in str(timer)
     for traced in (False, True):
         t = time_pipeline(pipe, num_inference_steps=1, reps=2, traced=traced)
         assert list(t) == ['traced_call' if traced else 'call'] and t[next(iter(t))] > 0
