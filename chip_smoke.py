@@ -27,9 +27,10 @@ first on the import path), which is how two commits are compared in one
 call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
+order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
 
-1. Build ``daam_tpu_torch/csrc/attention.cu`` with nvcc for sm_90a; print
+1. Build ``daam_tpu_torch/csrc/attention.cu`` (and ``overlay.cu``) with
+   nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
    (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``,
    ``flash_attention_tf32x3_wgmma_kernel`` and ``split_kv_tf32x3_kernel``
@@ -133,6 +134,12 @@ order they run (1, 1b, 2, 3, 8, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
 8. ``tests/test_torch_cuda.py`` (the kernels against their plain versions,
    JAX-free) in a subprocess, ``python -m pytest --noconftest``: exit 0
    and at least one pass.
+8b. The heat-map overlays of one v2-1-base fp32 512² experiment drawn on
+   the card (``csrc/overlay.cu``) and on the host (``overlay_routes``):
+   pixels within one level on at most 0.5% of a PNG's pixels, the card's
+   files within 1% of Pillow's size, one ``overlay_card`` a word; the ms
+   a word of both routes.  Phases 11 and 12 count one ``overlay_resample``
+   a heat map and one ``png_scanlines`` a PNG the CLI writes on the card.
 9. What ``daam-torch`` runs by default: ``v2-1-base`` in fp32, 512², 10
    traced steps, checked as in phase 4, with 15 × 10 cross_attention_acc
    and 32 × 10 flash_attention launches, every one on the 3xTF32 route;
@@ -369,9 +376,24 @@ def check(ok: bool, msg: str):
 
 def expected(kernels, dtype: str, **counts) -> dict:
     """Launch counts of a run in ``dtype``: each named kernel's total and
-    its route's counter at the given count, every other counter 0."""
-    routed = {ROUTE[dtype][name]: n for name, n in counts.items()}
+    its route's counter at the given count (the overlay kernels have no
+    route), every other counter 0."""
+    routed = {ROUTE[dtype][name]: n for name, n in counts.items() if name in ROUTE[dtype]}
     return {**dict.fromkeys(kernels.launches, 0), **counts, **routed}
+
+
+def png_launches(out_dir) -> dict:
+    """The overlay kernels' launches of a ``daam-torch`` run on the card
+    that wrote ``out_dir``: one ``overlay_resample`` a heat map, one
+    ``png_scanlines`` a PNG (heat map or ``output.png``)."""
+    import os
+
+    maps = images = 0
+    for _, _, files in os.walk(out_dir):
+        maps += sum(f.endswith('.heat_map.png') for f in files)
+        images += files.count('output.png')
+    check(maps > 0 and images > 0, f'{out_dir}: no heat map or image written')
+    return {'overlay_resample': maps, 'png_scanlines': maps + images}
 
 
 def check_traced(out, tc, side: int, label: str):
@@ -1457,7 +1479,8 @@ def checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels):
         print(f'daam-torch --from-path ({STEPS} steps, load and artifacts included): '
               f'{cli_s:.3f} s; launches {launches}')
         check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
-                                   flash_attention=K2_PER_EVAL * STEPS),
+                                   flash_attention=K2_PER_EVAL * STEPS,
+                                   **png_launches(out_dir)),
               f'--from-path launch counts {launches}')
         cli_exp = GenerationExperiment.load(out_dir)
         prompt = PROMPT.replace('.', ' .')
@@ -1781,7 +1804,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
                   f'{secs:.3f} s; launches {launches}')
             check(launches == expected(kernels, 'fp32',
                                        cross_attention_acc=K1_PER_EVAL * STEPS * calls,
-                                       flash_attention=K2_PER_EVAL * STEPS * calls),
+                                       flash_attention=K2_PER_EVAL * STEPS * calls,
+                                       **png_launches(out)),
                   f'regenerate --batch-size {b} launch counts {launches}')
             runs[b] = {f'e{i}': GenerationExperiment.load(os.path.join(out, f'e{i}'))
                        for i in range(BATCH)}
@@ -1816,7 +1840,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
               and all(m == ['dog.heat_map.png'] for m in maps.values()),
               '--word dog keeps prompts holding the lemma once, and its map alone')
         check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * 2,
-                                   flash_attention=K2_PER_EVAL * 2),
+                                   flash_attention=K2_PER_EVAL * 2,
+                                   **png_launches(coco_out)),
               f'--action coco launch counts {launches}')
 
     # traced images/s through the pipeline, and the save -> load pair at
@@ -2354,6 +2379,117 @@ def card_tests():
           'tests/test_torch_cuda.py on the card')
 
 
+def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
+    """Phase 8b: every word of one v2-1-base fp32 512² experiment (2 traced
+    steps) drawn on the card (``csrc/overlay.cu``) and on the host, as a
+    machine without matplotlib draws them.  Gates: each word's decoded PNG
+    within one level of the host's on at most 0.5% of its pixels,
+    ``output.png`` equal, every card file within 1% of Pillow's size for
+    the same pixels, ``overlay_card`` one a word and ``overlay_host`` none
+    on the card's pass, the overlay kernels' launches one a PNG.  Prints
+    the ms a word of each route and of its three spans, and the two
+    kernels' event time at 512²."""
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import PIL.Image
+    import torch
+    from daam_tpu_torch import profiling
+    from daam_tpu_torch.experiment import GenerationExperiment
+    from daam_tpu_torch.heatmap import _JET_LUT
+
+    def pixels(path):
+        with PIL.Image.open(path) as im:
+            return np.asarray(im.convert('RGB'))
+
+    hidden = {k: sys.modules.get(k) for k in ('matplotlib', 'matplotlib.pyplot')}
+    sys.modules.update(dict.fromkeys(hidden))
+    try:
+        pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
+        prompt = PROMPT.replace('.', ' .')
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(pipe) as tc:
+                out = pipe(prompt, num_inference_steps=2,
+                           generator=torch.Generator(device='cuda').manual_seed(0))
+                card = tc.to_experiment(os.path.join(tmp, 'card'))
+            card.image = out.images[0]
+            host = GenerationExperiment(card.image, card.global_heat_map, card.prompt,
+                                        path=os.path.join(tmp, 'host'),
+                                        tokenizer=card.tokenizer)
+            before, launched = profiling.counters(), dict(kernels.launches)
+            card.save(heat_maps=False)
+            card_paths = card.save_all_heat_maps()
+            mid = profiling.counters()
+            host.save(heat_maps=False)
+            host_paths = host.save_all_heat_maps()
+            after = profiling.counters()
+            words = sorted(card_paths)
+            check(bool(words) and words == sorted(host_paths), f'overlay words {words}')
+            n = len(words)
+            check(mid['overlay_card'] - before['overlay_card'] == n
+                  and mid['overlay_host'] == before['overlay_host']
+                  and after['overlay_host'] - mid['overlay_host'] == n,
+                  'overlay_card counts one a word on the card, overlay_host none')
+            check(kernels.launches['overlay_resample'] - launched['overlay_resample'] == n
+                  and kernels.launches['png_scanlines'] - launched['png_scanlines'] == n + 1,
+                  'one overlay_resample a word, one png_scanlines a PNG')
+            worst = {'max_level_diff': 0, 'differing_share': 0.0, 'size_ratio': 1.0}
+            pairs = [(card_paths[w], host_paths[w]) for w in words]
+            pairs.append((card.path / 'output.png', host.path / 'output.png'))
+            for ours, theirs in pairs:
+                a, b = pixels(ours), pixels(theirs)
+                diff = np.abs(a.astype(np.int16) - b).max(-1)
+                buf = io.BytesIO()
+                PIL.Image.fromarray(a).save(buf, format='PNG')
+                ratio = os.path.getsize(ours) / len(buf.getvalue())
+                worst['max_level_diff'] = max(worst['max_level_diff'], int(diff.max()))
+                worst['differing_share'] = max(worst['differing_share'],
+                                               float((diff > 0).mean()))
+                worst['size_ratio'] = max(worst['size_ratio'], ratio, 1 / ratio)
+                if ours.name == 'output.png':
+                    check(not diff.any(), 'output.png written from the card equals PIL\'s')
+            check(worst['max_level_diff'] <= 1 and worst['differing_share'] <= 0.005,
+                  f'overlays on the card against the host route: {worst}')
+            check(worst['size_ratio'] <= 1.01, f'PNG sizes against Pillow\'s: {worst}')
+
+            # ms a word of each route, spans on, three passes a route
+            ms, stages = {}, {}
+            for label, exp in (('card', card), ('host', host)) * 3:
+                profiling.clear()
+                profiling.enable()
+                t0 = time.perf_counter()
+                exp.save_all_heat_maps()
+                ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3 / n)
+                profiling.disable()
+                for r in profiling.spans():
+                    if r.name.startswith('overlay.'):
+                        stages.setdefault(label, {}).setdefault(r.name, []).append(
+                            (r.end_ns - r.start_ns) / 1e6)
+            image = card._image_on_card()
+            heat = torch.rand(64, 64, device='cuda')
+            lut = torch.from_numpy(_JET_LUT).cuda()
+            device_ms = event_ms(lambda: kernels.png_scanlines(
+                image, kernels.overlay_resample(heat, image.shape[:2]), lut))
+    finally:
+        for k, m in hidden.items():
+            if m is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = m
+    line = {'words': n, **worst,
+            'ms_per_word': {k: min(v) for k, v in ms.items()},
+            'span_ms_per_word': {k: {name: sum(t) / len(t) for name, t in v.items()}
+                                 for k, v in stages.items()},
+            'kernels_event_ms_512': device_ms}
+    print(json.dumps({'overlays': line}))
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def profile_step(pipe, trace):
     """A traced 2-step call of ``pipe`` under torch.profiler: the top
     kernels, and the device's busy share of the call's wall time (one
@@ -2471,6 +2607,9 @@ def main(argv=None):
 
     # 8. the card's pytest cases
     card_tests()
+
+    # 8b. the overlays on the card against the host route
+    overlay_routes(StableDiffusionPipeline, trace, kernels)
 
     # 6b. the kernels alone at both paths' shapes, before any other
     # profiler session (after --profile's, the card's profiler was seen to

@@ -9,7 +9,11 @@ prediction masks, ``annotations.json`` and ``{word}.heat_map.png``.
 ``daam_tpu.v1``), or with ``save(reference_format=True)`` the torch
 checkpoint the reference loads; :meth:`GenerationExperiment.load` reads
 both, so a directory written by either package loads in the other.  PIL is
-imported only where a PNG is read or written.
+imported only where a PNG is read or written.  An experiment made by
+``trace.to_experiment`` on a CUDA device draws its PNGs there: its image is
+uploaded once, the overlays are composited and every PNG filtered on the
+card (``csrc/overlay.cu``), and the host only deflates them
+(:mod:`daam_tpu_torch.png`); any other experiment draws them on the host.
 """
 
 import io
@@ -210,6 +214,13 @@ class GenerationExperiment:
     subtype: Optional[str] = '.'
     tokenizer: Any = None
 
+    # Not fields, so neither the payload nor the comparison sees them: the
+    # CUDA device the maps were made on, where ``trace.to_experiment`` puts
+    # it (None: the PNGs are drawn on the host), and the image uploaded
+    # there, as (the image object, its (H, W, 3) uint8 copy).
+    _device = None
+    _card_image = None
+
     def __post_init__(self):
         if isinstance(self.path, str):
             self.path = Path(self.path)
@@ -225,6 +236,21 @@ class GenerationExperiment:
         from .heatmap import GlobalHeatMap
         return GlobalHeatMap(tokenizer or self.tokenizer, self.prompt,
                              self.global_heat_map)
+
+    def _image_on_card(self) -> Optional[torch.Tensor]:
+        """The image as (H, W, 3) uint8 on the experiment's CUDA device,
+        uploaded once per image object; None where its PNGs are drawn on
+        the host: no CUDA device recorded, or an image that is not an RGB
+        PIL image."""
+        if self._device is None or torch.device(self._device).type != 'cuda':
+            return None
+        if self._card_image is not None and self._card_image[0] is self.image:
+            return self._card_image[1]
+        if getattr(self.image, 'mode', None) != 'RGB':
+            return None
+        on_card = torch.from_numpy(np.array(self.image)).to(self._device)
+        self._card_image = (self.image, on_card)
+        return on_card
 
     def annotate(self, key: str, value: Any) -> 'GenerationExperiment':
         if self.annotations is None:
@@ -269,7 +295,15 @@ class GenerationExperiment:
             else:
                 (path / self.subtype / 'generation.pt').write_bytes(
                     pickle.dumps(self._payload()))
-            image.save(path / self.subtype / 'output.png')
+            on_card = self._image_on_card()
+            if on_card is None:
+                image.save(path / self.subtype / 'output.png')
+            else:
+                from .heatmap import _scanlines_to_host
+                from .ops.kernels import png_scanlines
+                from .png import write_png
+                write_png(path / self.subtype / 'output.png',
+                          _scanlines_to_host(png_scanlines(on_card)))
             (path / 'prompt.txt').write_text(self.prompt)
             (path / 'seed.txt').write_text(str(self.seed))
 
@@ -303,11 +337,22 @@ class GenerationExperiment:
                       absolute: bool = False) -> Path:
         """Write ``{output_prefix}{word}.heat_map.png``.  ``crop`` is taken
         for the reference's signature and, as in ``daam_tpu`` and the
-        reference, not applied to the saved overlay."""
+        reference, not applied to the saved overlay.  Drawn on the card
+        where the experiment's maps were made there and the map expands to
+        the image's own size, else on the host."""
+        from .heatmap import WordHeatMap, plot_overlay_on_card
+
         out = (self.path / self.subtype /
                f'{output_prefix}{word.lower()}.heat_map.png')
-        self.heat_map(tokenizer).compute_word_heat_map(word).expand_as(
-            self.image, color_normalize=not absolute, out_file=out, plot=True)
+        word_map = self.heat_map(tokenizer).compute_word_heat_map(word)
+        on_card = self._image_on_card()
+        if on_card is not None and \
+                WordHeatMap.expanded_size(self.image) == tuple(on_card.shape[:2]):
+            plot_overlay_on_card(on_card, word_map.heatmap, word=word_map.word,
+                                 out_file=out, color_normalize=not absolute)
+        else:
+            word_map.expand_as(self.image, color_normalize=not absolute,
+                               out_file=out, plot=True)
         return out
 
     def save_all_heat_maps(self, tokenizer: Any = None,

@@ -11,9 +11,12 @@ views of a global map (:class:`ParsedHeatMap` per word of the prompt,
 :func:`~daam_tpu_torch.nlp.cached_nlp`.  Bicubic resampling is
 ``F.interpolate(mode='bicubic', align_corners=False)``, the op
 ``daam_tpu/ops/resize.py`` reproduces (``tests/test_resize.py`` pins the
-two equal).
+two equal).  A word's overlay is drawn on the host
+(:func:`plot_overlay_heat_map`) or, for an experiment whose maps were made
+on a CUDA device, on the card (:func:`plot_overlay_on_card`).
 """
 
+import threading
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -24,12 +27,12 @@ import torch.nn.functional as F
 
 from .evaluate import compute_ioa
 from .nlp import cached_nlp
-from .profiling import span
+from .profiling import count, span
 from .utils import compute_token_merge_indices
 
 __all__ = ['GlobalHeatMap', 'RawHeatMapCollection', 'WordHeatMap',
            'ParsedHeatMap', 'SyntacticHeatMapPair', 'plot_overlay_heat_map',
-           'bicubic_resize']
+           'plot_overlay_on_card', 'bicubic_resize']
 
 RawHeatMapKey = Tuple[int, int, int]  # (factor, layer, head)
 
@@ -77,6 +80,22 @@ def _jet_composite(image_u8: np.ndarray, heat: np.ndarray,
     return np.clip(photo * (1.0 - w) + _jet(levels) * w, 0.0, 1.0)
 
 
+def _draw(plt, composite, word, out_file, ax) -> None:
+    """Show ``composite`` on ``ax`` titled with ``ax.set_title`` when an
+    axes is given, else on a cleared current figure titled with ``word``;
+    ``out_file`` receives the current figure."""
+    target = ax
+    if target is None:
+        plt.clf()
+        plt.rcParams.update({'font.size': 24})
+        target = plt
+    target.imshow(composite)
+    if word is not None:
+        (plt.title if ax is None else ax.set_title)(word)
+    if out_file is not None:
+        plt.savefig(out_file)
+
+
 def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
                           out_file=None, crop: Optional[int] = None,
                           color_normalize: bool = True, ax=None):
@@ -87,7 +106,8 @@ def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
     cleared current figure titled with ``word``; ``out_file`` receives the
     current figure.  Where matplotlib is not installed, ``out_file``
     receives the composite itself, at the (cropped) image's size, without
-    title or axes."""
+    title or axes.  Counts one ``overlay_host``."""
+    count('overlay_host')
     with span('overlay.composite'):
         im = np.asarray(im)
         heat_map = np.squeeze(np.asarray(heat_map, dtype=np.float32))
@@ -104,16 +124,61 @@ def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
                 u8 = np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
                 PIL.Image.fromarray(u8).save(out_file)
             return
-        target = ax
-        if target is None:
-            plt.clf()
-            plt.rcParams.update({'font.size': 24})
-            target = plt
-        target.imshow(composite)
-        if word is not None:
-            (plt.title if ax is None else ax.set_title)(word)
-        if out_file is not None:
-            plt.savefig(out_file)
+        _draw(plt, composite, word, out_file, ax)
+
+
+_jet_tables: Dict[torch.device, torch.Tensor] = {}
+_pinned = threading.local()  # each thread's host buffer for scanlines
+
+
+def _scanlines_to_host(rows: torch.Tensor) -> np.ndarray:
+    """Copy scanlines from the card into this thread's pinned host buffer
+    (grown as needed, reused from call to call) and return them as numpy,
+    valid until the thread's next call.  The copy synchronizes."""
+    n = rows.numel()
+    buf = getattr(_pinned, 'buf', None)
+    if buf is None or buf.numel() < n:
+        buf = _pinned.buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    host = buf[:n].view(rows.shape)
+    host.copy_(rows)
+    return host.numpy()
+
+
+def plot_overlay_on_card(image: torch.Tensor, heat_map, word: Optional[str] = None,
+                         out_file=None, color_normalize: bool = True) -> None:
+    """:func:`plot_overlay_heat_map` of ``WordHeatMap.expand_as``'s map,
+    drawn on the card by the kernels of ``csrc/overlay.cu``: ``image`` is
+    the (H, W, 3) uint8 image on a CUDA device, ``heat_map`` the word's
+    (h, w) map, resampled there to (H, W) and min-max normalized as
+    ``expand_as`` does it, composited and rounded to uint8.  Where
+    matplotlib is not installed, ``out_file`` receives the PNG from the
+    card's filtered scanlines, deflated here (:mod:`daam_tpu_torch.png`);
+    else the composite is drawn as :func:`plot_overlay_heat_map` draws it.
+    Counts one ``overlay_card``."""
+    from . import png
+    from .ops import kernels
+
+    count('overlay_card')
+    H, W = image.shape[:2]
+    with span('overlay.resize'):
+        heat = torch.as_tensor(heat_map).to(image.device, torch.float32).contiguous()
+        resampled = kernels.overlay_resample(heat, (H, W))
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        plt = None
+    with span('overlay.composite'):
+        lut = _jet_tables.get(image.device)
+        if lut is None:
+            lut = _jet_tables[image.device] = torch.from_numpy(_JET_LUT).to(image.device)
+        rows = _scanlines_to_host(kernels.png_scanlines(
+            image, resampled, lut, color_normalize=color_normalize, filtered=plt is None))
+    with span('overlay.encode'):
+        if plt is None:
+            if out_file is not None:
+                png.write_png(out_file, rows)
+            return
+        _draw(plt, rows[:, 1:].reshape(H, W, 3).copy(), word, out_file, None)
 
 
 class WordHeatMap:
@@ -137,30 +202,48 @@ class WordHeatMap:
 
     def plot_overlay(self, image, out_file=None, color_normalize: bool = True,
                      ax=None, **expand_kwargs):
-        plot_overlay_heat_map(image, self.expand_as(image, **expand_kwargs),
-                              word=self.word, out_file=out_file,
+        self._plot_expanded(image, self.expand_as(image, **expand_kwargs),
+                            out_file, color_normalize, ax)
+
+    def _plot_expanded(self, image, heat, /, out_file=None,
+                       color_normalize: bool = True, ax=None, **_):
+        """:meth:`plot_overlay` of a map already expanded; the keywords
+        that it would hand on to ``expand_as`` are left out, as there."""
+        plot_overlay_heat_map(image, heat, word=self.word, out_file=out_file,
                               color_normalize=color_normalize, ax=ax)
+
+    @staticmethod
+    def expanded_size(image) -> Tuple[int, int]:
+        """The size :meth:`expand_as` resamples to: a PIL image's ``size``
+        (w, h) taken as (rows, columns), as the reference takes it, else
+        the array's (rows, columns)."""
+        if hasattr(image, 'size') and not isinstance(image, np.ndarray):
+            return image.size[0], image.size[1]
+        arr = np.asarray(image)
+        return arr.shape[0], arr.shape[1]
 
     def expand_as(self, image, absolute: bool = False,
                   threshold: Optional[float] = None, plot: bool = False,
                   **plot_kwargs) -> np.ndarray:
         """Bicubic-expand to the image's size with min-max normalization
-        (reference ``daam/heatmap.py:77-93``)."""
-        if hasattr(image, 'size') and not isinstance(image, np.ndarray):
-            size = (image.size[0], image.size[1])  # PIL (w, h), as the reference
-        else:
-            arr = np.asarray(image)
-            size = (arr.shape[0], arr.shape[1])
-
+        (reference ``daam/heatmap.py:77-93``).  With ``plot`` the overlay
+        of the map as ``expand_as(image)`` returns it (normalized, not
+        thresholded) is drawn, from this one resample."""
+        size = self.expanded_size(image)
         with span('overlay.resize'):
             im = bicubic_resize(torch.as_tensor(self.heatmap), size)
+            if not absolute or plot:
+                normalized = (im - im.min()) / (im.max() - im.min() + 1e-8)
             if not absolute:
-                im = (im - im.min()) / (im.max() - im.min() + 1e-8)
+                im = normalized
             if threshold:
                 im = (im > threshold).float()
             im = im.cpu().numpy()
+            drawn = None
+            if plot:
+                drawn = im if not (absolute or threshold) else normalized.cpu().numpy()
         if plot:
-            self.plot_overlay(image, **plot_kwargs)
+            self._plot_expanded(image, drawn, **plot_kwargs)
         return im
 
 

@@ -1,4 +1,5 @@
-"""Build and launch the hand-written CUDA kernels of ``csrc/attention.cu``.
+"""Build and launch the hand-written CUDA kernels of ``csrc/attention.cu``
+and ``csrc/overlay.cu``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, under
@@ -29,8 +30,9 @@ import torch
 from .. import profiling
 
 __all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
-           'launches', 'reset_launches', 'load_library', 'tma_view_error',
-           'cross_route_error', 'HEAD_DIMS', 'TF32X3_WGMMA_HEAD_DIMS']
+           'overlay_resample', 'png_scanlines', 'launches', 'reset_launches',
+           'load_library', 'tma_view_error', 'cross_route_error', 'HEAD_DIMS',
+           'TF32X3_WGMMA_HEAD_DIMS']
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'daam_tpu_torch'
@@ -52,10 +54,14 @@ _INT_MAX = 2 ** 31 - 1
 #: ``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
 #: ``cross_attention_probs_tf32x3`` those of the fp32 routes (all on the
 #: tensor cores); the launcher's own total counts them too.
+#: ``overlay_resample`` and ``png_scanlines`` count the overlay kernels of
+#: ``csrc/overlay.cu``: one of each an overlay drawn on the card, and one
+#: ``png_scanlines`` an image written as it is.
 launches = profiling.counter_group('launches', (
     'flash_attention', 'flash_attention_wgmma', 'flash_attention_tf32x3',
     'cross_attention_acc', 'cross_attention_acc_mma', 'cross_attention_acc_tf32x3',
-    'cross_attention_probs', 'cross_attention_probs_mma', 'cross_attention_probs_tf32x3'))
+    'cross_attention_probs', 'cross_attention_probs_mma', 'cross_attention_probs_tf32x3',
+    'overlay_resample', 'png_scanlines'))
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.
@@ -124,6 +130,12 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i
     lib.daam_flash_attention_tf32x3_scratch.argtypes = [i] * 4
     lib.daam_flash_attention_tf32x3_scratch.restype = ctypes.c_longlong
+    lib.daam_overlay_scratch_floats.argtypes = [i, i]
+    lib.daam_overlay_scratch_floats.restype = ctypes.c_longlong
+    lib.daam_overlay_resample.argtypes = [i, ptr, i, i, i, i, ptr, ptr]
+    lib.daam_overlay_resample.restype = i
+    lib.daam_png_scanlines.argtypes = [i, ptr, ptr, ptr] + [i] * 4 + [ptr, ptr]
+    lib.daam_png_scanlines.restype = i
     lib.daam_error_string.argtypes = [i]
     lib.daam_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -356,3 +368,74 @@ def cross_attention_probs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches['cross_attention_probs'] += 1
     launches['cross_attention_probs_mma' if bf16 else 'cross_attention_probs_tf32x3'] += 1
     return o, p
+
+
+def _on_card(name: str, t: Optional[torch.Tensor], dtype: torch.dtype, dim: int):
+    if t is None or not t.is_cuda or t.dtype != dtype or t.dim() != dim \
+            or not t.is_contiguous():
+        got = 'None' if t is None else f'{t.dtype} {tuple(t.shape)} on {t.device}'
+        raise ValueError(f'{name} must be a contiguous {dim}-d {dtype} CUDA tensor, '
+                         f'got {got}')
+
+
+def overlay_resample(heat: torch.Tensor, size) -> torch.Tensor:
+    """A word's (h, w) fp32 map resampled on the card to ``size`` = (H, W)
+    as ``F.interpolate(mode='bicubic', align_corners=False)`` resamples it,
+    for :func:`png_scanlines`.
+
+    Returns the scratch ``overlay_resample_kernel`` writes: the (H, W) map
+    flattened, then its blocks' partial minima and maxima.
+    """
+    _on_card('heat', heat, torch.float32, 2)
+    H, W = (int(n) for n in size)
+    if min(H, W) < 1 or H * W > _INT_MAX:
+        raise ValueError(f'unsupported size {(H, W)}')
+    lib = load_library()
+    scratch = torch.empty(lib.daam_overlay_scratch_floats(H, W), dtype=torch.float32,
+                          device=heat.device)
+    err = lib.daam_overlay_resample(heat.device.index, heat.data_ptr(), heat.shape[0],
+                                    heat.shape[1], H, W, scratch.data_ptr(),
+                                    torch.cuda.current_stream(heat.device).cuda_stream)
+    _raise_on(err, 'overlay_resample')
+    launches['overlay_resample'] += 1
+    return scratch
+
+
+def png_scanlines(image: torch.Tensor, resampled: Optional[torch.Tensor] = None,
+                  lut: Optional[torch.Tensor] = None, color_normalize: bool = True,
+                  filtered: bool = True) -> torch.Tensor:
+    """The PNG scanlines of an (H, W, 3) uint8 image on the card, as the
+    (H, 1 + 3W) uint8 rows a PNG's IDAT deflates: each row's filter type
+    byte, then its bytes filtered as Pillow filters them (its choice among
+    None, Sub, Up and Paeth), or unfiltered (type 0) when ``filtered`` is
+    false.
+
+    With ``resampled`` (what :func:`overlay_resample` returned at this
+    size) and ``lut`` (the float64 (256, 3) jet table) the rows are the
+    heat-map overlay ``heatmap._jet_composite`` draws, rounded to uint8:
+    the map min-max normalized as ``expand_as`` normalizes it, coloured
+    with ``color_normalize`` as the composite colours it.  Without them
+    the rows are the image's own.
+    """
+    _on_card('image', image, torch.uint8, 3)
+    H, W, C = image.shape
+    if C != 3 or H * (1 + 3 * W) > _INT_MAX:
+        raise ValueError(f'image must be (H, W, 3), got {tuple(image.shape)}')
+    lib = load_library()
+    if resampled is not None:
+        _on_card('resampled', resampled, torch.float32, 1)
+        _on_card('lut', lut, torch.float64, 2)
+        if resampled.numel() != lib.daam_overlay_scratch_floats(H, W) \
+                or tuple(lut.shape) != (256, 3) or resampled.device != image.device:
+            raise ValueError('resampled must be overlay_resample\'s scratch at the '
+                             'image\'s size and lut the (256, 3) table, on its device')
+    out = torch.empty(H, 1 + 3 * W, dtype=torch.uint8, device=image.device)
+    err = lib.daam_png_scanlines(
+        image.device.index, image.data_ptr(),
+        None if resampled is None else resampled.data_ptr(),
+        None if resampled is None else lut.data_ptr(), H, W, int(color_normalize),
+        int(filtered), out.data_ptr(),
+        torch.cuda.current_stream(image.device).cuda_stream)
+    _raise_on(err, 'png_scanlines')
+    launches['png_scanlines'] += 1
+    return out

@@ -335,9 +335,12 @@ def main(argv=None):
 
 
 def _experiment(tc, exp, heat_maps) -> GenerationExperiment:
-    """``exp``'s image, prompt, seed and directory with other maps."""
-    return GenerationExperiment(exp.image, heat_maps, exp.prompt, seed=exp.seed,
-                                path=exp.path, tokenizer=tc.pipe.tokenizer)
+    """``exp``'s image, prompt, seed and directory with other maps, drawn
+    where ``exp`` draws its PNGs, from its copy of the image."""
+    other = GenerationExperiment(exp.image, heat_maps, exp.prompt, seed=exp.seed,
+                                 path=exp.path, tokenizer=tc.pipe.tokenizer)
+    other._device, other._card_image = exp._device, exp._card_image
+    return other
 
 
 def save_time_maps(tc, exp, word, batch_idx=0):

@@ -259,18 +259,21 @@ class DiffusionHeatMapHooker(AggregateHooker):
     def to_experiment(self, path, seed=None, id='.', subtype='.',
                       **compute_kwargs) -> GenerationExperiment:
         """Export the last generation as a serializable experiment
-        (reference ``daam/trace.py:68-81``)."""
+        (reference ``daam/trace.py:68-81``), which draws its PNGs on the
+        pipeline's device where that is a CUDA device."""
         batch_idx = compute_kwargs.get('batch_idx', 0)
         image = (self.last_images[batch_idx]
                  if batch_idx < len(self.last_images) else self.last_image)
         prompt = (self.last_prompts[batch_idx]
                   if batch_idx < len(self.last_prompts) else self.last_prompt)
         with profiling.span('experiment.to_experiment'):
-            return GenerationExperiment(
+            exp = GenerationExperiment(
                 image,
                 self.compute_global_heat_map(**compute_kwargs).heat_maps.cpu().numpy(),
                 prompt, seed=seed, id=id, subtype=subtype, path=path,
                 tokenizer=self.pipe.tokenizer)
+            exp._device = self.pipe.device
+            return exp
 
     def _aggregate_source(self, source, batch_idx, factors, head_idx,
                           layer_idx) -> torch.Tensor:

@@ -263,10 +263,11 @@ def test_library_path_tracks_headers(tmp_path, monkeypatch):
 
 def test_launch_counters_include_the_tensor_core_route():
     """reset_launches zeroes every counter, those of the bf16 and the fp32
-    tensor-core routes included."""
+    tensor-core routes and of the overlay kernels included."""
     for name in ('flash_attention_wgmma', 'cross_attention_acc_mma',
                  'cross_attention_probs_mma', 'flash_attention_tf32x3',
-                 'cross_attention_acc_tf32x3', 'cross_attention_probs_tf32x3'):
+                 'cross_attention_acc_tf32x3', 'cross_attention_probs_tf32x3',
+                 'overlay_resample', 'png_scanlines'):
         kernels.launches[name] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
@@ -276,7 +277,8 @@ def test_launch_counters_include_the_tensor_core_route():
                                      'cross_attention_acc_tf32x3',
                                      'cross_attention_probs',
                                      'cross_attention_probs_mma',
-                                     'cross_attention_probs_tf32x3'}
+                                     'cross_attention_probs_tf32x3',
+                                     'overlay_resample', 'png_scanlines'}
     assert not any(kernels.launches.values())
 
 

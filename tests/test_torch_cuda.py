@@ -333,3 +333,62 @@ def test_evaluation_on_card_matches_cpu(pred_hw, truth_hw, cuda_device):
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _png_pixels(path) -> np.ndarray:
+    import PIL.Image
+
+    with PIL.Image.open(path) as im:
+        return np.asarray(im.convert('RGB'))
+
+
+@pytest.mark.cuda
+def test_overlays_on_card_match_the_host_route(tmp_path, cuda_device, monkeypatch):
+    """Every word of one SD 2.1 512² experiment, drawn on the card
+    (``csrc/overlay.cu``) and on the host where matplotlib is absent: pixels
+    within one level on at most 0.5% of a PNG's pixels (the limits of
+    ``tests/test_torch_kernel_emulation.py``), ``output.png`` equal, the
+    card's files within 1% of Pillow's size for the same pixels, and one
+    ``overlay_card`` a word."""
+    import io
+    import sys
+
+    import PIL.Image
+
+    from daam_tpu_torch import StableDiffusionPipeline, profiling, trace
+    from daam_tpu_torch.experiment import GenerationExperiment
+
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    monkeypatch.setitem(sys.modules, 'matplotlib.pyplot', None)
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device=cuda_device)
+    with trace(pipe) as tc:
+        out = pipe('A dog runs across the field .', num_inference_steps=2,
+                   generator=torch.Generator(device=cuda_device).manual_seed(0))
+        card = tc.to_experiment(tmp_path / 'card')
+    card.image = out.images[0]
+    host = GenerationExperiment(card.image, card.global_heat_map, card.prompt,
+                                path=tmp_path / 'host', tokenizer=card.tokenizer)
+    before, launched = profiling.counters(), dict(kernels.launches)
+    card.save(heat_maps=False)
+    card_paths = card.save_all_heat_maps()
+    mid = profiling.counters()
+    host.save(heat_maps=False)
+    host_paths = host.save_all_heat_maps()
+    after = profiling.counters()
+    words = sorted(card_paths)
+    assert words and words == sorted(host_paths)
+    assert mid['overlay_card'] - before['overlay_card'] == len(words)
+    assert mid['overlay_host'] == before['overlay_host']
+    assert after['overlay_host'] - mid['overlay_host'] == len(words)
+    assert kernels.launches['overlay_resample'] - launched['overlay_resample'] == len(words)
+    assert kernels.launches['png_scanlines'] - launched['png_scanlines'] == len(words) + 1
+    pairs = [(card_paths[w], host_paths[w]) for w in words]
+    for ours, theirs in pairs + [(card.path / 'output.png', host.path / 'output.png')]:
+        a, b = _png_pixels(ours), _png_pixels(theirs)
+        diff = np.abs(a.astype(np.int16) - b).max(-1)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 0.005, (ours.name, diff.max(),
+                                                                (diff > 0).mean())
+        buf = io.BytesIO()
+        PIL.Image.fromarray(a).save(buf, format='PNG')
+        assert abs(ours.stat().st_size - len(buf.getvalue())) <= 0.01 * len(buf.getvalue())
+    np.testing.assert_array_equal(_png_pixels(card.path / 'output.png'), np.asarray(card.image))

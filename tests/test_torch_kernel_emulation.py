@@ -27,15 +27,20 @@ accumulator, ``cond_only``, and P written from a base off a 16-byte
 boundary.  The kernels' integer TF32 rounding equals ``cvt.rna.tf32.f32``'s
 definition.  The bf16 entry points refuse an Lk whose block does not fit in
 shared memory; every K1 and K5 route takes every Lk the former CUDA-core
-kernels took.  On the card, ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` run
-the same kernels against their plain versions.
+kernels took.  The overlay kernels of ``csrc/overlay.cu`` run the same way
+(``run_case overlay``): their pixels against the host route's, their PNG
+rows against Pillow's.  On the card, ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` run the same kernels against their plain
+versions.
 """
 
 import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 from daam_tpu_torch.ops import kernels
 
@@ -262,3 +267,121 @@ def test_head_dims_are_the_kernel_switch():
     switch = switch[:switch.index('default:')]
     cases = tuple(int(x) for x in re.findall(r'case (\d+): return f\(', switch))
     assert cases == kernels.HEAD_DIMS == (16, 32, 40, 64, 80, 128, 160)
+
+
+# ---------------------------------------------------------------- overlays
+#
+# overlay_resample_kernel and png_rows_kernel (csrc/overlay.cu) draw a
+# word's overlay on the card up to PNG scanlines.  Their pixels are held
+# against the host route (expand_as, _jet_composite, the rounding to uint8)
+# and their filtered rows against Pillow's own, read back from its IDAT.
+
+def _overlay_image(kind: str, H: int, W: int, rng) -> np.ndarray:
+    if kind == 'noise':
+        return rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    if kind == 'smooth':
+        rgb = [np.sin(x / 7.0 + c) * np.cos(y / 5.0 - c) for c in range(3)]
+        return np.round(127.5 + 127.5 * np.stack(rgb, -1)).astype(np.uint8)
+    ramp = (x / max(W - 1, 1) * 0.7 + y / max(H - 1, 1) * 0.3)[..., None]
+    return np.round(ramp * [255.0, 180.0, 60.0]).astype(np.uint8)  # gradient
+
+
+def _host_overlay(image, heat, color_normalize: bool) -> np.ndarray:
+    from daam_tpu_torch import heatmap
+
+    expanded = heatmap.WordHeatMap(torch.from_numpy(heat)).expand_as(image)
+    composite = heatmap._jet_composite(image, expanded, color_normalize)
+    return np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _pillow_rows(pixels: np.ndarray) -> np.ndarray:
+    """The (H, 1 + 3W) scanlines Pillow writes for ``pixels``, from its
+    IDAT."""
+    import io
+    import struct
+    import zlib
+
+    import PIL.Image
+
+    buf = io.BytesIO()
+    PIL.Image.fromarray(pixels).save(buf, format='PNG')
+    png, pos, idat = buf.getvalue(), 8, b''
+    while pos < len(png):
+        n, = struct.unpack('>I', png[pos:pos + 4])
+        if png[pos + 4:pos + 8] == b'IDAT':
+            idat += png[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    H, W = pixels.shape[:2]
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 3 * W)
+
+
+@pytest.fixture
+def run_overlay(run_case, tmp_path):
+    from daam_tpu_torch.heatmap import _JET_LUT
+
+    def run(image, heat, color_normalize=True, filtered=True):
+        H, W = image.shape[:2]
+        h, w = heat.shape if heat is not None else (0, 0)
+        src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+        src.write_bytes(_JET_LUT.astype('<f8').tobytes()
+                        + (b'' if heat is None else heat.astype('<f4').tobytes())
+                        + np.ascontiguousarray(image).tobytes())
+        run_case('overlay', src, dst, h, w, H, W, int(color_normalize), int(filtered))
+        return np.fromfile(dst, np.uint8).reshape(H, 1 + 3 * W)
+    return run
+
+
+# (image, H, W, map h, w, map kind, color_normalize): noise, smooth and
+# gradient images; save_heat_map's absolute False (levels color-normalized)
+# and True (levels clipped); a constant map (hi = lo); non-square images;
+# 64 -> 128, the main path's factor 8
+OVERLAY_CASES = [('noise', 64, 64, 16, 16, 'rand', True),
+                 ('smooth', 40, 40, 8, 8, 'rand', False),
+                 ('gradient', 48, 80, 12, 20, 'rand', True),
+                 ('noise', 36, 52, 9, 13, 'rand', False),
+                 ('smooth', 40, 24, 8, 8, 'constant', True),
+                 ('gradient', 32, 32, 8, 8, 'constant', False),
+                 ('smooth', 128, 128, 64, 64, 'peaks', True)]
+
+
+@pytest.mark.parametrize('case', OVERLAY_CASES, ids=lambda c: '-'.join(map(str, c)))
+def test_overlay_kernels_emulated(run_overlay, case):
+    kind, H, W, h, w, heat_kind, color_normalize = case
+    rng = np.random.RandomState(H * 100 + W + h)
+    image = _overlay_image(kind, H, W, rng)
+    if heat_kind == 'constant':
+        # zeros: the one constant whose resample is exactly constant on both
+        # routes (any other sums its weights to within an ulp of it, and the
+        # min-max stretches those ulps over the whole range)
+        heat = np.zeros((h, w), np.float32)
+    elif heat_kind == 'peaks':  # an attention-like map: a few blobs over noise
+        y, x = np.mgrid[0:h, 0:w] / h
+        heat = (0.02 * rng.rand(h, w) + np.exp(-((x - 0.3) ** 2 + (y - 0.6) ** 2) * 40)
+                + 0.5 * np.exp(-((x - 0.7) ** 2 + (y - 0.2) ** 2) * 80)).astype(np.float32)
+    else:
+        heat = (rng.rand(h, w) * 3e-3).astype(np.float32)
+    raw = run_overlay(image, heat, color_normalize, filtered=False)
+    assert not raw[:, 0].any(), 'unfiltered rows take filter type 0'
+    pixels = raw[:, 1:].reshape(H, W, 3)
+    want = _host_overlay(image, heat, color_normalize)
+    diff = np.abs(pixels.astype(np.int16) - want).max(-1)
+    # the fp32 resample may sit an ulp off PyTorch's: a pixel moves one
+    # level where a table index boundary or a rounding half lies between
+    assert diff.max() <= 1, diff.max()
+    assert (diff > 0).mean() <= 0.005, (diff > 0).mean()
+    np.testing.assert_array_equal(run_overlay(image, heat, color_normalize),
+                                  _pillow_rows(pixels))
+
+
+@pytest.mark.parametrize('kind,H,W', [('noise', 24, 40), ('smooth', 40, 24), ('gradient', 33, 17)])
+def test_png_rows_of_an_image_are_pillows_emulated(run_overlay, kind, H, W):
+    """Without a map the rows are the image's own, filtered as Pillow
+    filters them (rows equal to the one above, a flat image included)."""
+    image = _overlay_image(kind, H, W, np.random.RandomState(H + W))
+    image[5:9] = image[4]
+    for img in (image, np.zeros_like(image)):
+        np.testing.assert_array_equal(run_overlay(img, None), _pillow_rows(img))
+        raw = run_overlay(img, None, filtered=False)
+        assert not raw[:, 0].any()
+        np.testing.assert_array_equal(raw[:, 1:].reshape(img.shape), img)

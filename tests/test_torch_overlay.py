@@ -5,8 +5,17 @@
 ``GenerationExperiment.save_heat_map(word, tokenizer, crop, output_prefix,
 absolute)`` and ``save_all_heat_maps(tokenizer, crop)``: the same
 composite, drawn on the same axes with the same title, from the same
-arguments, positional ones included.
+arguments, positional ones included.  Also the PNG writer of the card's
+route (``daam_tpu_torch.png``) against Pillow, the host route's PNGs from
+one resample a word equal to those of two, and the route an experiment
+made on the CPU takes (the card's own is held to the host's in
+``tests/test_torch_kernel_emulation.py`` and ``tests/test_torch_cuda.py``).
 """
+
+import io  # noqa: E402
+import struct  # noqa: E402
+import sys  # noqa: E402
+import zlib  # noqa: E402
 
 import matplotlib
 
@@ -21,7 +30,7 @@ import torch  # noqa: E402
 from daam_tpu import heatmap as jax_heatmap  # noqa: E402
 from daam_tpu.experiment import GenerationExperiment as JaxExperiment  # noqa: E402
 from daam_tpu.tokenization import default_tokenizer as jax_tokenizer  # noqa: E402
-from daam_tpu_torch import heatmap  # noqa: E402
+from daam_tpu_torch import heatmap, png, profiling  # noqa: E402
 from daam_tpu_torch.experiment import GenerationExperiment  # noqa: E402
 from daam_tpu_torch.tokenization import default_tokenizer  # noqa: E402
 
@@ -127,3 +136,137 @@ def test_save_all_heat_maps_skips_any_failure(tmp_path, monkeypatch):
     monkeypatch.setattr(GenerationExperiment, 'save_heat_map', failing)
     saved = ours.save_all_heat_maps(crop=10)
     assert 'dog' not in saved and 'runs' in saved
+
+
+# ------------------------------------------------------------ the PNG writer
+
+def _pillow_png(pixels: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    PIL.Image.fromarray(pixels).save(buf, format='PNG')
+    return buf.getvalue()
+
+
+def _scanlines(png_file: bytes, shape) -> np.ndarray:
+    """The filtered (H, 1 + 3W) rows of a PNG's IDAT."""
+    pos, idat = 8, b''
+    while pos < len(png_file):
+        n, = struct.unpack('>I', png_file[pos:pos + 4])
+        if png_file[pos + 4:pos + 8] == b'IDAT':
+            idat += png_file[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return np.frombuffer(zlib.decompress(idat), np.uint8).reshape(shape[0], 1 + 3 * shape[1])
+
+
+def _pixels(kind: str, H: int, W: int) -> np.ndarray:
+    rng = np.random.RandomState(H + W)
+    if kind == 'noise':  # what random-weight images look like
+        return rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    y, x = np.mgrid[0:H, 0:W]
+    if kind == 'smooth':
+        return np.stack([(x * 3 + y) % 256, (x + y * 2) % 256, (x * y // 64) % 256],
+                        -1).astype(np.uint8)
+    return np.full((H, W, 3), 200, np.uint8)  # flat
+
+
+@pytest.mark.parametrize('kind,H,W', [('noise', 512, 512), ('noise', 37, 21),
+                                      ('smooth', 96, 128), ('flat', 16, 16)])
+def test_png_writer_reads_back_and_is_pillows_size(tmp_path, kind, H, W):
+    pixels = _pixels(kind, H, W)
+    unfiltered = np.concatenate([np.zeros((H, 1), np.uint8), pixels.reshape(H, -1)], 1)
+    png.write_png(tmp_path / 'raw.png', unfiltered)
+    with PIL.Image.open(tmp_path / 'raw.png') as im:
+        assert im.mode == 'RGB'
+        np.testing.assert_array_equal(np.asarray(im), pixels)
+    # Pillow's own filtered rows, deflated by the writer
+    theirs = _pillow_png(pixels)
+    ours = png.png_bytes(_scanlines(theirs, pixels.shape))
+    with PIL.Image.open(io.BytesIO(ours)) as im:
+        np.testing.assert_array_equal(np.asarray(im), pixels)
+    assert abs(len(ours) - len(theirs)) <= 0.01 * len(theirs), (len(ours), len(theirs))
+    from PIL import features
+    if features.version('zlib') == zlib.ZLIB_RUNTIME_VERSION:
+        assert ours == theirs, 'the same zlib deflates to Pillow\'s very file'
+
+
+def test_png_writer_refuses_rows_that_are_not_rgb():
+    with pytest.raises(ValueError):
+        png.png_bytes(np.zeros((4, 9), np.uint8))  # 8 bytes: no whole RGB pixels
+
+
+# ------------------------------------------------------- the host route
+
+@pytest.mark.parametrize('matplotlib_installed', [True, False])
+@pytest.mark.parametrize('absolute', [False, True])
+def test_host_route_pngs_equal_those_of_two_resamples(tmp_path, monkeypatch,
+                                                      matplotlib_installed, absolute):
+    """save_heat_map resamples a word's map once; its PNG is the one it
+    wrote when expand_as resampled once for what it returns and again for
+    the overlay it draws."""
+    ours, _ = _experiments(tmp_path)
+    ours.path.mkdir(parents=True)
+    if not matplotlib_installed:
+        monkeypatch.setitem(sys.modules, 'matplotlib', None)
+        monkeypatch.setitem(sys.modules, 'matplotlib.pyplot', None)
+    plt.close('all')
+    new = ours.save_heat_map('dog', absolute=absolute).read_bytes()
+    word_map = ours.heat_map().compute_word_heat_map('dog')
+    word_map.expand_as(ours.image)
+    heatmap.plot_overlay_heat_map(ours.image, word_map.expand_as(ours.image),
+                                  word=word_map.word, out_file=tmp_path / 'two.png',
+                                  color_normalize=not absolute)
+    assert new == (tmp_path / 'two.png').read_bytes()
+
+
+@pytest.mark.parametrize('kwargs', [{'absolute': True}, {'threshold': 0.5},
+                                    {'absolute': True, 'threshold': 0.5}])
+def test_expand_as_plot_draws_the_plain_expansion(tmp_path, monkeypatch, kwargs):
+    """With absolute or threshold, expand_as(plot=True) returns that map and
+    draws the overlay of plain expand_as(image), as the reference does."""
+    image, heat = _inputs()
+    word_map = heatmap.WordHeatMap(torch.from_numpy(heat[::4, ::4].copy()), word='dog')
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    monkeypatch.setitem(sys.modules, 'matplotlib.pyplot', None)
+    got = word_map.expand_as(image, plot=True, out_file=tmp_path / 'one.png', **kwargs)
+    np.testing.assert_array_equal(got, word_map.expand_as(image, **kwargs))
+    heatmap.plot_overlay_heat_map(image, word_map.expand_as(image),
+                                  out_file=tmp_path / 'two.png')
+    assert (tmp_path / 'one.png').read_bytes() == (tmp_path / 'two.png').read_bytes()
+
+
+@pytest.fixture(scope='module')
+def tiny_pipe():
+    from daam_tpu_torch import StableDiffusionPipeline
+    return StableDiffusionPipeline.from_pretrained('tiny', device='cpu')
+
+
+def test_experiment_made_on_the_cpu_draws_on_the_host(tiny_pipe, tmp_path):
+    from daam_tpu_torch import trace
+    from daam_tpu_torch.ops import kernels
+
+    with trace(tiny_pipe) as tc:
+        out = tiny_pipe('a dog runs', num_inference_steps=2,
+                        generator=torch.Generator().manual_seed(0))
+        exp = tc.to_experiment(tmp_path)
+    exp.image = out.images[0]
+    before, launched = profiling.counters(), dict(kernels.launches)
+    exp.save(heat_maps=False)
+    written = [exp.save_heat_map(word) for word in ('dog', 'runs')]
+    after = profiling.counters()
+    assert after['overlay_host'] - before['overlay_host'] == len(written)
+    assert after['overlay_card'] == before['overlay_card']
+    assert dict(kernels.launches) == launched
+    assert all(p.exists() for p in written) and (tmp_path / 'output.png').exists()
+
+
+def test_route_is_chosen_by_the_image_and_the_maps_device(tmp_path):
+    """No device recorded, a CPU device, or a CUDA device with an image
+    that is not an RGB PIL image: the host draws, and nothing touches a
+    card."""
+    ours, _ = _experiments(tmp_path)
+    assert ours._image_on_card() is None
+    ours._device = torch.device('cpu')
+    assert ours._image_on_card() is None
+    ours._device = torch.device('cuda')
+    for image in (np.zeros((32, 32, 3), np.float32), ours.image.convert('L')):
+        ours.image = image
+        assert ours._image_on_card() is None

@@ -144,9 +144,9 @@ def test_save_heat_map_overlay_stages(pipe, recording, tmp_path):
         exp.save_heat_map(word)
     names = [r.name for r in profiling.spans()]
     n = len(words)
-    # expand_as(plot=True) resamples the map for what it returns and again
-    # for the overlay it draws: two resizes a word
-    assert names.count('overlay.resize') == 2 * n
+    # expand_as(plot=True) resamples the map once, for what it returns and
+    # for the overlay it draws: one resize a word
+    assert names.count('overlay.resize') == n
     assert names.count('overlay.composite') == n and names.count('overlay.encode') == n
     assert names.count('maps.word') == n
     assert all((tmp_path / f'{w}.heat_map.png').exists() for w in words)

@@ -22,6 +22,12 @@
 //   run_case refuse acc|f32|bf16 hd Lk              prints what the bf16
 //       entry point returns for a call at that Lk (no memory: only for an Lk
 //       it must refuse)
+//   run_case overlay in out h w H W color filtered
+//       overlay.cu's overlay_resample_kernel (h = 0: none, the image's own
+//       rows) and png_rows_kernel on the file `in` (the float64 jet table
+//       (256, 3), the fp32 map (h, w), the uint8 image (H, W, 3)); writes the
+//       (H, 1 + 3W) scanlines to `out`, which the test holds against the host
+//       route and Pillow
 //
 // layout: head_major or packed.  Prints one line per check and exits 1 if
 // any fails.
@@ -32,6 +38,7 @@
 
 #include "warp.h"
 #include "attention.cu"
+#include "overlay.cu"
 
 namespace {
 
@@ -288,6 +295,33 @@ int main(int argc, char** argv) {
                                          Lk * hd, hd, hd, Lk * hd, hd, hd, scale, nullptr);
     printf("%s\n", err == cudaErrorInvalidValue ? "refused" : "not refused");
     return 0;
+  }
+  if (argc == 10 && std::string(argv[1]) == "overlay") {
+    const int h = atoi(argv[4]), w = atoi(argv[5]), H = atoi(argv[6]), W = atoi(argv[7]);
+    std::vector<double> lut(256 * 3);
+    std::vector<float> heat((size_t)h * w);
+    std::vector<uint8_t> image((size_t)H * W * 3), out((size_t)H * (1 + 3 * W));
+    FILE* f = fopen(argv[2], "rb");
+    const bool read = f && fread(lut.data(), 8, lut.size(), f) == lut.size() &&
+                      fread(heat.data(), 4, heat.size(), f) == heat.size() &&
+                      fread(image.data(), 1, image.size(), f) == image.size();
+    if (f) fclose(f);
+    if (!read) {
+      fprintf(stderr, "overlay: cannot read %s\n", argv[2]);
+      return 2;
+    }
+    std::vector<float> scratch(h ? daam_overlay_scratch_floats(H, W) : 0);
+    if (h && launch_error(daam_overlay_resample(0, heat.data(), h, w, H, W, scratch.data(),
+                                                nullptr)))
+      return 1;
+    if (launch_error(daam_png_scanlines(0, image.data(), h ? scratch.data() : nullptr,
+                                        lut.data(), H, W, atoi(argv[8]), atoi(argv[9]),
+                                        out.data(), nullptr)))
+      return 1;
+    f = fopen(argv[3], "wb");
+    const bool wrote = f && fwrite(out.data(), 1, out.size(), f) == out.size();
+    if (f) fclose(f);
+    return wrote ? 0 : 2;
   }
   if (argc < 8) {
     fprintf(stderr, "usage: run_case acc|acc32|flash|probs|probs32 B H Lq Lk hd layout "

@@ -1,5 +1,6 @@
 // A CPU stand-in for the CUDA runtime and the PTX operations the kernels of
-// daam_tpu_torch/csrc/attention.cu use, so that their arithmetic and indexing
+// daam_tpu_torch/csrc/attention.cu and overlay.cu use (overlay.cu's explicitly
+// rounded __fadd_rn-style arithmetic too), so that their arithmetic and indexing
 // run on a machine without a GPU (tests/test_torch_kernel_emulation.py): one
 // std::thread per CUDA thread, pthread barriers for __syncthreads,
 // __syncwarp and a warpgroup's collective wgmma,
@@ -18,10 +19,11 @@
 // once and completes its bytes on its barrier.  cp.async copies at once;
 // shared memory is filled with 0xff bytes (NaN as bf16 or float) and every
 // cp.async, ldmatrix, bulk copy or wgmma address, and a canary past the block's
-// dynamic shared memory, is checked.  Included before attention.cu, it
-// defines DAAM_EMULATE, which leaves out the CUDA headers, hopper.cuh's PTX
-// wrappers and the TMA and bf16 wgmma kernel (flash_attention_wgmma_kernel),
-// and defines the kernel file's DAAM_EX2, DAAM_DYNAMIC_SMEM and DAAM_LAUNCH.
+// dynamic shared memory, is checked.  Included before attention.cu and
+// overlay.cu, it defines DAAM_EMULATE, which leaves out the CUDA headers,
+// hopper.cuh's PTX wrappers and the TMA and bf16 wgmma kernel
+// (flash_attention_wgmma_kernel), and defines the kernel files' DAAM_EX2,
+// DAAM_DYNAMIC_SMEM and DAAM_LAUNCH.
 #pragma once
 #include <pthread.h>
 #include <cstdint>
@@ -57,6 +59,8 @@ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c,
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
 struct __nv_bfloat16 { unsigned short v; };
 struct __nv_bfloat162 { __nv_bfloat16 a, b; };
 inline float __bfloat162float(__nv_bfloat16 h) { uint32_t u = (uint32_t)h.v << 16; float f; memcpy(&f, &u, 4); return f; }
@@ -109,6 +113,17 @@ inline float __shfl_xor_sync(unsigned, float x, int m) {
   __syncwarp();
   return y;
 }
+inline int __shfl_xor_sync(unsigned mask, int x, int m) {
+  return __float_as_int(__shfl_xor_sync(mask, __int_as_float(x), m));
+}
+// explicitly rounded arithmetic: x86-64's SSE rounds each operation alone
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (const uint8_t*)p - emu_blk->smem; }
 inline void emu_wg_sync() {
   if (emu_tid() / 128 >= 8) emu_fail("warpgroup past the eighth");
