@@ -13,8 +13,10 @@ Numbers (each the worst over the sampled requests; limits in
 ``limits/<workload>.json``):
 
 * ``step_err``: the guided noise prediction's relative error at the worst
-  step: ‖x_prog − x_ref‖ / ‖x_ref − √(ᾱ_prev/ᾱ_t)·x‖ after one DDIM step
-  from the same latents x.
+  UNet evaluation: ‖x_prog − x_ref‖ / ‖x_ref − √(ᾱ_prev/ᾱ_t)·x‖ after one
+  step of the configuration's sampler from the latents x it integrates
+  from (:mod:`gpubench.reference.schedulers`; ε derived from v under
+  v-prediction).
 * ``image_err``: mean |Δ| of the uint8 images against the reference's
   decode of the program's last latents, in 1/255 steps.
 * ``map_err`` / ``word_err``: ‖Δ‖/‖ref‖ of the global heat map and of the

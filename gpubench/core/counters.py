@@ -12,8 +12,9 @@
   running the reference modules on the ``meta`` device: every convolution
   and linear (2 per multiply-add) and every attention product (QKᵀ and
   PV; PV alone where P is replayed), for the text encoders on the CFG
-  batch, the UNet per evaluation and the VAE decode (per tile, where the
-  configuration tiles it).
+  batch, the UNet per evaluation (as many a request as the configuration's
+  sampler makes: PNDM one more than its steps) and the VAE decode (per
+  tile, where the configuration tiles it).
 """
 
 import json
@@ -24,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..reference.models import Capture, cross_attention_layers
+from ..reference.schedulers import evaluations
 from .weights import BUILDERS
 
 PEAKS = json.loads((Path(__file__).resolve().parents[1] / 'peaks.json').read_text())
@@ -133,7 +135,7 @@ def vae_tiles(cfg: dict) -> int:
 @torch.no_grad()
 def model_flop(cfg: dict, batch: int, mode: str) -> Dict[str, int]:
     """FLOP of one request of ``batch`` prompts: ``text``, ``unet`` (one
-    evaluation), ``vae`` and ``total`` (text + steps × unet + vae)."""
+    evaluation), ``vae`` and ``total`` (text + evaluations × unet + vae)."""
     out = {}
     latent = cfg['run']['image_size'] // cfg['vae_scale_factor']
     with torch.device('meta'):
@@ -165,7 +167,8 @@ def model_flop(cfg: dict, batch: int, mode: str) -> Dict[str, int]:
         edge = 64 if tiles else latent
         vae(torch.zeros(batch * max(tiles, 1), cfg['vae']['latent_channels'], edge, edge))
         out['vae'] = count.flop
-    out['total'] = out['text'] + cfg['run']['steps'] * out['unet'] + out['vae']
+    out['total'] = (out['text'] + evaluations(cfg, cfg['run']['steps']) * out['unet']
+                    + out['vae'])
     return out
 
 
@@ -174,21 +177,22 @@ MODE = {'plain': 'acc', 'save': 'save', 'load': 'load'}
 
 def roofline_share(data: dict, kernel: str, names, launches_per_call) -> float:
     """``kernel``'s share of its roofline in the profiled request, in %:
-    the least time of its calls that the request's shapes imply over the
-    device time of the kernels ``names``.  None without a profile or a
-    call."""
+    the least time of its calls that the request's shapes imply, at each
+    UNet evaluation, over the device time of the kernels ``names``.  None
+    without a profile or a call."""
     import sys
 
     p = data['profile']
     if p is None:
         return None
     cfg, dtype = data['cfg'], data['cfg']['dtype']
+    n = evaluations(cfg, data['steps'])
     bound, launches = 0.0, 0
     for kind, batch in data['profile_runs']:
         for call in attention_calls(cfg, batch, MODE[kind]):
             if call['kernel'] == kernel:
-                bound += attention_bound_s(call, dtype) * data['steps']
-                launches += launches_per_call(dtype, call['hd']) * data['steps']
+                bound += attention_bound_s(call, dtype) * n
+                launches += launches_per_call(dtype, call['hd']) * n
     seconds, seen = p.device_s(names)
     if seen != launches:
         print(f'{kernel}: {seen} launches profiled, {launches} expected', file=sys.stderr)

@@ -1,7 +1,8 @@
 """The readings that the limits of ``correct`` are set from, in one process.
 
     python3 -m gpubench.core.readings --workload <name> \
-        --program-seeds 1 2 ... --control-seeds 7 8 9 [--control lower|tf32]
+        --program-seeds 1 2 ... --control-seeds 7 8 9 [--control lower|tf32] \
+        [--reference-prediction-type epsilon|v_prediction]
 
 For each program seed: the weights drawn from it, the program built as a
 run builds it, one request of the cell's flow at the cell's size (the
@@ -12,9 +13,11 @@ reference put in the program's place and run free in the precision below
 the configuration's (``lower``: bfloat16 for a float32 configuration,
 float8 operands on bfloat16 for a bfloat16 one; ``tf32``: float32 with its
 matrix products and convolutions on TF32, for a float32 configuration whose
-linears and attention run float32).  Prints one JSON line per seed and a
-summary: the largest program reading and the smallest control reading of
-each number.
+linears and attention run float32).  ``--reference-prediction-type``
+holds the program against a reference told another parameterisation of the
+UNet's output than the configuration states, to see that the comparison
+tells them apart.  Prints one JSON line per seed and a summary: the largest
+program reading and the smallest control reading of each number.
 """
 
 import argparse
@@ -26,10 +29,13 @@ from typing import Dict, List
 import torch
 
 from . import compare, runner, spec, traffic, weights
+from ..reference import schedulers as samplers
 from ..reference.pipeline import Reference
 
 
-def program_reading(cell, cfg, seed: int, device) -> Dict[str, float]:
+def program_reading(cell, cfg, seed: int, device, ref_cfg=None) -> Dict[str, float]:
+    """``ref_cfg``: the configuration that the reference follows, where it
+    is not the program's."""
     tr, steps = cell['traffic'], cfg['run']['steps']
     runner.program_precision(cfg, device)
     import tempfile
@@ -50,7 +56,7 @@ def program_reading(cell, cfg, seed: int, device) -> Dict[str, float]:
     daam_tpu_torch.release_heads()
     gc.collect()
     compare.reference_precision()
-    ref = Reference(cfg, weights.state_dicts(cfg, seed, device), device)
+    ref = Reference(ref_cfg or cfg, weights.state_dicts(cfg, seed, device), device)
     outs = [compare.program_outputs(r, ref) for r in runs]
     nums = compare.compare(ref, outs, steps, cfg['run']['guidance_scale'])
     del ref, outs, runs
@@ -102,16 +108,23 @@ def main(argv=None) -> int:
     p.add_argument('--program-seeds', type=int, nargs='*', default=[])
     p.add_argument('--control-seeds', type=int, nargs='*', default=[])
     p.add_argument('--control', choices=('lower', 'tf32'), default='lower')
+    p.add_argument('--reference-prediction-type', choices=samplers.PREDICTION_TYPES)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('readings: no CUDA device', file=sys.stderr)
         return 3
     cell = spec.cell(args.workload, spec.benchmark())
     cfg = cell['config']
+    ref_cfg = None
+    if args.reference_prediction_type:
+        ref_cfg = dict(cfg, scheduler=dict(cfg['scheduler'],
+                                           prediction_type=args.reference_prediction_type))
     prog, ctl = [], []
     for s in args.program_seeds:
-        prog.append(program_reading(cell, cfg, s, 'cuda'))
-        print(json.dumps({'program_seed': s, **prog[-1]}), flush=True)
+        prog.append(program_reading(cell, cfg, s, 'cuda', ref_cfg))
+        print(json.dumps({'program_seed': s, 'reference_prediction_type':
+                          (ref_cfg or cfg)['scheduler']['prediction_type'], **prog[-1]}),
+              flush=True)
     for s in args.control_seeds:
         ctl.append(control_reading(cell, cfg, s, 'cuda', args.control))
         print(json.dumps({'control_seed': s, 'control': args.control, **ctl[-1]}), flush=True)

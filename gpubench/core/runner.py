@@ -35,6 +35,7 @@ from typing import Dict, List
 import torch
 
 from . import compare, spec, traffic, weights
+from ..reference import schedulers as samplers
 from .clock import RequestClock
 
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'daam_tpu')
@@ -122,12 +123,21 @@ def host_settings(cfg: dict):
 
 def program_config_mismatch(cfg: dict, pcfg) -> List[str]:
     """Keys of the configuration file that the program's preset does not
-    hold as stated."""
+    hold as stated, and the scheduler the pipeline would build from the
+    file's name and the preset's prediction type: each of its fields
+    against the file's ``scheduler`` group, and a name it lacks."""
     import dataclasses
+
+    from daam_tpu_torch.pipeline.schedulers import SCHEDULERS, get_scheduler
 
     groups = {'text_encoder': pcfg.text, 'text_encoder_2': pcfg.text_2,
               'unet': pcfg.unet, 'vae': pcfg.vae}
     bad = []
+    name = cfg['scheduler']['name']
+    if name in SCHEDULERS:
+        groups['scheduler'] = get_scheduler(name, pcfg.prediction_type)
+    else:
+        bad.append(f'scheduler.name: the program has no {name!r} (it has {sorted(SCHEDULERS)})')
     for group, obj in groups.items():
         if group not in cfg:
             continue
@@ -152,6 +162,9 @@ def build_program(cfg: dict, seed: int, device):
     bad = program_config_mismatch(cfg, pcfg)
     if bad:
         raise SystemExit('the program does not run the configuration as stated: ' + '; '.join(bad))
+    bad = samplers.unsupported(cfg)
+    if bad:
+        raise SystemExit('the reference does not implement ' + '; '.join(bad))
     t0 = time.monotonic()
     sds = weights.state_dicts(cfg, seed, device)
     sync(device)

@@ -1,15 +1,18 @@
-"""The plain reference of a traced generation: text encoders, DDIM with
-classifier-free guidance, the DAAM accumulators, the VAE decode (tiled as
-the configuration says) and the heat-map aggregation.
+"""The plain reference of a traced generation: text encoders, the
+configuration's sampler (:mod:`.schedulers`: DDIM or PNDM, epsilon or
+v-prediction) with classifier-free guidance, the DAAM accumulators, the VAE
+decode (tiled as the configuration says) and the heat-map aggregation.
 
 It is built from a configuration file's sizes and a set of state dicts
 that the benchmark made, and works out again what the program derives:
-token ids, the initial noise from each prompt's generator seed, the DDIM
-tables, the accumulators and the maps.  :meth:`Reference.run` either runs
-free (the control, in a lower precision) or follows a program's per-step
-latents (teacher forcing: step i starts from the program's latents after
-step i-1, step 0 from the reference's own noise), so that one step's
-rounding does not compound over thirty.  Imports nothing of the program.
+token ids, the initial noise from each prompt's generator seed, the
+sampler's tables, the accumulators and the maps.  :meth:`Reference.run`
+either runs free (the control, in a lower precision) or follows a program's
+latents after each UNet evaluation (teacher forcing: evaluation i starts
+from the program's latents after evaluation i-1, evaluation 0 from the
+reference's own noise; PNDM's history holds the reference's own outputs at
+those latents), so that one step's rounding does not compound over thirty.
+Imports nothing of the program.
 """
 
 from contextlib import contextmanager
@@ -20,27 +23,10 @@ import torch
 import torch.nn.functional as F
 
 from .models import CLIPTextModel, Capture, UNet, VAEDecoder, cross_attention_layers
+from .schedulers import sampler
 from .tokenizer import Tokenizer
 
 FP8_MAX = 448.0
-
-
-def ddim_tables(cfg: dict, steps: int, device):
-    """(timesteps, alpha_t, alpha_prev): DDIM with eta 0, the scaled-linear
-    betas, ``steps_offset`` 1 and ``set_alpha_to_one`` False, built in
-    float64 and cast to float32."""
-    s = cfg['scheduler']
-    n = s['num_train_timesteps']
-    betas = np.linspace(s['beta_start'] ** 0.5, s['beta_end'] ** 0.5, n,
-                        dtype=np.float64) ** 2
-    ac = np.cumprod(1.0 - betas)
-    ratio = n // steps
-    ts = np.clip((np.arange(steps) * ratio).round().astype(np.int64)
-                 + s['steps_offset'], 0, n - 1)[::-1].copy()
-    prev = ts - ratio
-    a_prev = np.where(prev >= 0, ac[np.clip(prev, 0, None)], ac[0])
-    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa: E731
-    return torch.as_tensor(ts, device=device), f32(ac[ts]), f32(a_prev)
 
 
 def _fake_fp8(x: torch.Tensor) -> torch.Tensor:
@@ -219,22 +205,24 @@ class Reference:
             guidance: float, forced: Optional[List[torch.Tensor]] = None,
             save: bool = False, replay: Optional[Dict[str, torch.Tensor]] = None,
             heads_dtype=torch.bfloat16) -> dict:
-        """One traced generation of ``prompts``.  ``forced``: the program's
-        latents after each step, which the reference follows; the result's
-        ``step_err`` is then, for each step and prompt, the distance from
-        the program's latents after the step to the reference's, over the
-        length of the step's noise term (the guided noise prediction's
-        relative error).  ``save``: return every cross-attention layer's P
-        of every step in ``heads_dtype`` (the transplant's save run);
-        ``replay``: such a buffer, which replaces the computed P (the load
-        run)."""
+        """One traced generation of ``prompts`` in ``steps`` steps (PNDM:
+        one UNet evaluation more).  ``forced``: the program's latents after
+        each evaluation, which the reference follows; the result's
+        ``step_err`` is then, for each evaluation and prompt, the distance
+        from the program's latents after it to the reference's, over the
+        length of the step's noise term (the relative error of the guided
+        noise prediction, ε derived from v under v-prediction, combined
+        over the history under PNDM).  ``save``: return every
+        cross-attention layer's P of every evaluation in ``heads_dtype``
+        (the transplant's save run); ``replay``: such a buffer, which
+        replaces the computed P (the load run)."""
         with tf32_products(self.tf32):
             return self._run(prompts, seeds, steps, guidance, forced, save, replay, heads_dtype)
 
     def _run(self, prompts, seeds, steps, guidance, forced, save, replay, heads_dtype) -> dict:
         B = len(prompts)
         context, added = self.encode(prompts)
-        ts, a_t, a_prev = ddim_tables(self.cfg, steps, self.device)
+        sched = sampler(self.cfg, steps, self.device)
         transplant = save or replay is not None
         located = self.located(transplant)
         T = 77
@@ -242,19 +230,16 @@ class Reference:
                                       device=self.device) for i in located}
         x = self.noise(seeds)
         latents, errs, saved = [], [], {}
-        for i in range(steps):
+        for i, t in enumerate(sched.timesteps):
             rep = None if replay is None else {n: r[i] for n, r in replay.items()}
             cap = Capture(acc=acc, save=save, replay=rep)
-            eps = self.modules['unet'](torch.cat([x, x]), ts[i], context, added, cap)
-            eps_u, eps_c = eps.chunk(2)
-            eps = eps_u + guidance * (eps_c - eps_u)
-            x0 = (x - torch.sqrt(1 - a_t[i]) * eps) / torch.sqrt(a_t[i])
-            nxt = torch.sqrt(a_prev[i]) * x0 + torch.sqrt(1 - a_prev[i]) * eps
+            out = self.modules['unet'](torch.cat([x, x]), t, context, added, cap)
+            out_u, out_c = out.chunk(2)
+            nxt, carry = sched.step(i, out_u + guidance * (out_c - out_u), x)
             if save:
                 for n, p in cap.probs.items():
                     saved.setdefault(n, []).append(p.to(heads_dtype))
             if forced is not None:
-                carry = torch.sqrt(a_prev[i] / a_t[i]) * x
                 num = (forced[i].float() - nxt).flatten(1).norm(dim=1)
                 den = (nxt - carry).flatten(1).norm(dim=1)
                 errs.append((num / den).cpu())

@@ -8,12 +8,10 @@ at the test sizes, the control reads far above the program on the same
 seed, in every number that the two share.
 """
 
-import json
-
 import pytest
 
 from gpubench.core import readings, spec
-from gpubench.tests.drive import FIXTURES, TEST_CONFIG
+from gpubench.tests.drive import fixture, program_preset
 
 CELLS = [w['name'] for w in spec.benchmark()['workloads']]
 
@@ -22,14 +20,15 @@ def _cell(workload, test_size):
     cell = spec.cell(workload, spec.benchmark())
     cfg = cell['config']
     if test_size:
-        cfg = json.loads((FIXTURES / f"{TEST_CONFIG[cfg['name']]}.json").read_text())
+        cfg = fixture(cfg['name'])
     return cell, cfg
 
 
 @pytest.mark.parametrize('workload', CELLS)
 def test_control_reads_above_the_program(workload):
     cell, cfg = _cell(workload, test_size=True)
-    prog = readings.program_reading(cell, cfg, 7, 'cpu')
+    with program_preset(cfg):
+        prog = readings.program_reading(cell, cfg, 7, 'cpu')
     ctl = readings.control_reading(cell, cfg, 7, 'cpu')
     for name in ('step_err', 'map_err', 'overlay_err'):
         if name in prog:

@@ -1,8 +1,11 @@
 """The FLOP and byte counters against hand counts and against PyTorch's
-own operation counter, on the ``tiny`` and ``tiny-xl`` configurations."""
+own operation counter, on the ``tiny`` and ``tiny-xl`` configurations; a
+request's UNet evaluations as its sampler makes them (PNDM: one more than
+its steps) in the FLOP and the rooflines."""
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -10,6 +13,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from gpubench.core import counters, weights
 from gpubench.reference.models import Capture, cross_attention_layers
+from gpubench.tests.drive import fixture
 
 FIXTURES = Path(__file__).with_name('fixtures')
 
@@ -97,3 +101,33 @@ def test_tiles():
     assert counters.vae_tiles(cfg) == 0
     big = json.loads((Path(__file__).parents[1] / 'configs' / 'sdxl-base-1024-bf16.json').read_text())
     assert counters.vae_tiles(big) == 9   # 128² latents: tiles at 0, 48, 64
+
+
+@pytest.mark.parametrize('config,evals', [('sd21-base-512-fp32', 30), ('sd15-512-fp32', 31)])
+def test_evaluations_at_30_steps(config, evals, capsys):
+    """DDIM makes one UNet evaluation a step, PNDM 31 for 30 steps: the
+    FLOP of a request and the rooflines' bound and launches count them."""
+    cfg = fixture(config)
+    cfg = dict(cfg, run=dict(cfg['run'], steps=30))
+    flop = counters.model_flop(cfg, 1, 'acc')
+    assert flop['total'] == flop['text'] + evals * flop['unet'] + flop['vae']
+    calls = [c for c in counters.attention_calls(cfg, 1, 'acc') if c['kernel'] == 'k2']
+    per_eval = sum(counters.attention_bound_s(c, cfg['dtype']) for c in calls)
+    profile = SimpleNamespace(device_s=lambda names: (1.0, evals * len(calls)))
+    data = {'profile': profile, 'profile_runs': [('plain', 1)], 'cfg': cfg, 'steps': 30}
+    share = counters.roofline_share(data, 'k2', ('k2',), lambda dtype, hd: 1)
+    assert share == pytest.approx(100.0 * evals * per_eval)
+    assert 'expected' not in capsys.readouterr().err   # the launches match
+
+
+@pytest.mark.parametrize('config,ends', [('sd21-base-512-fp32', [7, 15, 23, 29]),
+                                         ('sd15-512-fp32', [7, 15, 23, 30])])
+def test_chunk_ends_at_the_last_evaluation(config, ends):
+    """``trace.chunk_step_ms`` reads every 8th UNet evaluation and the last:
+    PNDM's 31st at 30 steps."""
+    from gpubench.core import spec
+
+    clock = SimpleNamespace(step_ms=lambda: [float(i) for i in range(31)])
+    data = {'records': [(None, [{'kind': 'save', 'clock': clock}])], 'chunk': 8,
+            'steps': 30, 'cfg': fixture(config)}
+    assert spec.reader({'name': 'trace.chunk_step_ms'}).read(data) == sum(ends) / 4

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpubench.tests.drive import run_cell
+from gpubench.tests.drive import fixture, run_cell
 
 CELLS = ['sd21-512-fp32.cli-b1', 'sdxl-1024-bf16.lib-b1', 'sd21-512-fp32.cli-b4',
          'sd21-512-fp32.transplant-b1']
@@ -30,6 +30,17 @@ def test_step_returns_state_unchanged(workload, monkeypatch):
     monkeypatch.setattr(schedulers.DDIMScheduler, 'step',
                         lambda self, state, i, out, sample: (sample, state))
     assert failed(run_cell(workload))
+
+
+@pytest.mark.parametrize('config', ['sd21-768-fp32', 'sd15-512-fp32'])
+def test_step_returns_state_unchanged_under_each_sampler(config, monkeypatch):
+    """The same fault in the v-prediction DDIM and the PNDM fixtures."""
+    from daam_tpu_torch.pipeline import schedulers
+
+    cfg = fixture(config)
+    monkeypatch.setattr(schedulers.SCHEDULERS[cfg['scheduler']['name']], 'step',
+                        lambda self, state, i, out, sample: (sample, state))
+    assert failed(run_cell('sd21-512-fp32.cli-b1', config=cfg))
 
 
 def test_half_the_batch_left_out(monkeypatch):

@@ -1,18 +1,23 @@
 """The plain reference against the program on the CPU at the test sizes:
 module by module on one set of state dicts, and whole runs of every cell's
 flow through the harness (the program's kernels run their plain versions
-on the CPU)."""
+on the CPU), and of every sampler the reference follows; a configuration
+that the program or the reference does not run as stated stops at set-up."""
 
 import json
 
 import pytest
 import torch
 
-from gpubench.core import spec, weights
+from gpubench.core import readings, spec, weights
 from gpubench.reference.models import Capture
 from gpubench.reference.pipeline import Reference
 from gpubench.reference.tokenizer import Tokenizer
-from gpubench.tests.drive import FIXTURES, run_cell
+from gpubench.tests.drive import FIXTURES, fixture, program_preset, run_cell
+
+#: Configurations (at their test sizes) that no cell runs yet, one for each
+#: sampler and parameterisation the reference follows beyond epsilon DDIM.
+SAMPLER_CONFIGS = ['sd21-768-fp32', 'sd15-512-fp32']
 
 
 def cfg_of(name):
@@ -68,11 +73,58 @@ def test_tokenizer_matches_the_program():
             assert ref.merge_indices(p, w) == want
 
 
-@pytest.mark.parametrize('workload', [w['name'] for w in spec.benchmark()['workloads']])
-def test_sound_run_is_correct(workload):
-    line = run_cell(workload)
+def _sound(line):
     assert line['correct'], line['checks']
     assert line['attempted'] >= 1 and line['failed'] == 0
     assert list(line)[-1] == 'checks'
     for name, c in line['checks'].items():
         assert c['value'] <= min(c['limit'], 1e-3) or name == 'png_missing', (name, c)
+
+
+@pytest.mark.parametrize('workload', [w['name'] for w in spec.benchmark()['workloads']])
+def test_sound_run_is_correct(workload):
+    _sound(run_cell(workload))
+
+
+@pytest.mark.parametrize('config', SAMPLER_CONFIGS)
+def test_sound_run_is_correct_under_each_sampler(config):
+    """v-prediction DDIM and PNDM (one more UNet evaluation than steps),
+    through the ``cli`` flow, over a window of one request: at the test
+    size one channel of a 16² overlay a level off reads 1/768 ≈ 0.0013 in
+    ``overlay_err``, above 1e-3, and the request that the sample holds
+    from a longer window depends on the CPU's speed."""
+    cfg = fixture(config)
+    assert (cfg['scheduler']['name'], cfg['scheduler']['prediction_type']) in (
+        ('ddim', 'v_prediction'), ('pndm', 'epsilon'))
+    _sound(run_cell('sd21-512-fp32.cli-b1', seconds=1e-3, config=cfg))
+
+
+def test_v_prediction_held_against_epsilon_fails():
+    """A sound v-prediction program, held against a reference told that the
+    UNet predicts ε, fails ``step_err``."""
+    cell = spec.cell('sd21-512-fp32.cli-b1', spec.benchmark())
+    cfg = fixture('sd21-768-fp32')
+    told = dict(cfg, scheduler=dict(cfg['scheduler'], prediction_type='epsilon'))
+    with program_preset(cfg):
+        sound = readings.program_reading(cell, cfg, 7, 'cpu')
+        wrong = readings.program_reading(cell, cfg, 7, 'cpu', ref_cfg=told)
+    limit = cell['limits']['limits']['step_err']
+    assert sound['step_err'] <= min(limit, 1e-3)
+    assert wrong['step_err'] > 10 * limit, wrong
+
+
+@pytest.mark.parametrize('change,message', [
+    (dict(prediction_type='v_prediction'), 'scheduler.prediction_type: program'),
+    (dict(name='lms'), "scheduler.name: the program has no 'lms'"),
+    (dict(name='euler'), "the reference does not implement scheduler.name 'euler'"),
+    (dict(name='pndm'), 'the reference does not implement scheduler.skip_prk_steps'),
+])
+def test_config_not_run_as_stated_exits_at_setup(change, message):
+    """The ``tiny`` preset predicts ε under any scheduler the program has:
+    a file that states v-prediction over it, a scheduler the program lacks,
+    or one the reference does not implement stops before any weight is
+    drawn."""
+    cfg = fixture('sd21-base-512-fp32')
+    cfg = dict(cfg, scheduler=dict(cfg['scheduler'], **change))
+    with pytest.raises(SystemExit, match=message):
+        run_cell('sd21-512-fp32.cli-b1', config=cfg)
