@@ -125,6 +125,20 @@ _SDXL_UNET = UNetConfig(
     projection_class_embeddings_input_dim=2816,
 )
 
+_TINY = PipelineConfig(
+    name='tiny',
+    text=CLIPTextConfig(vocab_size=49408, hidden_size=32,
+                        intermediate_size=64, num_hidden_layers=2,
+                        num_attention_heads=2),
+    unet=UNetConfig(sample_size=8, block_out_channels=(32, 64),
+                    down_block_types=('cross', 'plain'),
+                    up_block_types=('cross', 'plain'),
+                    layers_per_block=1, attention_head_dim=(2, 4),
+                    transformer_layers_per_block=(1, 1),
+                    cross_attention_dim=32, norm_num_groups=8),
+    vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
+                  norm_num_groups=8, sample_size=64))
+
 MODEL_PRESETS = {
     'v1': PipelineConfig(name='v1', text=_CLIP_L, unet=_SD15_UNET),
     'v2-base': PipelineConfig(name='v2-base', text=_OPENCLIP_H, unet=_SD2_UNET_BASE),
@@ -144,20 +158,10 @@ MODEL_PRESETS = {
                                                 scaling_factor=0.13025),
                                   is_sdxl=True, default_guidance_scale=5.0),
     # Tiny presets: same topology, test-sized. 'tiny' mirrors SD2 (single
-    # encoder); 'tiny-xl' mirrors SDXL (dual encoder + text_time embedding).
-    'tiny': PipelineConfig(
-        name='tiny',
-        text=CLIPTextConfig(vocab_size=49408, hidden_size=32,
-                            intermediate_size=64, num_hidden_layers=2,
-                            num_attention_heads=2),
-        unet=UNetConfig(sample_size=8, block_out_channels=(32, 64),
-                        down_block_types=('cross', 'plain'),
-                        up_block_types=('cross', 'plain'),
-                        layers_per_block=1, attention_head_dim=(2, 4),
-                        transformer_layers_per_block=(1, 1),
-                        cross_attention_dim=32, norm_num_groups=8),
-        vae=VAEConfig(block_out_channels=(16, 32), layers_per_block=1,
-                      norm_num_groups=8, sample_size=64)),
+    # encoder), 'tiny-v' SD 2.x 768 (v-prediction); 'tiny-xl' mirrors SDXL
+    # (dual encoder + text_time embedding).
+    'tiny': _TINY,
+    'tiny-v': replace(_TINY, name='tiny-v', prediction_type='v_prediction'),
     # 'tiny-v1' mirrors SD 1.x geometry: conv 1×1 proj_in/out
     # (use_linear_projection=False) and a uniform head count, so head_dim
     # differs per level like v1's 40/80/160.

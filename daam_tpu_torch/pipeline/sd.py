@@ -74,6 +74,10 @@ class StableDiffusionPipeline:
                         for info in cross_attention_layout(config.unet)}
         param = next(unet.parameters())
         self.device, self.dtype = param.device, param.dtype
+        # Edge of the traced heat maps' grid: 64 for 512- and 1024-px
+        # models, 96 otherwise (reference ``daam/trace.py:32-33``).
+        size = unet.config.sample_size * self.vae_scale_factor
+        self.heat_map_grid = 64 if size in (512, 1024) else 96
         # Tiled VAE decode (daam_tpu/pipeline/sd.py:95-99): 'auto' tiles
         # latent edges above vae_tile_threshold, True/False force it.
         self.vae_tile_threshold = 96
@@ -272,9 +276,12 @@ class StableDiffusionPipeline:
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents (B, 4, h, w) → fp32 images (B, H, W, 3) in [0, 1], tiled
         under ``vae_tiling`` (``daam_tpu/pipeline/sd.py:340-342``)."""
-        with span('decode'):
-            if self.vae_tiling is True or (self.vae_tiling == 'auto' and max(
-                    latents.shape[2:]) > self.vae_tile_threshold):
+        edge = max(latents.shape[2:])
+        tiled = self.vae_tiling is True or (self.vae_tiling == 'auto'
+                                            and edge > self.vae_tile_threshold)
+        profiling.count('vae_decode_tiled' if tiled else 'vae_decode_untiled')
+        with span('decode', tiled=int(tiled), latent=edge):
+            if tiled:
                 return self._tiled_decode(latents)
             images = self.vae.decode(latents / self.config.vae.scaling_factor)
             return (images / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
@@ -374,7 +381,9 @@ class StableDiffusionPipeline:
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         B = len(prompts)
         with profiling.request(fresh=False), \
-                span('call', batch=B, steps=num_inference_steps):
+                span('call', batch=B, steps=num_inference_steps,
+                     v_prediction=int(self.scheduler.prediction_type == 'v_prediction'),
+                     grid=self.heat_map_grid):
             tr = self._active_trace
             if tr is not None:
                 tr._on_call_start(prompt)

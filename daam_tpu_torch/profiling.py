@@ -13,7 +13,9 @@ start and end from :func:`time.time_ns` (CLOCK_REALTIME, the base of
 ``torch.profiler``'s host and device timestamps, so spans and profiler
 events lie on one clock), its id, the id of the span open around it on
 the same thread (its parent, 0 at the root), a request id and small
-numeric attributes (``bytes``, ``step``, ``batch``).  The request id is
+numeric attributes (``bytes``, ``step``, ``batch``; the ``call``'s
+``v_prediction`` and heat-map ``grid``, the ``decode``'s ``tiled`` and
+``latent`` edge).  The request id is
 shared by every span of one ``trace(pipe)`` context, and outside one by
 every span of one pipeline call.  Records go into a bounded in-memory ring
 (:data:`CAPACITY`; :func:`dropped` counts what it pushed out) and are never
@@ -24,7 +26,9 @@ empties the ring.  Spans are plain Python records, not
 **Counters** are always on: :func:`count` adds to a named integer
 (``heads_d2h_bytes`` and ``heads_h2d_bytes``, the bytes of saved attention
 probabilities handed to and from host memory; ``overlay_card`` and
-``overlay_host``, the heat-map overlays drawn on the card and on the host),
+``overlay_host``, the heat-map overlays drawn on the card and on the host;
+``vae_decode_tiled`` and ``vae_decode_untiled``, the batches decoded on
+each route),
 and :func:`counter_group` gives a dict that its owner increments in place
 (the kernels' launch counts, ``ops.kernels.launches``).  :func:`counters`
 reads them all.
@@ -188,7 +192,8 @@ def dropped() -> int:
 # ------------------------------------------------------------------ counters
 
 _COUNTERS: Dict[str, int] = {'heads_d2h_bytes': 0, 'heads_h2d_bytes': 0,
-                             'overlay_card': 0, 'overlay_host': 0}
+                             'overlay_card': 0, 'overlay_host': 0,
+                             'vae_decode_tiled': 0, 'vae_decode_untiled': 0}
 _GROUPS: Dict[str, Dict[str, int]] = {}
 
 

@@ -90,10 +90,7 @@ class DiffusionHeatMapHooker(AggregateHooker):
                  persist_heads: bool = True,
                  time_chunk_steps: Optional[int] = None):
         self.all_heat_maps = RawHeatMapCollection()
-        # Heat-map grid: 64² for 512/1024-px models, 96² otherwise
-        # (reference ``daam/trace.py:32-33``).
-        h = pipeline.unet.config.sample_size * pipeline.vae_scale_factor
-        self.latent_hw = 4096 if h == 512 or h == 1024 else 9216
+        self.latent_hw = pipeline.heat_map_grid ** 2
 
         self.locator = UNetCrossAttentionLocator(
             restrict={0} if low_memory else None,

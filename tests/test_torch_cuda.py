@@ -392,3 +392,41 @@ def test_overlays_on_card_match_the_host_route(tmp_path, cuda_device, monkeypatc
         PIL.Image.fromarray(a).save(buf, format='PNG')
         assert abs(ours.stat().st_size - len(buf.getvalue())) <= 0.01 * len(buf.getvalue())
     np.testing.assert_array_equal(_png_pixels(card.path / 'output.png'), np.asarray(card.image))
+
+
+@pytest.mark.cuda
+def test_v2_1_large_request_states_its_route_on_card(cuda_device):
+    """A 2-step traced request of ``v2-1-large`` (768², v-prediction): the
+    ``call`` span states v-prediction and the 96² heat-map grid, the
+    ``decode`` span an untiled decode of the 96² latent, and the decode
+    counters count that route once, as they do with spans off."""
+    from daam_tpu_torch import StableDiffusionPipeline, profiling, trace
+
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-large', device=cuda_device)
+
+    def request():
+        with trace(pipe):
+            pipe('A dog runs across the field .', num_inference_steps=2, output_type='np',
+                 generator=torch.Generator(device=cuda_device).manual_seed(0))
+
+    profiling.clear()
+    profiling.enable()
+    try:
+        before = profiling.counters()
+        request()
+        on = profiling.counters()
+    finally:
+        profiling.disable()
+    records = profiling.spans()
+    profiling.clear()
+    request()
+    off = profiling.counters()
+    assert profiling.spans() == []
+    call = [r for r in records if r.name == 'call']
+    decode = [r for r in records if r.name == 'decode']
+    assert len(call) == 1 and len(decode) == 1 and decode[0].parent == call[0].id
+    assert call[0].attrs['v_prediction'] == 1 and call[0].attrs['grid'] == 96
+    assert decode[0].attrs == {'tiled': 0, 'latent': 96}
+    for after, prev in ((on, before), (off, on)):
+        assert after['vae_decode_untiled'] - prev['vae_decode_untiled'] == 1
+        assert after['vae_decode_tiled'] == prev['vae_decode_tiled']

@@ -83,10 +83,12 @@ def test_traced_call_tree(pipe, recording):
     roots = [r for r in records if r.parent == 0]
     assert [r.name for r in roots] == ['call']
     call = roots[0]
-    assert call.attrs == {'batch': 1, 'steps': STEPS}
+    # tiny's 16-px images take the 96² grid, as every size but 512 and 1024
+    assert call.attrs == {'batch': 1, 'steps': STEPS, 'v_prediction': 0, 'grid': 96}
     kids = _children(records, call)
     assert [r.name for r in kids] == (['text_encode'] + ['step'] * STEPS
                                       + ['finalize_acc', 'decode', 'to_host'])
+    assert kids[-2].attrs == {'tiled': 0, 'latent': 8}
     steps = [r for r in kids if r.name == 'step']
     assert [r.attrs['step'] for r in steps] == list(range(STEPS))
     for step in steps:
@@ -99,6 +101,45 @@ def test_traced_call_tree(pipe, recording):
             p = by_id[r.parent]
             assert p.start_ns <= r.start_ns and r.end_ns <= p.end_ns, (r.name, p.name)
     assert call.request > 0 and {r.request for r in records} == {call.request}
+
+
+def test_call_states_prediction_and_grid(pipe, recording):
+    """The ``call`` span says whether the UNet predicts v and the edge of
+    the heat-map grid that the trace takes."""
+    v = StableDiffusionPipeline.from_pretrained('tiny-v', device='cpu')
+    assert v.scheduler.prediction_type == 'v_prediction'
+    with trace(v) as tc:
+        _call(v)
+    _call(pipe)
+    calls = [r for r in profiling.spans() if r.name == 'call']
+    assert [(r.attrs['v_prediction'], r.attrs['grid']) for r in calls] == [(1, 96), (0, 96)]
+    assert tc.latent_hw == 96 ** 2
+
+
+@pytest.mark.parametrize('spans_on', [True, False])
+@pytest.mark.parametrize('tiling', ['auto', True])
+def test_decode_counts_its_route(pipe, spans_on, tiling, monkeypatch):
+    """One ``vae_decode_untiled`` or ``vae_decode_tiled`` a decoded batch,
+    whether spans record or not; the ``decode`` span states the route and
+    the latent edge.  tiny's 8² latents decode whole unless tiling is
+    forced."""
+    monkeypatch.setattr(pipe, 'vae_tiling', tiling)
+    profiling.clear()
+    if spans_on:
+        profiling.enable()
+    try:
+        before = profiling.counters()
+        _call(pipe, ['a dog runs', 'a cat sits'])
+        after = profiling.counters()
+    finally:
+        profiling.disable()
+    records = profiling.spans()
+    profiling.clear()
+    tiled = tiling is True
+    assert after['vae_decode_tiled'] - before['vae_decode_tiled'] == int(tiled)
+    assert after['vae_decode_untiled'] - before['vae_decode_untiled'] == int(not tiled)
+    decodes = [r.attrs for r in records if r.name == 'decode']
+    assert decodes == ([{'tiled': int(tiled), 'latent': 8}] if spans_on else [])
 
 
 def test_request_ids(pipe, recording):
