@@ -137,8 +137,11 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
 8b. The heat-map overlays of one v2-1-base fp32 512² experiment drawn on
    the card (``csrc/overlay.cu``) and on the host (``overlay_routes``):
    pixels within one level on at most 0.5% of a PNG's pixels, the card's
-   files within 1% of Pillow's size, one ``overlay_card`` a word; the ms
-   a word of both routes.  Phases 11 and 12 count one ``overlay_resample``
+   files within 1% of Pillow's size, one ``overlay_card`` a word; on two
+   threads one ``png_striped`` a PNG of the card's, none ``png_one_stream``,
+   each file's rows those of the one-stream file and its size at most 0.1%
+   over it; the ms a word of both routes, the card's with the one-stream
+   and the striped writer.  Phases 11 and 12 count one ``overlay_resample``
    a heat map and one ``png_scanlines`` a PNG the CLI writes on the card.
 9. What ``daam-torch`` runs by default: ``v2-1-base`` in fp32, 512², 10
    traced steps, checked as in phase 4, with 15 × 10 cross_attention_acc
@@ -2386,12 +2389,17 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
     within one level of the host's on at most 0.5% of its pixels,
     ``output.png`` equal, every card file within 1% of Pillow's size for
     the same pixels, ``overlay_card`` one a word and ``overlay_host`` none
-    on the card's pass, the overlay kernels' launches one a PNG.  Prints
-    the ms a word of each route and of its three spans, and the two
-    kernels' event time at 512²."""
+    on the card's pass, the overlay kernels' launches one a PNG; on two
+    PyTorch threads ``png_striped`` one a PNG of the card's and
+    ``png_one_stream`` none, each striped file inflating to the one-stream
+    file's rows and no more than 0.1% over its size.  Prints the ms a word
+    of each route (the card's with the one-stream and the striped writer)
+    and of its three spans, and the two kernels' event time at 512²."""
     import io
     import os
+    import struct
     import tempfile
+    import zlib
 
     import numpy as np
     import PIL.Image
@@ -2403,6 +2411,24 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
     def pixels(path):
         with PIL.Image.open(path) as im:
             return np.asarray(im.convert('RGB'))
+
+    def idat_rows(path):
+        data, pos, idat = path.read_bytes(), 8, b''
+        while pos < len(data):
+            size, = struct.unpack('>I', data[pos:pos + 4])
+            if data[pos + 4:pos + 8] == b'IDAT':
+                idat += data[pos + 8:pos + 8 + size]
+            pos += 12 + size
+        return zlib.decompress(idat)
+
+    @contextlib.contextmanager
+    def torch_threads(count):
+        saved = torch.get_num_threads()
+        torch.set_num_threads(count)
+        try:
+            yield
+        finally:
+            torch.set_num_threads(saved)
 
     hidden = {k: sys.modules.get(k) for k in ('matplotlib', 'matplotlib.pyplot')}
     sys.modules.update(dict.fromkeys(hidden))
@@ -2418,9 +2444,15 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
             host = GenerationExperiment(card.image, card.global_heat_map, card.prompt,
                                         path=os.path.join(tmp, 'host'),
                                         tokenizer=card.tokenizer)
+            with torch_threads(1):  # the one-stream files the striped ones are held to
+                card.save(heat_maps=False)
+                one_stream = {p: (p.stat().st_size, idat_rows(p))
+                              for p in [*card.save_all_heat_maps().values(),
+                                        card.path / 'output.png']}
             before, launched = profiling.counters(), dict(kernels.launches)
-            card.save(heat_maps=False)
-            card_paths = card.save_all_heat_maps()
+            with torch_threads(2):  # the configurations' host threads
+                card.save(heat_maps=False)
+                card_paths = card.save_all_heat_maps()
             mid = profiling.counters()
             host.save(heat_maps=False)
             host_paths = host.save_all_heat_maps()
@@ -2435,6 +2467,16 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
             check(kernels.launches['overlay_resample'] - launched['overlay_resample'] == n
                   and kernels.launches['png_scanlines'] - launched['png_scanlines'] == n + 1,
                   'one overlay_resample a word, one png_scanlines a PNG')
+            check(mid['png_striped'] - before['png_striped'] == n + 1
+                  and mid['png_one_stream'] == before['png_one_stream'],
+                  'on two threads every PNG of the card\'s route deflates in stripes')
+            sizes = []
+            for p, (size, rows) in one_stream.items():
+                check(idat_rows(p) == rows, f'{p.name}: the stripes inflate to the '
+                      'one-stream file\'s rows')
+                sizes.append(p.stat().st_size / size)
+            check(max(sizes) <= 1.001, f'striped PNGs no more than 0.1% over one stream: '
+                  f'{max(sizes)}')
             worst = {'max_level_diff': 0, 'differing_share': 0.0, 'size_ratio': 1.0}
             pairs = [(card_paths[w], host_paths[w]) for w in words]
             pairs.append((card.path / 'output.png', host.path / 'output.png'))
@@ -2454,14 +2496,19 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
                   f'overlays on the card against the host route: {worst}')
             check(worst['size_ratio'] <= 1.01, f'PNG sizes against Pillow\'s: {worst}')
 
-            # ms a word of each route, spans on, three passes a route
+            # ms a word of each route, spans on, three passes a route; the
+            # card's with the one-stream writer (one thread) and the striped
+            # one (two threads, the configurations' own)
             ms, stages = {}, {}
-            for label, exp in (('card', card), ('host', host)) * 3:
+            routes = (('card_one_stream', card, 1), ('card_striped', card, 2),
+                      ('host', host, torch.get_num_threads()))
+            for label, exp, threads in routes * 3:
                 profiling.clear()
                 profiling.enable()
-                t0 = time.perf_counter()
-                exp.save_all_heat_maps()
-                ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3 / n)
+                with torch_threads(threads):
+                    t0 = time.perf_counter()
+                    exp.save_all_heat_maps()
+                    ms.setdefault(label, []).append((time.perf_counter() - t0) * 1e3 / n)
                 profiling.disable()
                 for r in profiling.spans():
                     if r.name.startswith('overlay.'):
@@ -2479,6 +2526,7 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
             else:
                 sys.modules[k] = m
     line = {'words': n, **worst,
+            'striped_size_ratio': [min(sizes), max(sizes)],
             'ms_per_word': {k: min(v) for k, v in ms.items()},
             'span_ms_per_word': {k: {name: sum(t) / len(t) for name, t in v.items()}
                                  for k, v in stages.items()},

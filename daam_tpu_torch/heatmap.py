@@ -152,7 +152,8 @@ def plot_overlay_on_card(image: torch.Tensor, heat_map, word: Optional[str] = No
     (h, w) map, resampled there to (H, W) and min-max normalized as
     ``expand_as`` does it, composited and rounded to uint8.  Where
     matplotlib is not installed, ``out_file`` receives the PNG from the
-    card's filtered scanlines, deflated here (:mod:`daam_tpu_torch.png`);
+    card's filtered scanlines, deflated here (:mod:`daam_tpu_torch.png`;
+    the ``overlay.encode`` span states the stripes it took, 0 where none);
     else the composite is drawn as :func:`plot_overlay_heat_map` draws it.
     Counts one ``overlay_card``."""
     from . import png
@@ -173,10 +174,10 @@ def plot_overlay_on_card(image: torch.Tensor, heat_map, word: Optional[str] = No
             lut = _jet_tables[image.device] = torch.from_numpy(_JET_LUT).to(image.device)
         rows = _scanlines_to_host(kernels.png_scanlines(
             image, resampled, lut, color_normalize=color_normalize, filtered=plt is None))
-    with span('overlay.encode'):
+    with span('overlay.encode', stripes=0) as encode:
         if plt is None:
             if out_file is not None:
-                png.write_png(out_file, rows)
+                encode.set(stripes=png.write_png(out_file, rows))
             return
         _draw(plt, rows[:, 1:].reshape(H, W, 3).copy(), word, out_file, None)
 

@@ -15,7 +15,8 @@ events lie on one clock), its id, the id of the span open around it on
 the same thread (its parent, 0 at the root), a request id and small
 numeric attributes (``bytes``, ``step``, ``batch``; the ``call``'s
 ``v_prediction`` and heat-map ``grid``, the ``decode``'s ``tiled`` and
-``latent`` edge).  The request id is
+``latent`` edge, the card route's ``overlay.encode``'s ``stripes``), given
+when the span opens or, known only inside it, by its ``set``.  The request id is
 shared by every span of one ``trace(pipe)`` context, and outside one by
 every span of one pipeline call.  Records go into a bounded in-memory ring
 (:data:`CAPACITY`; :func:`dropped` counts what it pushed out) and are never
@@ -28,7 +29,8 @@ empties the ring.  Spans are plain Python records, not
 probabilities handed to and from host memory; ``overlay_card`` and
 ``overlay_host``, the heat-map overlays drawn on the card and on the host;
 ``vae_decode_tiled`` and ``vae_decode_untiled``, the batches decoded on
-each route),
+each route; ``png_one_stream`` and ``png_striped``, the PNGs the card's
+route deflated in one stream and in stripes),
 and :func:`counter_group` gives a dict that its owner increments in place
 (the kernels' launch counts, ``ops.kernels.launches``).  :func:`counters`
 reads them all.
@@ -100,6 +102,10 @@ class _Span:
         self.start_ns = time.time_ns()
         return self
 
+    def set(self, **attrs) -> None:
+        """Add ``attrs`` known only inside the span."""
+        self.attrs.update(attrs)
+
     def __exit__(self, exc_type, exc, tb):
         global _dropped
         end = time.time_ns()
@@ -119,6 +125,9 @@ class _Off:
     def __enter__(self):
         return self
 
+    def set(self, **attrs) -> None:
+        pass
+
     def __exit__(self, exc_type, exc, tb):
         pass
 
@@ -128,7 +137,8 @@ _OFF = _Off()
 
 def span(name: str, **attrs):
     """A context manager that records ``name`` with ``attrs`` while
-    :func:`recording`; a shared no-op otherwise."""
+    :func:`recording`; a shared no-op otherwise.  What it yields takes
+    more attributes with ``set(**attrs)``."""
     if _forced or _profiler_enabled():
         return _Span(name, attrs)
     return _OFF
@@ -193,7 +203,8 @@ def dropped() -> int:
 
 _COUNTERS: Dict[str, int] = {'heads_d2h_bytes': 0, 'heads_h2d_bytes': 0,
                              'overlay_card': 0, 'overlay_host': 0,
-                             'vae_decode_tiled': 0, 'vae_decode_untiled': 0}
+                             'vae_decode_tiled': 0, 'vae_decode_untiled': 0,
+                             'png_one_stream': 0, 'png_striped': 0}
 _GROUPS: Dict[str, Dict[str, int]] = {}
 
 

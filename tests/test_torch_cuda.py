@@ -394,6 +394,65 @@ def test_overlays_on_card_match_the_host_route(tmp_path, cuda_device, monkeypatc
     np.testing.assert_array_equal(_png_pixels(card.path / 'output.png'), np.asarray(card.image))
 
 
+def _idat_rows(path) -> bytes:
+    """A PNG file's IDAT, inflated."""
+    import struct
+    import zlib
+
+    data, pos, idat = path.read_bytes(), 8, b''
+    while pos < len(data):
+        n, = struct.unpack('>I', data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b'IDAT':
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return zlib.decompress(idat)
+
+
+@pytest.mark.cuda
+def test_cli_pngs_on_card_deflate_in_stripes(tmp_path, cuda_device, monkeypatch):
+    """A 512² ``daam-torch`` request's PNGs (``output.png`` and every
+    word's), written on the card's route with the configurations' two
+    PyTorch threads: ``png_striped`` one a PNG and ``png_one_stream`` none.
+    Each file inflates to the rows of the same experiment written with one
+    thread, reads back to its pixels, and is no more than 0.1% over it."""
+    import sys
+
+    from daam_tpu_torch import StableDiffusionPipeline, profiling, trace
+
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    monkeypatch.setitem(sys.modules, 'matplotlib.pyplot', None)
+    pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device=cuda_device)
+    with trace(pipe) as tc:
+        out = pipe('A dog runs across the field .', num_inference_steps=2,
+                   generator=torch.Generator(device=cuda_device).manual_seed(0))
+        exps = {n: tc.to_experiment(tmp_path / str(n)) for n in (1, 2)}
+    saved = torch.get_num_threads()
+    written = {}
+    try:
+        for n, exp in exps.items():
+            exp.image = out.images[0]
+            torch.set_num_threads(n)
+            before = profiling.counters()
+            exp.save(heat_maps=False)
+            paths = exp.save_all_heat_maps()
+            after = profiling.counters()
+            written[n] = {'output.png': exp.path / 'output.png', **paths}
+            counted = {k: after[k] - before[k] for k in ('png_one_stream', 'png_striped')}
+            assert paths and counted == ({'png_one_stream': len(paths) + 1, 'png_striped': 0}
+                                         if n == 1 else
+                                         {'png_one_stream': 0, 'png_striped': len(paths) + 1})
+    finally:
+        torch.set_num_threads(saved)
+    assert sorted(written[1]) == sorted(written[2])
+    for name, one in written[1].items():
+        striped = written[2][name]
+        assert _idat_rows(striped) == _idat_rows(one), name
+        np.testing.assert_array_equal(_png_pixels(striped), _png_pixels(one))
+        assert striped.stat().st_size <= 1.001 * one.stat().st_size, name
+    np.testing.assert_array_equal(_png_pixels(written[2]['output.png']),
+                                  np.asarray(out.images[0]))
+
+
 @pytest.mark.cuda
 def test_v2_1_large_request_states_its_route_on_card(cuda_device):
     """A 2-step traced request of ``v2-1-large`` (768², v-prediction): the

@@ -6,15 +6,18 @@
 absolute)`` and ``save_all_heat_maps(tokenizer, crop)``: the same
 composite, drawn on the same axes with the same title, from the same
 arguments, positional ones included.  Also the PNG writer of the card's
-route (``daam_tpu_torch.png``) against Pillow, the host route's PNGs from
+route (``daam_tpu_torch.png``) against Pillow, one stream or striped on
+PyTorch's threads, the host route's PNGs from
 one resample a word equal to those of two, and the route an experiment
 made on the CPU takes (the card's own is held to the host's in
 ``tests/test_torch_kernel_emulation.py`` and ``tests/test_torch_cuda.py``).
 """
 
+import contextlib  # noqa: E402
 import io  # noqa: E402
 import struct  # noqa: E402
 import sys  # noqa: E402
+import threading  # noqa: E402
 import zlib  # noqa: E402
 
 import matplotlib
@@ -165,27 +168,197 @@ def _pixels(kind: str, H: int, W: int) -> np.ndarray:
     if kind == 'smooth':
         return np.stack([(x * 3 + y) % 256, (x + y * 2) % 256, (x * y // 64) % 256],
                         -1).astype(np.uint8)
+    if kind == 'jet':  # a word's overlay on a random-weight image
+        photo = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+        bump = np.exp(-((x - W / 3) ** 2 + (y - H / 2) ** 2) / (2 * (H / 5) ** 2))
+        composite = heatmap._jet_composite(photo, bump.astype(np.float32), True)
+        return np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
     return np.full((H, W, 3), 200, np.uint8)  # flat
+
+
+@contextlib.contextmanager
+def _threads(n: int):
+    """PyTorch's intra-op threads set to ``n`` inside the block."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def _chunks(png_file: bytes):
+    """(kind, data, crc) of each chunk after the signature."""
+    pos, out = 8, []
+    while pos < len(png_file):
+        n, = struct.unpack('>I', png_file[pos:pos + 4])
+        out.append((png_file[pos + 4:pos + 8], png_file[pos + 8:pos + 8 + n],
+                    struct.unpack('>I', png_file[pos + 8 + n:pos + 12 + n])[0]))
+        pos += 12 + n
+    return out
 
 
 @pytest.mark.parametrize('kind,H,W', [('noise', 512, 512), ('noise', 37, 21),
                                       ('smooth', 96, 128), ('flat', 16, 16)])
 def test_png_writer_reads_back_and_is_pillows_size(tmp_path, kind, H, W):
+    """On one thread the writer's IDAT is ``compressobj(6, DEFLATED, 15, 9,
+    Z_FILTERED)``'s stream of the rows byte for byte (the one stripe under
+    the zlib header and the Adler-32), so Pillow's very file where both
+    link the same zlib."""
     pixels = _pixels(kind, H, W)
     unfiltered = np.concatenate([np.zeros((H, 1), np.uint8), pixels.reshape(H, -1)], 1)
-    png.write_png(tmp_path / 'raw.png', unfiltered)
-    with PIL.Image.open(tmp_path / 'raw.png') as im:
-        assert im.mode == 'RGB'
-        np.testing.assert_array_equal(np.asarray(im), pixels)
-    # Pillow's own filtered rows, deflated by the writer
-    theirs = _pillow_png(pixels)
-    ours = png.png_bytes(_scanlines(theirs, pixels.shape))
+    with _threads(1):
+        png.write_png(tmp_path / 'raw.png', unfiltered)
+        with PIL.Image.open(tmp_path / 'raw.png') as im:
+            assert im.mode == 'RGB'
+            np.testing.assert_array_equal(np.asarray(im), pixels)
+        # Pillow's own filtered rows, deflated by the writer
+        theirs = _pillow_png(pixels)
+        rows = _scanlines(theirs, pixels.shape)
+        ours = png.png_bytes(rows)
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    idat = b''.join(data for kind_, data, _ in _chunks(ours) if kind_ == b'IDAT')
+    assert idat == z.compress(rows.tobytes()) + z.flush()
     with PIL.Image.open(io.BytesIO(ours)) as im:
         np.testing.assert_array_equal(np.asarray(im), pixels)
     assert abs(len(ours) - len(theirs)) <= 0.01 * len(theirs), (len(ours), len(theirs))
     from PIL import features
     if features.version('zlib') == zlib.ZLIB_RUNTIME_VERSION:
         assert ours == theirs, 'the same zlib deflates to Pillow\'s very file'
+
+
+@pytest.mark.parametrize('H', [512, 768])
+@pytest.mark.parametrize('kind', ['noise', 'smooth', 'jet'])
+def test_striped_png_inflates_to_the_rows(kind, H):
+    """Two threads deflate 512² and 768² rows in two primed stripes: one
+    zlib stream of the very rows, Pillow's pixels, and no more than 0.1%
+    over the one-stream file (smooth rows come out smaller: each stripe's
+    blocks get Huffman tables of their own)."""
+    pixels = _pixels(kind, H, H)
+    rows = _scanlines(_pillow_png(pixels), pixels.shape)
+    with _threads(1):
+        one = png.png_bytes(rows)
+    with _threads(2):
+        assert png.stripes(rows.nbytes) == 2
+        striped = png.png_bytes(rows)
+    idat = b''.join(data for kind_, data, _ in _chunks(striped) if kind_ == b'IDAT')
+    assert zlib.decompress(idat) == rows.tobytes()
+    with PIL.Image.open(io.BytesIO(striped)) as im:
+        np.testing.assert_array_equal(np.asarray(im), pixels)
+    assert len(striped) <= 1.001 * len(one), (len(striped), len(one))
+
+
+@pytest.mark.parametrize('nbytes,threads,expected', [
+    (png.MIN_STRIPE, 2, 1), (png.MIN_STRIPE, 8, 1), (1000, 4, 1),
+    (786_944, 1, 1), (1_770_240, 1, 1),  # 512² and 768² rows, one thread
+    (786_944, 2, 2), (1_770_240, 2, 2), (png.MIN_STRIPE + 1, 2, 2),
+    (786_944, 4, 4), (786_944, 8, 7), (1_770_240, 8, 8)])
+def test_stripe_rule(nbytes, threads, expected):
+    """One stripe a thread, each of at least 128 KiB but one."""
+    with _threads(threads):
+        assert png.stripes(nbytes) == expected
+
+
+@pytest.mark.parametrize('threads', [1, 2, 3])
+def test_png_chunks_and_trailer(threads):
+    """The zlib header, the Adler-32 of the whole rows, IDAT chunks of
+    64 KiB but the last, and every chunk's CRC-32."""
+    pixels = _pixels('noise', 768, 768)
+    rows = _scanlines(_pillow_png(pixels), pixels.shape)
+    with _threads(threads):
+        chunks = _chunks(png.png_bytes(rows))
+    for kind, data, crc in chunks:
+        assert crc == zlib.crc32(data, zlib.crc32(kind))
+    assert [c[0] for c in chunks[:2]] == [b'IHDR', b'IDAT'] and chunks[-1][0] == b'IEND'
+    lengths = [len(data) for kind, data, _ in chunks if kind == b'IDAT']
+    assert len(lengths) > 1 and set(lengths[:-1]) == {png.IDAT_CHUNK}
+    assert 0 < lengths[-1] <= png.IDAT_CHUNK
+    idat = b''.join(data for kind, data, _ in chunks if kind == b'IDAT')
+    assert idat[:2] == png.ZLIB_HEADER
+    assert struct.unpack('>I', idat[-4:])[0] == zlib.adler32(rows.tobytes())
+
+
+@pytest.mark.parametrize('H,threads,route', [(16, 2, 'png_one_stream'),
+                                             (512, 1, 'png_one_stream'),
+                                             (512, 2, 'png_striped'),
+                                             (768, 4, 'png_striped')])
+def test_each_png_counts_its_route(H, threads, route):
+    rows = _scanlines(_pillow_png(_pixels('noise', H, H)), (H, H))
+    other = ({'png_one_stream', 'png_striped'} - {route}).pop()
+    before = profiling.counters()
+    with _threads(threads):
+        png.png_bytes(rows)
+        png.png_bytes(rows)
+    after = profiling.counters()
+    assert after[route] - before[route] == 2
+    assert after[other] == before[other]
+
+
+@pytest.mark.parametrize('threads', [1, 2])
+def test_card_route_encode_states_its_stripes(tmp_path, monkeypatch, threads):
+    """``plot_overlay_on_card``'s deflate, its kernels stood in for on the
+    CPU: the ``overlay.encode`` span states the stripes, one counter a
+    PNG, and the file reads back."""
+    from daam_tpu_torch.ops import kernels
+
+    monkeypatch.setitem(sys.modules, 'matplotlib', None)
+    monkeypatch.setitem(sys.modules, 'matplotlib.pyplot', None)
+    monkeypatch.setattr(kernels, 'overlay_resample', lambda heat, size: heat)
+    monkeypatch.setattr(kernels, 'png_scanlines', lambda image, *a, **k: torch.cat(
+        [torch.zeros(image.shape[0], 1, dtype=torch.uint8), image.flatten(1)], 1))
+    monkeypatch.setattr(heatmap, '_scanlines_to_host', lambda rows: rows.numpy())
+    pixels = _pixels('jet', 512, 512)
+    route = 'png_striped' if threads > 1 else 'png_one_stream'
+    before = profiling.counters()
+    profiling.clear()
+    profiling.enable()
+    try:
+        with _threads(threads):
+            heatmap.plot_overlay_on_card(torch.from_numpy(pixels), torch.rand(512, 512),
+                                         out_file=tmp_path / 'w.png')
+            heatmap.plot_overlay_on_card(torch.from_numpy(pixels), torch.rand(512, 512))
+    finally:
+        profiling.disable()
+    encodes = [r.attrs['stripes'] for r in profiling.spans() if r.name == 'overlay.encode']
+    assert encodes == [threads, 0]  # no file, nothing deflated
+    after = profiling.counters()
+    assert after[route] - before[route] == 1
+    assert sum(after[k] - before[k] for k in ('png_one_stream', 'png_striped')) == 1
+    with PIL.Image.open(tmp_path / 'w.png') as im:
+        np.testing.assert_array_equal(np.asarray(im), pixels)
+
+
+@pytest.mark.parametrize('counts', [(2,), (4,), (4, 2), (3, 3, 5)])
+def test_no_more_stripes_deflate_at_once_than_threads(monkeypatch, counts):
+    """With the calling thread, ``torch.get_num_threads()`` stripes deflate
+    at once, each on a thread of its own, and never more."""
+    busy, most, lock = [0], [0], threading.Lock()
+    meet, ran = [None], set()
+    deflate = png._deflate
+
+    def met(*args):
+        with lock:
+            busy[0] += 1
+            most[0] = max(most[0], busy[0])
+            ran.add(threading.get_ident())
+        try:
+            meet[0].wait(timeout=30)  # every stripe deflating at once
+            return deflate(*args)
+        finally:
+            with lock:
+                busy[0] -= 1
+
+    monkeypatch.setattr(png, '_deflate', met)
+    rows = _scanlines(_pillow_png(_pixels('noise', 768, 768)), (768, 768))
+    for threads in counts:
+        most[0] = 0
+        ran.clear()
+        meet[0] = threading.Barrier(threads)  # 768² rows: one stripe a thread
+        with _threads(threads):
+            idat = b''.join(d for k, d, _ in _chunks(png.png_bytes(rows)) if k == b'IDAT')
+        assert zlib.decompress(idat) == rows.tobytes()
+        assert most[0] == threads and len(ran) == threads
+        assert threading.get_ident() in ran  # the calling thread deflates one
 
 
 def test_png_writer_refuses_rows_that_are_not_rgb():

@@ -251,6 +251,20 @@ def test_ring_is_bounded(monkeypatch, recording):
     assert profiling.spans() == [] and profiling.dropped() == 0
 
 
+@pytest.mark.parametrize('on', [True, False])
+def test_span_takes_attributes_known_inside_it(on):
+    """``set`` adds to a recorded span's attributes; off, it does nothing."""
+    profiling.clear()
+    (profiling.enable if on else profiling.disable)()
+    try:
+        with profiling.span('s', stripes=0) as s:
+            s.set(stripes=2, bytes=7)
+    finally:
+        profiling.disable()
+    assert [r.attrs for r in profiling.spans()] == ([{'stripes': 2, 'bytes': 7}] if on else [])
+    profiling.clear()
+
+
 def test_threads_keep_their_own_parents_and_counts(recording):
     import sys
     import threading
