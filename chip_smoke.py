@@ -4,30 +4,26 @@ card's pytest cases, the traced SD 2.1-base slice in bf16 and in fp32, the
 head-replay transplant, the traced SD 1.x slice (DDIM and PNDM), the traced
 SDXL slice, a checkpoint directory on disk with the VAE encoder and the
 evaluation, batched generation and the demo server, SD 2.1 at 768² with
-v-prediction, the native BPE, data-parallel generation, timings.
+v-prediction, the native BPE, data-parallel generation, and the kernels'
+times alone.  The speed of the program end to end is ``gpubench/``'s
+(``BENCHMARK.json``), not this script's.
 
     python3 chip_smoke.py                 # from the repository root
-    python3 chip_smoke.py --profile       # also a torch.profiler table of a
-                                          # traced call of each full-width model
-    python3 chip_smoke.py --kernel-times  # the build, phase 6b's kernel times and
-                                          # phase 9's fp32 s/step (traced,
-                                          # untraced, save, load) only
-    python3 chip_smoke.py --conv-ab       # what ``--dtype float32`` costs with
-                                          # cuDNN's TF32 convolutions against
-                                          # fp32 ones (``conv_ab``) only
+    python3 chip_smoke.py --kernel-times  # the build and phase 6b's kernel
+                                          # times only
     python3 chip_smoke.py --flash-fp32    # the build, then fp32 flash_attention
                                           # at every head dim (``flash_fp32``)
                                           # only: parity and event times
 
-``--kernel-times``, ``--conv-ab`` and ``--flash-fp32`` check nothing beyond
-the build (``--flash-fp32`` its own parity cases) and print no result line;
-a copy of this script placed in another checkout times that
-checkout's kernels and fp32 pipeline (the script's own directory comes
-first on the import path), which is how two commits are compared in one
-call.
+``--kernel-times`` and ``--flash-fp32`` check nothing beyond the build
+(``--flash-fp32`` its own parity cases) and print no result line; a copy of
+this script placed in another checkout times that checkout's kernels (the
+script's own directory comes first on the import path), which is how two
+commits are compared in one call.
 
 Phases, each of which raises (exit code != 0) when a check fails, in the
-order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
+order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 9, 10, 7, 11, 12, 13, 14, 15;
+phase 6a, the pipelines' step timings, was retired for ``gpubench/``):
 
 1. Build ``daam_tpu_torch/csrc/attention.cu`` (and ``overlay.cu``) with
    nvcc for sm_90a; print
@@ -87,18 +83,15 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
    (counters: 16 × 10 flash_attention on the bf16 route, nothing else),
    whose per-token heat maps must match the save run's at Spearman ≥ 0.999;
    and a ``load_heads`` run of a second prompt, whose image must differ
-   from a fresh run of that prompt.  Each run prints its s/step and its
-   slowest step.
-6. (a) Seconds per step of v2-1-base bf16 traced and untraced (host clock,
-   synchronized per step, warm runs in turns) and of the save and load
-   runs.  (b) Run right after phase 8, before any pipeline is profiled:
-   each kernel in bf16 and in fp32 (TF32 off for the plain versions and
-   SDPA) at every shape of each path (v2-1-base and xl-base-1.0 at hd 64,
-   then v1 at hd 40, 80 and 160, its bound on the true hd, then v2-1-large
-   and v2-1-base at a batch of 4 at hd 64):
-   its time by CUDA events (back-to-back launches after a warm-up), its
-   device time per launch (torch.profiler's self device time over 20
-   launches, so the wrappers' host cost does not stand in for kernel time;
+   from a fresh run of that prompt.
+6b. Run right after phase 8b: each kernel in bf16 and in fp32 (TF32 off
+   for the plain versions and SDPA) at every shape of each path
+   (v2-1-base and xl-base-1.0 at hd 64, then v1 at hd 40, 80 and 160, its
+   bound on the true hd, then v2-1-large and v2-1-base at a batch of 4 at
+   hd 64): its time by CUDA events (back-to-back launches after a
+   warm-up), its device time per launch (torch.profiler's self device
+   time over 20 launches, so the wrappers' host cost does not stand in for
+   kernel time;
    fp32 flash_attention at the head dims of ``TF32X3_WGMMA_HEAD_DIMS`` is
    two device kernels a call, the split of K and V and the attention),
    its plain version's time, its bound, and the bound's share of the device
@@ -121,8 +114,7 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
    flash_attention, every one on the bf16 route, and no
    cross_attention_probs.  Then one traced step through the kernels and one
    with ``set_kernel_mode('torch')``, from the same latents, whose global
-   heat maps must agree at per-token Spearman ≥ 0.99; then its seconds per
-   step traced and untraced.  After the one-step comparison, the
+   heat maps must agree at per-token Spearman ≥ 0.99.  After it, the
    transplant as in phase 5 at 2 steps (70 × 2 cross_attention_probs and
    70 × 2 flash_attention in the save run, 70 layers of (2, 2, H, h·w, 77)
    bf16, ~0.5 GB a step on the host; 70 × 2 flash_attention in the load
@@ -137,8 +129,9 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
 8b. The heat-map overlays of one v2-1-base fp32 512² experiment drawn on
    the card (``csrc/overlay.cu``) and on the host (``overlay_routes``):
    pixels within one level on at most 0.5% of a PNG's pixels, the card's
-   files within 1% of Pillow's size, one ``overlay_card`` a word; on two
-   threads one ``png_striped`` a PNG of the card's, none ``png_one_stream``,
+   files within 1% of Pillow's size, one ``overlay_resample`` a word and
+   one ``png_scanlines`` a PNG on the card, none on the host; on two
+   threads two stripes a PNG of the card's (``png.write_png``'s return),
    each file's rows those of the one-stream file and its size at most 0.1%
    over it; the ms a word of both routes, the card's with the one-stream
    and the striped writer.  Phases 11 and 12 count one ``overlay_resample``
@@ -147,9 +140,7 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
    traced steps, checked as in phase 4, with 15 × 10 cross_attention_acc
    and 32 × 10 flash_attention launches, every one on the 3xTF32 route;
    the transplant as in phase 5 on the 3xTF32 route (what ``--save-heads``
-   and ``--load-heads`` run; no second prompt); its seconds per step
-   traced and untraced (cuDNN's TF32 convolutions, PyTorch's default,
-   which the port keeps), and of the save and load runs as in phase 6a.
+   and ``--load-heads`` run; no second prompt).
 10. SD 1.x at full width: ``v1`` (random weights from seed 0; UNet
     320/640/1280/1280 with 8 heads, so hd 40, 80 and 160; CLIP-L's final
     layer), 512², checked as in phase 4: in fp32 with DDIM (what
@@ -159,8 +150,7 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
     cross_attention_probs on ``cross_attention_probs_tf32x3``); in bf16
     with PNDM (SD 1.x's published scheduler), 10 steps that are 11 UNet
     evaluations: 15 × 11 and 32 × 11 launches on the bf16 routes, and its
-    transplant over 11 evaluations.  Each prints its s/step (PNDM: per
-    evaluation) traced and untraced, and of the save and load runs.
+    transplant over 11 evaluations.
 11. A checkpoint directory on disk, what ``daam-torch --from-path`` and
     ``daam-torch-evaluate`` run: ``v2-1-base``'s random modules from seed 0,
     the VAE with a random encoder, rounded through fp16 and written in
@@ -196,9 +186,8 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
     batch-1 image and its maps at per-token Spearman ≥ 0.999; ``--action
     coco --word dog --gen-limit 4 --batch-size 4 -n 2`` over a fabricated
     captions file (only prompts with the lemma once, only its map; 30 K1,
-    64 K2); traced images/s through the pipeline at batch 1 and 4; the save
-    → load pair at batch 4 (160 K5 at CFG batch 8, the buffer's 8 rows,
-    each prompt's replayed maps, the slowest step, peak host RSS).  (c)
+    64 K2); the save → load pair at batch 4 (160 K5 at CFG batch 8, the
+    buffer's 8 rows, each prompt's replayed maps, peak host RSS).  (c)
     ``daam-torch-demo``: ``make_app(pipe, 0, batch_size=4)`` behind a
     ``ThreadingHTTPServer`` on 127.0.0.1: 4 concurrent POSTs answered by
     one traced call (150 K1, 320 K2), each page's image and map against a
@@ -214,8 +203,8 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
     maps for every token, 15 × 10 cross_attention_acc and 32 × 10
     flash_attention on the dtype's route; the save -> load pair as in
     phase 9 (16 × 10 cross_attention_probs and 16 × 10 flash_attention,
-    ~125 MB of bf16 P a step to the host; maps Spearman ≥ 0.999); s/step
-    traced and untraced; peak device memory and host RSS.
+    ~125 MB of bf16 P a step to the host; maps Spearman ≥ 0.999); peak
+    device memory and host RSS.
 14. Data-parallel generation (``daam_tpu_torch.parallel``):
     ``init_distributed('tcp://127.0.0.1:<free port>', world_size=1,
     rank=0)`` joins an NCCL group; ``fetch_global`` of a card tensor goes
@@ -238,8 +227,6 @@ order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 6a, 9, 10, 7, 11, 12, 13, 14, 15):
     cross_attention_acc and 32 × 10 flash_attention (SDXL: 60 × 2 and
     140 × 2), every one on ``*_tf32x3``.  It prints the latents' max abs
     error step by step, the seconds of the numpy init and the s/step.
-
-The whole run takes ~7 min of command time on one H100.
 
 Before the card's name and power limit, ``{"v1_kernels": [...]}`` gives
 the same keys as the ``kernels`` line for v1's path (launches from phase
@@ -675,10 +662,10 @@ def tiny_reference(A, StableDiffusionPipeline, trace, preset):
     for mode in ('torch', 'auto'):
         A.set_kernel_mode(mode)
         try:
-            out_s, _, tc = timed_call(pipe, True, trace, steps=3, save_heads=True,
-                                      persist_heads=False, data_dir=f'{preset}-{mode}')
-            out_l, _, _ = timed_call(pipe, True, trace, steps=3, load_heads=True,
-                                     data_dir=f'{preset}-{mode}')
+            out_s, tc = pipe_call(pipe, True, trace, steps=3, save_heads=True,
+                                  persist_heads=False, data_dir=f'{preset}-{mode}')
+            out_l, _ = pipe_call(pipe, True, trace, steps=3, load_heads=True,
+                                 data_dir=f'{preset}-{mode}')
             replay[mode] = (tc.replay_buffer(3), out_s.images[0], out_l.images[0])
         finally:
             A.set_kernel_mode('auto')
@@ -692,31 +679,21 @@ def tiny_reference(A, StableDiffusionPipeline, trace, preset):
           f'{preset} save/load kernel path vs plain path')
 
 
-def timed_call(pipe, traced: bool, trace, steps: int = STEPS,
-               prompt=PROMPT, seeds=None, **trace_kwargs):
+def pipe_call(pipe, traced: bool, trace, steps: int = STEPS,
+              prompt=PROMPT, seeds=None, **trace_kwargs):
     """One pipeline call of ``prompt`` (a list: a batch, with one generator
-    per prompt seeded from ``seeds``; else one generator seeded 0); returns
-    (output, per-step seconds, tracer)."""
+    per prompt seeded from ``seeds``; else one generator seeded 0), inside
+    ``trace(pipe, **trace_kwargs)`` if ``traced``; returns (output, tracer
+    or None)."""
     import torch
-
-    marks = []
-
-    def on_step(i, t, latents):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
 
     gen = (torch.Generator(device=pipe.device).manual_seed(0) if seeds is None else
            [torch.Generator(device=pipe.device).manual_seed(s) for s in seeds])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if traced:
-        with trace(pipe, **trace_kwargs) as tc:
-            out = pipe(prompt, num_inference_steps=steps, generator=gen,
-                       output_type='np', callback=on_step, callback_steps=1)
-        return out, [b - a for a, b in zip([t0] + marks, marks)], tc
-    out = pipe(prompt, num_inference_steps=steps, generator=gen,
-               output_type='np', callback=on_step, callback_steps=1)
-    return out, [b - a for a, b in zip([t0] + marks, marks)], None
+    if not traced:
+        return pipe(prompt, num_inference_steps=steps, generator=gen, output_type='np'), None
+    with trace(pipe, **trace_kwargs) as tc:
+        out = pipe(prompt, num_inference_steps=steps, generator=gen, output_type='np')
+    return out, tc
 
 
 def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -966,10 +943,9 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
                k5: int = K5_PER_EVAL, k2: int = K2_PER_EVAL_REPLAY,
                other_prompt: bool = True, prompts=None, seeds=None) -> dict:
     """A save_heads -> load_heads pair at full width, ``steps`` steps each
-    (phases 5, 7, 9, 10 and 12), with the per-step time and slowest step of
-    each run: the save run's counters (``k5`` cross_attention_probs and
-    ``k2`` flash_attention launches per UNet evaluation on the ``dtype``
-    route, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
+    (phases 5, 7, 9, 10, 12 and 13): the save run's counters (``k5``
+    cross_attention_probs and ``k2`` flash_attention launches per UNet
+    evaluation on the ``dtype`` route, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
     H, h·w, 77) bf16 for a batch of b prompts, finite, rows summing to 1
     within 1e-2; PNDM evaluates ``steps + 1`` times); the load run of the
     same prompts (``k2`` flash_attention per evaluation and nothing else),
@@ -988,12 +964,10 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
 
     def run(prompt, **trace_kwargs):
         kernels.reset_launches()
-        out, times, tc = timed_call(pipe, True, trace, steps=steps, prompt=prompt,
-                                    seeds=seeds, data_dir=data_dir, **trace_kwargs)
+        out, tc = pipe_call(pipe, True, trace, steps=steps, prompt=prompt,
+                            seeds=seeds, data_dir=data_dir, **trace_kwargs)
         launches = dict(kernels.launches)
-        print(f'{label} {list(trace_kwargs)[0]} run {prompt!r}: launches {launches}, '
-              f'{sum(times) / steps:.5f} s/step over {steps} steps, slowest step '
-              f'{max(times):.5f} s')
+        print(f'{label} {list(trace_kwargs)[0]} run {prompt!r}: launches {launches}')
         return out.images[0], tc, launches
 
     prompt = batch if prompts else PROMPT
@@ -1033,7 +1007,7 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
 
     if other_prompt:
         image_t, _, _ = run(PROMPT2, load_heads=True)
-        fresh, _, _ = timed_call(pipe, False, trace, steps=steps, prompt=PROMPT2)
+        fresh, _ = pipe_call(pipe, False, trace, steps=steps, prompt=PROMPT2)
         diff = float(abs(image_t - fresh.images[0]).mean())
         print(f'{label} transplant into {PROMPT2!r} vs a fresh run of it: mean abs '
               f'diff {diff:.4e}')
@@ -1043,67 +1017,19 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
     return save_launches
 
 
-def step_times(pipe, trace, label):
-    """Seconds per step traced and untraced: warm runs in turns, each
-    without its first step (which includes the text encode)."""
-    per_step = {True: [], False: []}
-    for traced in (False, True, False, True):
-        _, steps, _ = timed_call(pipe, traced, trace)
-        per_step[traced] += steps[1:]
-    traced_s = sum(per_step[True]) / len(per_step[True])
-    untraced_s = sum(per_step[False]) / len(per_step[False])
-    print(f's/step {label}: traced={traced_s:.5f} untraced={untraced_s:.5f} '
-          f'traced/untraced={traced_s / untraced_s:.4f}')
-
-
-def v2_step_times(pipe, trace, A):
-    """Phase 6a: v2-1-base's seconds per step traced and untraced, traced
-    through the plain versions, and of the save and load runs."""
-    step_times(pipe, trace, 'v2-1-base 512^2 bf16')
-    A.set_kernel_mode('torch')
-    try:
-        _, steps, _ = timed_call(pipe, True, trace)
-    finally:
-        A.set_kernel_mode('auto')
-    print(f's/step traced, plain attention instead of the kernels: '
-          f'{sum(steps[1:]) / len(steps[1:]):.5f}')
-    replay_step_times(pipe, trace, 'v2-1-base 512^2 bf16')
-
-
-def replay_step_times(pipe, trace, label):
-    """Seconds per step of the save and load runs: two warm runs of each in
-    turns, each without its first step; and the slowest step, which holds
-    the save run's host copy."""
-    from daam_tpu_torch.trace import release_heads
-
-    replay_steps = {'save_heads': [], 'load_heads': []}
-    for _ in range(2):
-        for flag in replay_steps:
-            _, steps, _ = timed_call(pipe, True, trace, data_dir='smoke steps',
-                                     persist_heads=False, **{flag: True})
-            replay_steps[flag] += steps[1:]
-    release_heads('smoke steps')
-    print(f's/step {label}, head replay: ' + ' '.join(
-        f'{flag}={sum(v) / len(v):.5f} (slowest step {max(v):.5f})'
-        for flag, v in replay_steps.items()))
-
-
-def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
+def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A):
     """Phase 7: xl-base-1.0 at full width in bf16, then one step in fp32,
     each with its save -> load transplant; returns the launch counts of the
     bf16 traced run and of the fp32 kernel step, cross_attention_probs's
     from the save run of the same dtype."""
     import torch
 
-    t0 = time.perf_counter()
     pipe = StableDiffusionPipeline.from_pretrained('xl-base-1.0', device='cuda',
                                                    dtype=torch.bfloat16)
-    torch.cuda.synchronize()
     n_params = sum(p.numel() for m in (pipe.unet, pipe.text_encoder,
                                        pipe.text_encoder_2, pipe.vae)
                    for p in m.parameters())
-    print(f'xl-base-1.0 init (random weights, bf16): '
-          f'{time.perf_counter() - t0:.2f} s, {type(pipe).__name__}, '
+    print(f'xl-base-1.0 (random weights, bf16): {type(pipe).__name__}, '
           f'{n_params / 1e9:.3f} B parameters, '
           f'{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated')
     check(type(pipe).__name__ == 'StableDiffusionXLPipeline', 'the SDXL class')
@@ -1118,12 +1044,11 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    out, cold_steps, tc = timed_call(pipe, True, trace)
+    out, tc = pipe_call(pipe, True, trace)
     launches = dict(kernels.launches)
     print(f'xl-base-1.0 main path launches: {launches}')
     print(f'xl-base-1.0 VAE decoder calls {decodes}; peak memory '
           f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
-    print(f'xl-base-1.0 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
     check_traced(out, tc, 1024, 'xl-base-1.0')
     check(decodes == [SDXL_TILES], f'tiled VAE decode: decoder calls {decodes}')
     check(launches == expected(kernels, 'bf16', cross_attention_acc=SDXL_K1_PER_EVAL * STEPS,
@@ -1131,30 +1056,13 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A, profile: bool):
           f'xl-base-1.0 launch counts {launches}')
     one_step_maps(pipe, trace, kernels, A, 'bf16', 0.99)
     launches['cross_attention_probs'] = sdxl_transplant(pipe, trace, kernels, 'bf16')
-
-    step_times(pipe, trace, 'xl-base-1.0 1024^2 bf16')
-    latents = torch.randn(1, 4, 128, 128, device=pipe.device)
-    for _ in range(2):  # the second call is timed
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            pipe._decode(latents)
-        torch.cuda.synchronize()
-    print(f'xl-base-1.0 tiled VAE decode (9 tiles, one batch): '
-          f'{time.perf_counter() - t0:.4f} s, peak memory '
-          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
-    if profile:
-        profile_step(pipe, trace)
     del pipe, tc, out
     gc.collect()
     torch.cuda.empty_cache()
 
     # fp32, with TF32 off: do the bf16 maps' 0.993 come from bf16 rounding?
-    t0 = time.perf_counter()
     pipe = StableDiffusionPipeline.from_pretrained('xl-base-1.0', device='cuda')
-    torch.cuda.synchronize()
-    print(f'xl-base-1.0 init (random weights, fp32): {time.perf_counter() - t0:.2f} s, '
+    print(f'xl-base-1.0 (random weights, fp32): '
           f'{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated')
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
@@ -1192,7 +1100,7 @@ def one_step_maps(pipe, trace, kernels, A, label: str, gate: float) -> dict:
         A.set_kernel_mode(mode)
         kernels.reset_launches()
         try:
-            _, _, tc = timed_call(pipe, True, trace, steps=1)
+            _, tc = pipe_call(pipe, True, trace, steps=1)
         finally:
             A.set_kernel_mode('auto')
         if mode == 'auto':
@@ -1210,21 +1118,16 @@ def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
     """Phase 9: what ``daam-torch "A dog runs across the field."`` runs by
     default, v2-1-base in fp32 at 512²: a traced 10-step run, then the
     save -> load transplant (``--save-heads``, ``--load-heads``), every K1,
-    K2 and K5 launch on the 3xTF32 kernels; seconds per step traced and
-    untraced, and of the save and load runs.  Returns the launch counts of
+    K2 and K5 launch on the 3xTF32 kernels.  Returns the launch counts of
     the traced run, K5's from the save run."""
     import torch
 
-    t0 = time.perf_counter()
     pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
-    torch.cuda.synchronize()
-    print(f'v2-1-base init (random weights, fp32): {time.perf_counter() - t0:.2f} s')
     check(pipe.dtype == torch.float32, f'default dtype {pipe.dtype}')
     kernels.reset_launches()
-    out, cold_steps, tc = timed_call(pipe, True, trace)
+    out, tc = pipe_call(pipe, True, trace)
     launches = dict(kernels.launches)
     print(f'fp32 main path launches: {launches}')
-    print(f'fp32 first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
     check_traced(out, tc, 512, 'v2-1-base fp32')
     check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
                                flash_attention=K2_PER_EVAL * STEPS),
@@ -1232,8 +1135,6 @@ def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
     launches['cross_attention_probs'] = transplant(
         pipe, trace, kernels, 'v2-1-base fp32', 'fp32',
         other_prompt=False)['cross_attention_probs']
-    step_times(pipe, trace, 'v2-1-base 512^2 fp32')
-    replay_step_times(pipe, trace, 'v2-1-base 512^2 fp32')
     del pipe, tc, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -1244,37 +1145,33 @@ def v1_full_width(StableDiffusionPipeline, trace, kernels):
     """Phase 10: SD 1.x (``v1``, 8 heads at hd 40/80/160) at 512², random
     weights from seed 0.  fp32 with DDIM, what ``daam-torch --model v1``
     runs: a traced 10-step run (15 × 10 K1 and 32 × 10 K2 on the 3xTF32
-    route), the fp32 save -> load transplant (16 × 10 K5), s/step traced
-    and untraced.  bf16 with PNDM, SD 1.x's published scheduler: a traced
-    run of 10 steps, 11 UNet evaluations (15 × 11 K1 and 32 × 11 K2 on the
-    bf16 routes), its save -> load pair (a buffer of 11 evaluations), s per
-    evaluation traced and untraced.  Returns the launch counts of the fp32
-    and the bf16 traced runs, K5's from the save run of the same dtype."""
+    route), the fp32 save -> load transplant (16 × 10 K5).  bf16 with PNDM,
+    SD 1.x's published scheduler: a traced run of 10 steps, 11 UNet
+    evaluations (15 × 11 K1 and 32 × 11 K2 on the bf16 routes), its save ->
+    load pair (a buffer of 11 evaluations).  Returns the launch counts of
+    the fp32 and the bf16 traced runs, K5's from the save run of the same
+    dtype."""
     import torch
 
     runs = {}
     for dtype, sched in (('fp32', 'ddim'), ('bf16', 'pndm')):
-        t0 = time.perf_counter()
         pipe = StableDiffusionPipeline.from_pretrained(
             'v1', device='cuda', scheduler=sched,
             dtype=torch.bfloat16 if dtype == 'bf16' else torch.float32)
-        torch.cuda.synchronize()
         label = f'v1 512^2 {dtype} {sched}'
         evals = pipe.scheduler.num_scan_steps(STEPS)
-        print(f'{label}: init (random weights) {time.perf_counter() - t0:.2f} s, '
-              f'{type(pipe.scheduler).__name__}, {evals} UNet evaluations for '
-              f'{STEPS} steps')
+        print(f'{label}: {type(pipe.scheduler).__name__}, {evals} UNet evaluations '
+              f'for {STEPS} steps')
         kernels.reset_launches()
-        out, cold_steps, tc = timed_call(pipe, True, trace)
+        out, tc = pipe_call(pipe, True, trace)
         launches = dict(kernels.launches)
-        print(f'{label} launches: {launches}; first traced call {sum(cold_steps):.3f} s')
+        print(f'{label} launches: {launches}')
         check_traced(out, tc, 512, label)
         check(launches == expected(kernels, dtype, cross_attention_acc=K1_PER_EVAL * evals,
                                    flash_attention=K2_PER_EVAL * evals),
               f'{label} launch counts {launches}')
         launches['cross_attention_probs'] = transplant(
             pipe, trace, kernels, label, dtype, other_prompt=False)['cross_attention_probs']
-        step_times(pipe, trace, label + (' (per UNet evaluation)' if evals != STEPS else ''))
         runs[dtype] = launches
         del pipe, tc, out
         gc.collect()
@@ -1488,13 +1385,7 @@ def checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels):
         cli_exp = GenerationExperiment.load(out_dir)
         prompt = PROMPT.replace('.', ' .')
         mem = StableDiffusionPipeline(config, **modules)
-        per_step = {}
-        for label, p in (('loaded', pipe), ('in-memory', mem)):
-            out, steps, tc = timed_call(p, True, trace, prompt=prompt)
-            per_step[label] = sum(steps[1:]) / len(steps[1:])
-        print(f's/step traced, steps 2-{STEPS}: loaded pipeline '
-              f'{per_step["loaded"]:.5f}, in-memory fp16-rounded pipeline '
-              f'{per_step["in-memory"]:.5f}')
+        out, tc = pipe_call(mem, True, trace, prompt=prompt)
         image = np.array(_to_pil(out.images[0]))
         mem_map = tc.compute_global_heat_map().heat_maps
         cli_map = torch.as_tensor(cli_exp.global_heat_map, device=mem_map.device)
@@ -1664,22 +1555,6 @@ class HostPeak:
         self.peak = max(self.peak, self._rss())
 
 
-def images_per_s(pipe, trace, label: str) -> dict:
-    """Traced images/s through the pipeline, 10 fp32 steps: batch 1 (one
-    prompt) and batch 4 (one call of four prompts, a generator each), warm,
-    in turns b1, b4, b4, b1 (host clock around the whole call, decode and
-    the copy to the host included)."""
-    rates = {1: [], BATCH: []}
-    for b in (1, BATCH, BATCH, 1):
-        t0 = time.perf_counter()
-        timed_call(pipe, True, trace, prompt=BATCH_PROMPTS[:b], seeds=BATCH_SEEDS[:b])
-        rates[b].append(b / (time.perf_counter() - t0))
-    print(f'{label}: traced images/s through the pipeline ({STEPS} steps): batch 1 '
-          f'{rates[1]}, batch {BATCH} {rates[BATCH]}; batch {BATCH} / batch 1 = '
-          f'{sum(rates[BATCH]) / sum(rates[1]):.4f}')
-    return rates
-
-
 def write_corpus(root, prompts, seeds):
     """One experiment folder per prompt (``prompt.txt``, ``seed.txt``), what
     ``daam-torch --action regenerate`` reads."""
@@ -1776,10 +1651,9 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
     512², 10 steps: ``daam-torch --action regenerate`` at ``--batch-size``
     4 and 1 (images ±2/255, maps Spearman ≥ 0.999, one traced call's
     launches at batch 4), ``--action coco --word dog``, the save → load
-    pair at batch 4 (its slowest step, peak host RSS), traced images/s at
-    batch 1 and 4, and ``daam-torch-demo``'s server: four concurrent
-    requests in one traced call, each against its batch-1 run, and the
-    counterfactual's save → load transplant.  Returns the launch counts of
+    pair at batch 4 (peak host RSS), and ``daam-torch-demo``'s server:
+    four concurrent requests in one traced call, each against its batch-1
+    run, and the counterfactual's save → load transplant.  Returns the launch counts of
     the batch-4 regenerate run, K5's from the batch-4 save run."""
     import json as json_mod
     import os
@@ -1847,10 +1721,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
                                    **png_launches(coco_out)),
               f'--action coco launch counts {launches}')
 
-    # traced images/s through the pipeline, and the save -> load pair at
-    # batch 4 (K5 at CFG batch 8)
+    # the save -> load pair at batch 4 (K5 at CFG batch 8)
     pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
-    rates = images_per_s(pipe, trace, 'v2-1-base 512^2 fp32')
     with HostPeak() as host:
         save = transplant(pipe, trace, kernels, f'v2-1-base fp32 batch {BATCH}', 'fp32',
                           other_prompt=False, prompts=BATCH_PROMPTS, seeds=BATCH_SEEDS)
@@ -1899,7 +1771,7 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
             image, heat_map = served[prompt]
             check(np.array_equal(page_images(pages[prompt])[0], np.asarray(image)),
                   'the page shows the generated image')
-            out, _, tc = timed_call(pipe, True, trace, prompt=prompt, seeds=[0])
+            out, tc = pipe_call(pipe, True, trace, prompt=prompt, seeds=[0])
             same_generation((np.asarray(image), heat_map.heat_maps),
                             (np.asarray(_to_pil(out.images[0])),
                              tc.compute_global_heat_map().heat_maps),
@@ -1927,7 +1799,7 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
         # on average, a little nearer the saved run's image than the fresh
         # run lies
         saved, transplanted = (im.astype(float) / 255 for im in page_images(html)[:2])
-        fresh, _, _ = timed_call(pipe, False, trace, prompt=new_prompt)
+        fresh, _ = pipe_call(pipe, False, trace, prompt=new_prompt)
         fresh = np.asarray(_to_pil(fresh.images[0])).astype(float) / 255
         d_tf, d_ts, d_fs = (float(np.abs(a - b).mean()) for a, b in (
             (transplanted, fresh), (transplanted, saved), (fresh, saved)))
@@ -1952,98 +1824,12 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
     finally:
         stop(handler, server, thread)
     print(f'daam-torch-demo traced images/s ({STEPS} steps, the page rendered): batch 1 '
-          f'server {server_b1:.4f}, batch {BATCH} server {server_b4:.4f}; pipeline batch 1 '
-          f'{max(rates[1]):.4f}, batch {BATCH} {max(rates[BATCH]):.4f} (best of two)')
+          f'server {server_b1:.4f}, batch {BATCH} server {server_b4:.4f}')
     print(f'phase 12 peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     return b4_launches
-
-
-@contextlib.contextmanager
-def fp32_convolutions():
-    """cuDNN's TF32 off (PyTorch's default is on) for the block, then the
-    flag as it was: the other side of the A/B of what ``--dtype float32``
-    computes (3xTF32 attention and fp32 linear layers either way)."""
-    import torch
-
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
-
-
-def conv_difference(pipe, trace, label: str):
-    """What fp32 convolutions change in a ``float32`` pipeline's result
-    against cuDNN's TF32 ones: one traced call of ``PROMPT`` each way, the
-    8-bit images' largest and mean difference and the per-token maps'
-    least Spearman (printed)."""
-    import numpy as np
-    from daam_tpu_torch.experiment import _to_pil
-
-    runs = []
-    for scope in (contextlib.nullcontext, fp32_convolutions):
-        with scope():
-            out, _, tc = timed_call(pipe, True, trace)
-        runs.append((np.asarray(_to_pil(out.images[0])).astype(int),
-                     tc.compute_global_heat_map().heat_maps))
-    (im_a, maps_a), (im_b, maps_b) = runs
-    rho = min(spearman(maps_a[t], maps_b[t]) for t in range(maps_a.shape[0]))
-    print(f'{label}: fp32 against TF32 convolutions, one traced call of {PROMPT!r}: image '
-          f'max abs diff {int(np.abs(im_a - im_b).max())}/255 (mean '
-          f'{np.abs(im_a - im_b).mean():.4f}), per-token heat-map spearman min {rho:.6f}')
-
-
-def conv_ab(StableDiffusionPipeline, trace):
-    """``--conv-ab``: what ``--dtype float32`` costs and computes with
-    cuDNN's TF32 convolutions (PyTorch's default, which the port keeps)
-    against fp32 ones.  v2-1-base 512² fp32: s/step traced and untraced
-    each way, what fp32 convolutions change in one traced call
-    (``conv_difference``), the batch-4 call against four batch-1 calls each
-    way (``batch_vs_single``), images/s at batch 1 and 4 each way; then
-    v2-1-large 768² fp32: s/step each way and ``conv_difference``."""
-    import torch
-
-    pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
-    label = 'v2-1-base 512^2 fp32'
-    step_times(pipe, trace, label)
-    with fp32_convolutions():
-        step_times(pipe, trace, f'{label}, fp32 convolutions')
-    conv_difference(pipe, trace, label)
-    batch_vs_single(pipe, trace, 'TF32 convolutions')
-    images_per_s(pipe, trace, label)
-    with fp32_convolutions():
-        batch_vs_single(pipe, trace, 'fp32 convolutions')
-        images_per_s(pipe, trace, f'{label}, fp32 convolutions')
-    del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
-    pipe = StableDiffusionPipeline.from_pretrained('v2-1-large', device='cuda')
-    label = 'v2-1-large 768^2 fp32'
-    step_times(pipe, trace, label)
-    with fp32_convolutions():
-        step_times(pipe, trace, f'{label}, fp32 convolutions')
-    conv_difference(pipe, trace, label)
-
-
-def batch_vs_single(pipe, trace, label: str):
-    """Each of ``BATCH_PROMPTS`` in one batch-4 traced call against its
-    batch-1 call, as ``same_generation`` holds them (8-bit images within
-    2/255, maps at Spearman ≥ 0.999)."""
-    import numpy as np
-    from daam_tpu_torch.experiment import _to_pil
-
-    out, _, tc = timed_call(pipe, True, trace, prompt=BATCH_PROMPTS, seeds=BATCH_SEEDS)
-    batch = [(np.asarray(_to_pil(out.images[i])), tc.compute_global_heat_map(batch_idx=i)
-              .heat_maps) for i in range(BATCH)]
-    for i, (prompt, seed) in enumerate(zip(BATCH_PROMPTS, BATCH_SEEDS)):
-        one, _, tc = timed_call(pipe, True, trace, prompt=[prompt], seeds=[seed])
-        same_generation(batch[i], (np.asarray(_to_pil(one.images[0])),
-                                   tc.compute_global_heat_map().heat_maps),
-                        f'{label} {prompt!r}, batch {BATCH} vs batch 1')
 
 
 # --------------------------------------------------------------------------
@@ -2056,22 +1842,19 @@ def v2l_full_width(StableDiffusionPipeline, trace, kernels):
     bf16: a traced 10-step DDIM run (a 768² image, one untiled VAE decode
     of the 96² latent, 96² maps for every token, 15 × 10 K1 and 32 × 10 K2
     on the dtype's route), the save -> load pair (16 K5 and 16 K2 per
-    evaluation, replayed maps at Spearman ≥ 0.999), s/step traced and
-    untraced; peak device memory and host RSS.  Returns the launch counts
+    evaluation, replayed maps at Spearman ≥ 0.999); peak device memory and
+    host RSS.  Returns the launch counts
     of the fp32 and bf16 traced runs, K5's from the save run of the same
     dtype."""
     import torch
 
     runs = {}
     for dtype in ('fp32', 'bf16'):
-        t0 = time.perf_counter()
         pipe = StableDiffusionPipeline.from_pretrained(
             'v2-1-large', device='cuda',
             dtype=torch.bfloat16 if dtype == 'bf16' else torch.float32)
-        torch.cuda.synchronize()
         label = f'v2-1-large 768^2 {dtype}'
-        print(f'{label}: init (random weights) {time.perf_counter() - t0:.2f} s, '
-              f'{type(pipe.scheduler).__name__} {pipe.scheduler.prediction_type}')
+        print(f'{label}: {type(pipe.scheduler).__name__} {pipe.scheduler.prediction_type}')
         check(pipe.config.prediction_type == pipe.scheduler.prediction_type
               == 'v_prediction', f'{label}: v-prediction')
 
@@ -2084,11 +1867,10 @@ def v2l_full_width(StableDiffusionPipeline, trace, kernels):
         pipe.vae.decode = recording_decode
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        out, cold_steps, tc = timed_call(pipe, True, trace)
+        out, tc = pipe_call(pipe, True, trace)
         launches = dict(kernels.launches)
         pipe.vae.decode = vae_decode
-        print(f'{label} launches: {launches}; first traced call {sum(cold_steps):.3f} s; '
-              f'VAE decoder calls {decodes}; peak device memory '
+        print(f'{label} launches: {launches}; VAE decoder calls {decodes}; peak device memory '
               f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB')
         check_traced(out, tc, 768, label)
         maps = tc.compute_global_heat_map().heat_maps
@@ -2105,7 +1887,6 @@ def v2l_full_width(StableDiffusionPipeline, trace, kernels):
         print(f'{label} save -> load pair: peak device memory '
               f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, peak host RSS '
               f'{host.peak / 1e9:.3f} GB ({host.start / 1e9:.3f} GB before it)')
-        step_times(pipe, trace, label)
         runs[dtype] = launches
         del pipe, tc, out, maps
         gc.collect()
@@ -2388,11 +2169,11 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
     machine without matplotlib draws them.  Gates: each word's decoded PNG
     within one level of the host's on at most 0.5% of its pixels,
     ``output.png`` equal, every card file within 1% of Pillow's size for
-    the same pixels, ``overlay_card`` one a word and ``overlay_host`` none
-    on the card's pass, the overlay kernels' launches one a PNG; on two
-    PyTorch threads ``png_striped`` one a PNG of the card's and
-    ``png_one_stream`` none, each striped file inflating to the one-stream
-    file's rows and no more than 0.1% over its size.  Prints the ms a word
+    the same pixels, one ``overlay_resample`` a word and one
+    ``png_scanlines`` a PNG on the card's pass and none on the host's; on
+    two PyTorch threads every PNG of the card's deflated in two stripes (as
+    ``png.write_png`` returns them), each striped file inflating to the
+    one-stream file's rows and no more than 0.1% over its size.  Prints the ms a word
     of each route (the card's with the one-stream and the striped writer)
     and of its three spans, and the two kernels' event time at 512²."""
     import io
@@ -2404,7 +2185,7 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
     import numpy as np
     import PIL.Image
     import torch
-    from daam_tpu_torch import profiling
+    from daam_tpu_torch import png, profiling
     from daam_tpu_torch.experiment import GenerationExperiment
     from daam_tpu_torch.heatmap import _JET_LUT
 
@@ -2449,27 +2230,30 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
                 one_stream = {p: (p.stat().st_size, idat_rows(p))
                               for p in [*card.save_all_heat_maps().values(),
                                         card.path / 'output.png']}
-            before, launched = profiling.counters(), dict(kernels.launches)
-            with torch_threads(2):  # the configurations' host threads
-                card.save(heat_maps=False)
-                card_paths = card.save_all_heat_maps()
-            mid = profiling.counters()
+            launched, taken, write_png = dict(kernels.launches), [], png.write_png
+
+            def recording_write_png(*args):
+                taken.append(write_png(*args))
+                return taken[-1]
+            png.write_png = recording_write_png
+            try:
+                with torch_threads(2):  # the configurations' host threads
+                    card.save(heat_maps=False)
+                    card_paths = card.save_all_heat_maps()
+            finally:
+                png.write_png = write_png
+            mid = dict(kernels.launches)
             host.save(heat_maps=False)
             host_paths = host.save_all_heat_maps()
-            after = profiling.counters()
             words = sorted(card_paths)
             check(bool(words) and words == sorted(host_paths), f'overlay words {words}')
             n = len(words)
-            check(mid['overlay_card'] - before['overlay_card'] == n
-                  and mid['overlay_host'] == before['overlay_host']
-                  and after['overlay_host'] - mid['overlay_host'] == n,
-                  'overlay_card counts one a word on the card, overlay_host none')
-            check(kernels.launches['overlay_resample'] - launched['overlay_resample'] == n
-                  and kernels.launches['png_scanlines'] - launched['png_scanlines'] == n + 1,
-                  'one overlay_resample a word, one png_scanlines a PNG')
-            check(mid['png_striped'] - before['png_striped'] == n + 1
-                  and mid['png_one_stream'] == before['png_one_stream'],
-                  'on two threads every PNG of the card\'s route deflates in stripes')
+            check(mid['overlay_resample'] - launched['overlay_resample'] == n
+                  and mid['png_scanlines'] - launched['png_scanlines'] == n + 1,
+                  'one overlay_resample a word, one png_scanlines a PNG on the card')
+            check(dict(kernels.launches) == mid, 'the host route launches no kernel')
+            check(taken == [2] * (n + 1),
+                  f'on two threads every PNG of the card\'s route deflates in stripes: {taken}')
             sizes = []
             for p, (size, rows) in one_stream.items():
                 check(idat_rows(p) == rows, f'{p.name}: the stripes inflate to the '
@@ -2514,7 +2298,7 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
                     if r.name.startswith('overlay.'):
                         stages.setdefault(label, {}).setdefault(r.name, []).append(
                             (r.end_ns - r.start_ns) / 1e6)
-            image = card._image_on_card()
+            image = torch.from_numpy(np.array(card.image)).cuda()
             heat = torch.rand(64, 64, device='cuda')
             lut = torch.from_numpy(_JET_LUT).cuda()
             device_ms = event_ms(lambda: kernels.png_scanlines(
@@ -2538,46 +2322,14 @@ def overlay_routes(StableDiffusionPipeline, trace, kernels) -> dict:
     return line
 
 
-def profile_step(pipe, trace):
-    """A traced 2-step call of ``pipe`` under torch.profiler: the top
-    kernels, and the device's busy share of the call's wall time (one
-    stream, so the kernel times add up without overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        timed_call(pipe, True, trace, steps=2)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    print(events.table(sort_by='self_cuda_time_total', row_limit=25))
-    device = [e for e in events if e.device_type != DeviceType.CPU]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    print(f'profiled traced {pipe.config.name} call (2 steps, encode, decode): '
-          f'wall {wall_ms:.3f} ms, '
-          f'device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
-    for e in device:  # the port's own kernels, wherever they rank
-        if '_attention' in e.key and e.key.startswith('void (anonymous'):
-            print(f'  {e.key.split("::", 1)[1].split("(")[0]}: {e.count} launches, '
-                  f'{e.self_device_time_total / 1e3:.3f} ms, '
-                  f'{100 * e.self_device_time_total / 1e3 / busy_ms:.1f}% of busy')
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--profile', action='store_true',
-                        help='print a torch.profiler table of a traced run')
     parser.add_argument('--kernel-times', action='store_true',
-                        help="build, time the kernels (phase 6b) and v2-1-base's "
-                             'fp32 steps (phase 9) only; no checks beyond the '
-                             'build, no result line')
+                        help='build and time the kernels (phase 6b) only; no checks '
+                             'beyond the build, no result line')
     parser.add_argument('--flash-fp32', action='store_true',
                         help='build, then check and time fp32 flash_attention at every '
                              'head dim only; no result line')
-    parser.add_argument('--conv-ab', action='store_true',
-                        help='build, then time fp32 pipelines with TF32 and with fp32 '
-                             'convolutions only; no checks beyond the build, no result '
-                             'line')
     args = parser.parse_args(argv)
 
     import torch
@@ -2611,13 +2363,6 @@ def main(argv=None):
         for model in PATH_SHAPES:
             for dtype in DTYPES:
                 kernel_times(kernels, A, model, dtype)
-        pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda')
-        step_times(pipe, trace, 'v2-1-base 512^2 fp32')
-        replay_step_times(pipe, trace, 'v2-1-base 512^2 fp32')
-        print(smi)
-        return
-    if args.conv_ab:
-        conv_ab(StableDiffusionPipeline, trace)
         print(smi)
         return
     if args.flash_fp32:
@@ -2659,23 +2404,17 @@ def main(argv=None):
     # 8b. the overlays on the card against the host route
     overlay_routes(StableDiffusionPipeline, trace, kernels)
 
-    # 6b. the kernels alone at both paths' shapes, before any other
-    # profiler session (after --profile's, the card's profiler was seen to
-    # drop kernels)
+    # 6b. the kernels alone at both paths' shapes
     totals = {(model, dtype): kernel_times(kernels, A, model, dtype)
               for model in PATH_SHAPES for dtype in DTYPES}
 
     # 4. the slice at full width
-    t0 = time.perf_counter()
     pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda',
                                                    dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    print(f'v2-1-base init (random weights, bf16): {time.perf_counter() - t0:.2f} s')
     kernels.reset_launches()
-    out, cold_steps, tc = timed_call(pipe, True, trace)
+    out, tc = pipe_call(pipe, True, trace)
     launches = dict(kernels.launches)
     print(f'main path launches: {launches}')
-    print(f'first traced call: {sum(cold_steps):.3f} s for {STEPS} steps')
     check_traced(out, tc, 512, 'v2-1-base bf16')
     check(launches == expected(kernels, 'bf16', cross_attention_acc=K1_PER_EVAL * STEPS,
                                flash_attention=K2_PER_EVAL * STEPS),
@@ -2684,12 +2423,7 @@ def main(argv=None):
     # 5. the transplant at full width
     launches['cross_attention_probs'] = transplant(
         pipe, trace, kernels, 'v2-1-base bf16', 'bf16')['cross_attention_probs']
-
-    # 6a. step timings
-    v2_step_times(pipe, trace, A)
-    if args.profile:
-        profile_step(pipe, trace)
-    del pipe, tc
+    del pipe, tc, out
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2701,7 +2435,7 @@ def main(argv=None):
 
     # 7. SDXL at full width, in bf16, then one step in fp32
     sdxl_launches, sdxl_launches_fp32 = sdxl_full_width(
-        StableDiffusionPipeline, trace, kernels, A, args.profile)
+        StableDiffusionPipeline, trace, kernels, A)
 
     # 11. v2-1-base through a checkpoint directory, its VAE encoder, the
     # evaluation

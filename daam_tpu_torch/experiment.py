@@ -9,11 +9,11 @@ prediction masks, ``annotations.json`` and ``{word}.heat_map.png``.
 ``daam_tpu.v1``), or with ``save(reference_format=True)`` the torch
 checkpoint the reference loads; :meth:`GenerationExperiment.load` reads
 both, so a directory written by either package loads in the other.  PIL is
-imported only where a PNG is read or written.  An experiment made by
-``trace.to_experiment`` on a CUDA device draws its PNGs there: its image is
-uploaded once, the overlays are composited and every PNG filtered on the
-card (``csrc/overlay.cu``), and the host only deflates them
-(:mod:`daam_tpu_torch.png`); any other experiment draws them on the host.
+imported only where a PNG is read or written.  ``output.png`` and the
+heat-map PNGs are written by :func:`~daam_tpu_torch.heatmap.save_image` and
+:func:`~daam_tpu_torch.heatmap.save_overlay`, which draw them on the card
+where ``trace.to_experiment`` made the experiment on a CUDA device, else on
+the host.
 """
 
 import io
@@ -32,7 +32,9 @@ from .coco import (COCO80_LABELS, COCO80_INDICES, UNUSED_LABELS,  # noqa: F401
                    COCOSTUFF27_LABELS, COCO80_ONTOLOGY, COCO80_TO_27,
                    build_word_list_coco80)
 from .evaluate import load_mask
+from .heatmap import GlobalHeatMap, save_image, save_overlay
 from .profiling import span
+from .utils import _to_pil
 
 __all__ = ['GenerationExperiment', 'COCO80_LABELS', 'COCOSTUFF27_LABELS',
            'COCO80_INDICES', 'COCO80_ONTOLOGY', 'COCO80_TO_27',
@@ -91,16 +93,6 @@ def _experiment_file(path: Union[str, Path], prompt_id: Optional[str],
                      name: str) -> Path:
     base = Path(path) if prompt_id is None else Path(path) / prompt_id
     return base / name
-
-
-def _to_pil(image):
-    """A PIL image of ``image``, which may be (H, W, 3) floats in [0, 1]."""
-    import PIL.Image
-
-    if isinstance(image, PIL.Image.Image):
-        return image
-    u8 = np.clip(np.asarray(image) * 255 + 0.5, 0, 255).astype(np.uint8)
-    return PIL.Image.fromarray(u8)
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +206,10 @@ class GenerationExperiment:
     subtype: Optional[str] = '.'
     tokenizer: Any = None
 
-    # Not fields, so neither the payload nor the comparison sees them: the
-    # CUDA device the maps were made on, where ``trace.to_experiment`` puts
-    # it (None: the PNGs are drawn on the host), and the image uploaded
-    # there, as (the image object, its (H, W, 3) uint8 copy).
+    # Not a field, so neither the payload nor the comparison sees it: the
+    # device the maps were made on, where ``trace.to_experiment`` puts it
+    # (None: the PNGs are drawn on the host).
     _device = None
-    _card_image = None
 
     def __post_init__(self):
         if isinstance(self.path, str):
@@ -233,24 +223,8 @@ class GenerationExperiment:
         return bool(np.sum(np.array(self.image)) == 0)
 
     def heat_map(self, tokenizer: Any = None):
-        from .heatmap import GlobalHeatMap
         return GlobalHeatMap(tokenizer or self.tokenizer, self.prompt,
                              self.global_heat_map)
-
-    def _image_on_card(self) -> Optional[torch.Tensor]:
-        """The image as (H, W, 3) uint8 on the experiment's CUDA device,
-        uploaded once per image object; None where its PNGs are drawn on
-        the host: no CUDA device recorded, or an image that is not an RGB
-        PIL image."""
-        if self._device is None or torch.device(self._device).type != 'cuda':
-            return None
-        if self._card_image is not None and self._card_image[0] is self.image:
-            return self._card_image[1]
-        if getattr(self.image, 'mode', None) != 'RGB':
-            return None
-        on_card = torch.from_numpy(np.array(self.image)).to(self._device)
-        self._card_image = (self.image, on_card)
-        return on_card
 
     def annotate(self, key: str, value: Any) -> 'GenerationExperiment':
         if self.annotations is None:
@@ -285,25 +259,16 @@ class GenerationExperiment:
                 self.path = Path(path) / self.id
             path = self.path
             tokenizer = tokenizer or self.tokenizer
-            image = _to_pil(self.image)
 
             (path / self.subtype).mkdir(parents=True, exist_ok=True)
             if reference_format:
                 _write_reference_payload(
-                    path / self.subtype / 'generation.pt', image,
+                    path / self.subtype / 'generation.pt', _to_pil(self.image),
                     self.global_heat_map, self.prompt, self.seed, self.subtype)
             else:
                 (path / self.subtype / 'generation.pt').write_bytes(
                     pickle.dumps(self._payload()))
-            on_card = self._image_on_card()
-            if on_card is None:
-                image.save(path / self.subtype / 'output.png')
-            else:
-                from .heatmap import _scanlines_to_host
-                from .ops.kernels import png_scanlines
-                from .png import write_png
-                write_png(path / self.subtype / 'output.png',
-                          _scanlines_to_host(png_scanlines(on_card)))
+            save_image(self.image, path / self.subtype / 'output.png', self._device)
             (path / 'prompt.txt').write_text(self.prompt)
             (path / 'seed.txt').write_text(str(self.seed))
 
@@ -337,22 +302,12 @@ class GenerationExperiment:
                       absolute: bool = False) -> Path:
         """Write ``{output_prefix}{word}.heat_map.png``.  ``crop`` is taken
         for the reference's signature and, as in ``daam_tpu`` and the
-        reference, not applied to the saved overlay.  Drawn on the card
-        where the experiment's maps were made there and the map expands to
-        the image's own size, else on the host."""
-        from .heatmap import WordHeatMap, plot_overlay_on_card
-
+        reference, not applied to the saved overlay."""
         out = (self.path / self.subtype /
                f'{output_prefix}{word.lower()}.heat_map.png')
         word_map = self.heat_map(tokenizer).compute_word_heat_map(word)
-        on_card = self._image_on_card()
-        if on_card is not None and \
-                WordHeatMap.expanded_size(self.image) == tuple(on_card.shape[:2]):
-            plot_overlay_on_card(on_card, word_map.heatmap, word=word_map.word,
-                                 out_file=out, color_normalize=not absolute)
-        else:
-            word_map.expand_as(self.image, color_normalize=not absolute,
-                               out_file=out, plot=True)
+        save_overlay(self.image, word_map, out, color_normalize=not absolute,
+                     device=self._device)
         return out
 
     def save_all_heat_maps(self, tokenizer: Any = None,

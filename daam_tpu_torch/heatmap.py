@@ -12,8 +12,10 @@ views of a global map (:class:`ParsedHeatMap` per word of the prompt,
 ``F.interpolate(mode='bicubic', align_corners=False)``, the op
 ``daam_tpu/ops/resize.py`` reproduces (``tests/test_resize.py`` pins the
 two equal).  A word's overlay is drawn on the host
-(:func:`plot_overlay_heat_map`) or, for an experiment whose maps were made
-on a CUDA device, on the card (:func:`plot_overlay_on_card`).
+(:func:`plot_overlay_heat_map`) or on the card (:func:`plot_overlay_on_card`);
+:func:`save_image` and :func:`save_overlay` write an experiment's PNGs and
+are the one place that chooses between the two, from the device its maps
+were made on and the image.
 """
 
 import threading
@@ -27,12 +29,12 @@ import torch.nn.functional as F
 
 from .evaluate import compute_ioa
 from .nlp import cached_nlp
-from .profiling import count, span
-from .utils import compute_token_merge_indices
+from .profiling import span
+from .utils import _to_pil, compute_token_merge_indices
 
 __all__ = ['GlobalHeatMap', 'RawHeatMapCollection', 'WordHeatMap',
            'ParsedHeatMap', 'SyntacticHeatMapPair', 'plot_overlay_heat_map',
-           'plot_overlay_on_card', 'bicubic_resize']
+           'plot_overlay_on_card', 'save_image', 'save_overlay', 'bicubic_resize']
 
 RawHeatMapKey = Tuple[int, int, int]  # (factor, layer, head)
 
@@ -80,6 +82,15 @@ def _jet_composite(image_u8: np.ndarray, heat: np.ndarray,
     return np.clip(photo * (1.0 - w) + _jet(levels) * w, 0.0, 1.0)
 
 
+def _pyplot():
+    """matplotlib's ``pyplot``, or None where matplotlib is not installed."""
+    try:
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    return plt
+
+
 def _draw(plt, composite, word, out_file, ax) -> None:
     """Show ``composite`` on ``ax`` titled with ``ax.set_title`` when an
     axes is given, else on a cleared current figure titled with ``word``;
@@ -106,8 +117,7 @@ def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
     cleared current figure titled with ``word``; ``out_file`` receives the
     current figure.  Where matplotlib is not installed, ``out_file``
     receives the composite itself, at the (cropped) image's size, without
-    title or axes.  Counts one ``overlay_host``."""
-    count('overlay_host')
+    title or axes."""
     with span('overlay.composite'):
         im = np.asarray(im)
         heat_map = np.squeeze(np.asarray(heat_map, dtype=np.float32))
@@ -116,19 +126,16 @@ def plot_overlay_heat_map(im, heat_map, word: Optional[str] = None,
             heat_map = heat_map[crop:-crop, crop:-crop]
         composite = _jet_composite(im, heat_map, color_normalize)
     with span('overlay.encode'):
-        try:
-            import matplotlib.pyplot as plt
-        except ImportError:
-            if out_file is not None:
-                import PIL.Image
-                u8 = np.clip(composite * 255 + 0.5, 0, 255).astype(np.uint8)
-                PIL.Image.fromarray(u8).save(out_file)
-            return
-        _draw(plt, composite, word, out_file, ax)
+        plt = _pyplot()
+        if plt is not None:
+            _draw(plt, composite, word, out_file, ax)
+        elif out_file is not None:
+            _to_pil(composite).save(out_file)
 
 
 _jet_tables: Dict[torch.device, torch.Tensor] = {}
 _pinned = threading.local()  # each thread's host buffer for scanlines
+_uploaded = threading.local()  # each thread's last image uploaded to a card
 
 
 def _scanlines_to_host(rows: torch.Tensor) -> np.ndarray:
@@ -144,6 +151,51 @@ def _scanlines_to_host(rows: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
+def _on_card(image, device) -> Optional[torch.Tensor]:
+    """``image`` as (H, W, 3) uint8 on ``device`` where that is a CUDA
+    device and ``image`` an RGB PIL image, else None: the host draws.  Each
+    thread keeps the last image object it uploaded, so the PNGs of one
+    image upload it once."""
+    if device is None or torch.device(device).type != 'cuda' \
+            or getattr(image, 'mode', None) != 'RGB':
+        return None
+    last = getattr(_uploaded, 'last', None)
+    if last is None or last[0] is not image or last[1] != torch.device(device):
+        last = _uploaded.last = (image, torch.device(device),
+                                 torch.from_numpy(np.array(image)).to(device))
+    return last[2]
+
+
+def save_image(image, out_file, device=None) -> None:
+    """Write ``image`` (PIL, or (H, W, 3) floats in [0, 1]) as a PNG, its
+    rows filtered on the card and deflated here (:mod:`daam_tpu_torch.png`)
+    where ``device``, the device its maps were made on, is a CUDA device and
+    ``image`` an RGB PIL image; else by Pillow."""
+    on_card = _on_card(image, device)
+    if on_card is None:
+        _to_pil(image).save(out_file)
+        return
+    from . import png
+    from .ops import kernels
+    png.write_png(out_file, _scanlines_to_host(kernels.png_scanlines(on_card)))
+
+
+def save_overlay(image, word_map: 'WordHeatMap', out_file,
+                 color_normalize: bool = True, device=None) -> None:
+    """Write ``word_map.plot_overlay(image, out_file, color_normalize)``:
+    on the card (:func:`plot_overlay_on_card`) where :func:`save_image`
+    would write ``image`` there and the map expands to the image's own
+    size, else on the host from one resample."""
+    on_card = _on_card(image, device)
+    if on_card is not None and \
+            WordHeatMap.expanded_size(image) == tuple(on_card.shape[:2]):
+        plot_overlay_on_card(on_card, word_map.heatmap, word=word_map.word,
+                             out_file=out_file, color_normalize=color_normalize)
+    else:
+        word_map.expand_as(image, color_normalize=color_normalize,
+                           out_file=out_file, plot=True)
+
+
 def plot_overlay_on_card(image: torch.Tensor, heat_map, word: Optional[str] = None,
                          out_file=None, color_normalize: bool = True) -> None:
     """:func:`plot_overlay_heat_map` of ``WordHeatMap.expand_as``'s map,
@@ -154,20 +206,15 @@ def plot_overlay_on_card(image: torch.Tensor, heat_map, word: Optional[str] = No
     matplotlib is not installed, ``out_file`` receives the PNG from the
     card's filtered scanlines, deflated here (:mod:`daam_tpu_torch.png`;
     the ``overlay.encode`` span states the stripes it took, 0 where none);
-    else the composite is drawn as :func:`plot_overlay_heat_map` draws it.
-    Counts one ``overlay_card``."""
+    else the composite is drawn as :func:`plot_overlay_heat_map` draws it."""
     from . import png
     from .ops import kernels
 
-    count('overlay_card')
     H, W = image.shape[:2]
     with span('overlay.resize'):
         heat = torch.as_tensor(heat_map).to(image.device, torch.float32).contiguous()
         resampled = kernels.overlay_resample(heat, (H, W))
-    try:
-        import matplotlib.pyplot as plt
-    except ImportError:
-        plt = None
+    plt = _pyplot()
     with span('overlay.composite'):
         lut = _jet_tables.get(image.device)
         if lut is None:
@@ -175,11 +222,10 @@ def plot_overlay_on_card(image: torch.Tensor, heat_map, word: Optional[str] = No
         rows = _scanlines_to_host(kernels.png_scanlines(
             image, resampled, lut, color_normalize=color_normalize, filtered=plt is None))
     with span('overlay.encode', stripes=0) as encode:
-        if plt is None:
-            if out_file is not None:
-                encode.set(stripes=png.write_png(out_file, rows))
-            return
-        _draw(plt, rows[:, 1:].reshape(H, W, 3).copy(), word, out_file, None)
+        if plt is not None:
+            _draw(plt, rows[:, 1:].reshape(H, W, 3).copy(), word, out_file, None)
+        elif out_file is not None:
+            encode.set(stripes=png.write_png(out_file, rows))
 
 
 class WordHeatMap:

@@ -279,7 +279,6 @@ class StableDiffusionPipeline:
         edge = max(latents.shape[2:])
         tiled = self.vae_tiling is True or (self.vae_tiling == 'auto'
                                             and edge > self.vae_tile_threshold)
-        profiling.count('vae_decode_tiled' if tiled else 'vae_decode_untiled')
         with span('decode', tiled=int(tiled), latent=edge):
             if tiled:
                 return self._tiled_decode(latents)

@@ -29,8 +29,6 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from .profiling import count
-
 __all__ = ['png_bytes', 'write_png', 'stripes', 'MIN_STRIPE']
 
 SIGNATURE = b'\x89PNG\r\n\x1a\n'
@@ -64,12 +62,10 @@ def _deflate(rows: memoryview, start: int, end: int) -> bytes:
 
 
 def _idat(rows: np.ndarray) -> Tuple[bytes, int]:
-    """The zlib stream of ``rows`` and the stripes it was deflated in;
-    counts ``png_one_stream`` or ``png_striped`` by that number.  The
-    calling thread deflates the first stripe, a pool of one thread less
+    """The zlib stream of ``rows`` and the stripes it was deflated in.
+    The calling thread deflates the first stripe, a pool of one thread less
     the rest (no thread starts for one stripe)."""
     n = stripes(rows.nbytes)
-    count('png_striped' if n > 1 else 'png_one_stream')
     flat = memoryview(rows.reshape(-1))
     cuts = [len(flat) * i // n for i in range(n + 1)]
     with ThreadPoolExecutor(max(1, n - 1), thread_name_prefix='png-deflate') as pool:

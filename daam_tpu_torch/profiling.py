@@ -26,14 +26,9 @@ empties the ring.  Spans are plain Python records, not
 
 **Counters** are always on: :func:`count` adds to a named integer
 (``heads_d2h_bytes`` and ``heads_h2d_bytes``, the bytes of saved attention
-probabilities handed to and from host memory; ``overlay_card`` and
-``overlay_host``, the heat-map overlays drawn on the card and on the host;
-``vae_decode_tiled`` and ``vae_decode_untiled``, the batches decoded on
-each route; ``png_one_stream`` and ``png_striped``, the PNGs the card's
-route deflated in one stream and in stripes),
-and :func:`counter_group` gives a dict that its owner increments in place
-(the kernels' launch counts, ``ops.kernels.launches``).  :func:`counters`
-reads them all.
+probabilities handed to and from host memory), and :func:`counter_group`
+gives a dict that its owner increments in place (the kernels' launch
+counts, ``ops.kernels.launches``).  :func:`counters` reads them all.
 
 :func:`profile_trace` records the host and the card for the enclosed block
 and writes a Chrome trace with the spans on a track of their own;
@@ -201,10 +196,7 @@ def dropped() -> int:
 
 # ------------------------------------------------------------------ counters
 
-_COUNTERS: Dict[str, int] = {'heads_d2h_bytes': 0, 'heads_h2d_bytes': 0,
-                             'overlay_card': 0, 'overlay_host': 0,
-                             'vae_decode_tiled': 0, 'vae_decode_untiled': 0,
-                             'png_one_stream': 0, 'png_striped': 0}
+_COUNTERS: Dict[str, int] = {'heads_d2h_bytes': 0, 'heads_h2d_bytes': 0}
 _GROUPS: Dict[str, Dict[str, int]] = {}
 
 

@@ -196,12 +196,7 @@ class BatchQueue:
       with that seed gives;
     * each request's map is ``compute_global_heat_map(batch_idx=i)``.
 
-    On one NVIDIA H100 80GB HBM3 at a 700 W power limit, ``chip_smoke.py``
-    phase 12 (v2-1-base 512², fp32, 10 steps, random weights; two runs)
-    answered four concurrent requests at 1.71–1.76 traced images/s through
-    a batch-4 server, against 0.58–1.01 for one request through a batch-1
-    server; the pipeline alone gave 3.43–3.57 and 1.58–2.31, the rest is
-    the page (the maps and an overlay PNG per word).
+    Its rate on the card stands in ``PERF.md`` §7 (cell #6).
 
     ``served`` holds, for each of the last 1000 traced calls, how many
     requests it answered.

@@ -28,6 +28,7 @@ rather than running on the CPU, which takes ``--device cpu``.
 """
 
 import argparse
+import copy
 import json
 import random
 import sys
@@ -334,12 +335,12 @@ def main(argv=None):
     progress.close()
 
 
-def _experiment(tc, exp, heat_maps) -> GenerationExperiment:
-    """``exp``'s image, prompt, seed and directory with other maps, drawn
-    where ``exp`` draws its PNGs, from its copy of the image."""
-    other = GenerationExperiment(exp.image, heat_maps, exp.prompt, seed=exp.seed,
-                                 path=exp.path, tokenizer=tc.pipe.tokenizer)
-    other._device, other._card_image = exp._device, exp._card_image
+def _experiment(exp, heat_maps) -> GenerationExperiment:
+    """``exp`` with other maps, its PNGs written to its directory and drawn
+    where its own are: a shallow copy, since ``dataclasses.replace`` would
+    run ``__post_init__`` and append ``id`` to ``path`` a second time."""
+    other = copy.copy(exp)
+    other.global_heat_map = heat_maps
     return other
 
 
@@ -353,7 +354,7 @@ def save_time_maps(tc, exp, word, batch_idx=0):
     except RuntimeError as e:
         print(f'[daam-torch] --time-maps skipped: {e}')
         return
-    frames = [_experiment(tc, exp, hm.heat_maps.cpu().numpy())
+    frames = [_experiment(exp, hm.heat_maps.cpu().numpy())
               .save_heat_map(word, output_prefix=f'time{s:03d}-')
               for s, hm in enumerate(per_step)]
     if not frames:
@@ -378,7 +379,7 @@ def save_all_heads(tc, exp, word, batch_idx=0):
             except RuntimeError:
                 print(f'Missing ({layer_idx}, {head_idx}, {layer_name})')
                 continue
-            _experiment(tc, exp, heat_map.heat_maps.cpu().numpy()).save_heat_map(
+            _experiment(exp, heat_map.heat_maps.cpu().numpy()).save_heat_map(
                 word, output_prefix=f'l{layer_idx}-{layer_name}-h{head_idx}-')
 
 

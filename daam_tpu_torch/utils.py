@@ -29,6 +29,17 @@ __all__ = ['set_seed', 'compute_token_merge_indices', 'plot_mask_heat_map',
            'resolve_device', 'randn_tensor']
 
 
+def _to_pil(image):
+    """A PIL image of ``image``, which may be (H, W, 3) floats in [0, 1],
+    rounded to uint8."""
+    import PIL.Image
+
+    if isinstance(image, PIL.Image.Image):
+        return image
+    u8 = np.clip(np.asarray(image) * 255 + 0.5, 0, 255).astype(np.uint8)
+    return PIL.Image.fromarray(u8)
+
+
 def set_seed(seed: int, device='cuda') -> torch.Generator:
     """Seed Python/NumPy RNGs and return a ``torch.Generator`` on ``device``
     seeded with ``seed`` (pass it to pipeline calls).  The card by default,

@@ -36,6 +36,7 @@ from daam_tpu.tokenization import default_tokenizer as jax_tokenizer  # noqa: E4
 from daam_tpu_torch import heatmap, png, profiling  # noqa: E402
 from daam_tpu_torch.experiment import GenerationExperiment  # noqa: E402
 from daam_tpu_torch.tokenization import default_tokenizer  # noqa: E402
+from daam_tpu_torch.utils import _to_pil  # noqa: E402
 
 PROMPT = 'A dog runs across the field .'
 
@@ -282,23 +283,20 @@ def test_png_chunks_and_trailer(threads):
                                              (512, 1, 'png_one_stream'),
                                              (512, 2, 'png_striped'),
                                              (768, 4, 'png_striped')])
-def test_each_png_counts_its_route(H, threads, route):
+def test_each_png_counts_its_route(tmp_path, H, threads, route):
+    """``write_png`` returns the stripes it deflated in: one stream for
+    rows under two stripes' worth or on one thread, else one a thread."""
     rows = _scanlines(_pillow_png(_pixels('noise', H, H)), (H, H))
-    other = ({'png_one_stream', 'png_striped'} - {route}).pop()
-    before = profiling.counters()
     with _threads(threads):
-        png.png_bytes(rows)
-        png.png_bytes(rows)
-    after = profiling.counters()
-    assert after[route] - before[route] == 2
-    assert after[other] == before[other]
+        taken = [png.write_png(tmp_path / f'{i}.png', rows) for i in range(2)]
+    assert taken == [1 if route == 'png_one_stream' else threads] * 2
 
 
 @pytest.mark.parametrize('threads', [1, 2])
 def test_card_route_encode_states_its_stripes(tmp_path, monkeypatch, threads):
     """``plot_overlay_on_card``'s deflate, its kernels stood in for on the
-    CPU: the ``overlay.encode`` span states the stripes, one counter a
-    PNG, and the file reads back."""
+    CPU: the ``overlay.encode`` span states the stripes, and the file reads
+    back."""
     from daam_tpu_torch.ops import kernels
 
     monkeypatch.setitem(sys.modules, 'matplotlib', None)
@@ -308,8 +306,6 @@ def test_card_route_encode_states_its_stripes(tmp_path, monkeypatch, threads):
         [torch.zeros(image.shape[0], 1, dtype=torch.uint8), image.flatten(1)], 1))
     monkeypatch.setattr(heatmap, '_scanlines_to_host', lambda rows: rows.numpy())
     pixels = _pixels('jet', 512, 512)
-    route = 'png_striped' if threads > 1 else 'png_one_stream'
-    before = profiling.counters()
     profiling.clear()
     profiling.enable()
     try:
@@ -321,9 +317,6 @@ def test_card_route_encode_states_its_stripes(tmp_path, monkeypatch, threads):
         profiling.disable()
     encodes = [r.attrs['stripes'] for r in profiling.spans() if r.name == 'overlay.encode']
     assert encodes == [threads, 0]  # no file, nothing deflated
-    after = profiling.counters()
-    assert after[route] - before[route] == 1
-    assert sum(after[k] - before[k] for k in ('png_one_stream', 'png_striped')) == 1
     with PIL.Image.open(tmp_path / 'w.png') as im:
         np.testing.assert_array_equal(np.asarray(im), pixels)
 
@@ -412,7 +405,11 @@ def tiny_pipe():
     return StableDiffusionPipeline.from_pretrained('tiny', device='cpu')
 
 
-def test_experiment_made_on_the_cpu_draws_on_the_host(tiny_pipe, tmp_path):
+def _card_refused(*args, **kwargs):
+    raise AssertionError('the card route was taken')
+
+
+def test_experiment_made_on_the_cpu_draws_on_the_host(tiny_pipe, tmp_path, monkeypatch):
     from daam_tpu_torch import trace
     from daam_tpu_torch.ops import kernels
 
@@ -421,25 +418,31 @@ def test_experiment_made_on_the_cpu_draws_on_the_host(tiny_pipe, tmp_path):
                         generator=torch.Generator().manual_seed(0))
         exp = tc.to_experiment(tmp_path)
     exp.image = out.images[0]
-    before, launched = profiling.counters(), dict(kernels.launches)
+    monkeypatch.setattr(heatmap, 'plot_overlay_on_card', _card_refused)
+    launched = dict(kernels.launches)
     exp.save(heat_maps=False)
     written = [exp.save_heat_map(word) for word in ('dog', 'runs')]
-    after = profiling.counters()
-    assert after['overlay_host'] - before['overlay_host'] == len(written)
-    assert after['overlay_card'] == before['overlay_card']
     assert dict(kernels.launches) == launched
     assert all(p.exists() for p in written) and (tmp_path / 'output.png').exists()
 
 
-def test_route_is_chosen_by_the_image_and_the_maps_device(tmp_path):
+def test_route_is_chosen_by_the_image_and_the_maps_device(tmp_path, monkeypatch):
     """No device recorded, a CPU device, or a CUDA device with an image
-    that is not an RGB PIL image: the host draws, and nothing touches a
-    card."""
+    that is not an RGB PIL image: ``save_image`` and ``save_overlay`` draw
+    on the host, and nothing touches a card."""
     ours, _ = _experiments(tmp_path)
-    assert ours._image_on_card() is None
-    ours._device = torch.device('cpu')
-    assert ours._image_on_card() is None
-    ours._device = torch.device('cuda')
-    for image in (np.zeros((32, 32, 3), np.float32), ours.image.convert('L')):
-        ours.image = image
-        assert ours._image_on_card() is None
+    word_map = ours.heat_map().compute_word_heat_map('dog')
+    drawn = []
+    monkeypatch.setattr(heatmap, 'plot_overlay_on_card', _card_refused)
+    monkeypatch.setattr(heatmap.WordHeatMap, 'expand_as',
+                        lambda self, image, **kwargs: drawn.append(image))
+    cases = [(ours.image, None), (ours.image, torch.device('cpu')),
+             *((image, torch.device('cuda')) for image in
+               (np.zeros((32, 32, 3), np.float32), ours.image.convert('L')))]
+    for i, (image, device) in enumerate(cases):
+        heatmap.save_image(image, tmp_path / f'{i}.png', device)
+        with PIL.Image.open(tmp_path / f'{i}.png') as im:
+            np.testing.assert_array_equal(np.asarray(im), np.asarray(_to_pil(image)))
+        heatmap.save_overlay(image, word_map, tmp_path / f'{i}.heat_map.png', device=device)
+        assert drawn[-1] is image
+    assert len(drawn) == len(cases)

@@ -119,25 +119,20 @@ def test_call_states_prediction_and_grid(pipe, recording):
 @pytest.mark.parametrize('spans_on', [True, False])
 @pytest.mark.parametrize('tiling', ['auto', True])
 def test_decode_counts_its_route(pipe, spans_on, tiling, monkeypatch):
-    """One ``vae_decode_untiled`` or ``vae_decode_tiled`` a decoded batch,
-    whether spans record or not; the ``decode`` span states the route and
-    the latent edge.  tiny's 8² latents decode whole unless tiling is
-    forced."""
+    """The ``decode`` span of a decoded batch states the route and the
+    latent edge; with spans off nothing is recorded.  tiny's 8² latents
+    decode whole unless tiling is forced."""
     monkeypatch.setattr(pipe, 'vae_tiling', tiling)
     profiling.clear()
     if spans_on:
         profiling.enable()
     try:
-        before = profiling.counters()
         _call(pipe, ['a dog runs', 'a cat sits'])
-        after = profiling.counters()
     finally:
         profiling.disable()
     records = profiling.spans()
     profiling.clear()
     tiled = tiling is True
-    assert after['vae_decode_tiled'] - before['vae_decode_tiled'] == int(tiled)
-    assert after['vae_decode_untiled'] - before['vae_decode_untiled'] == int(not tiled)
     decodes = [r.attrs for r in records if r.name == 'decode']
     assert decodes == ([{'tiled': int(tiled), 'latent': 8}] if spans_on else [])
 
