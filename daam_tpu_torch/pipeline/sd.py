@@ -17,10 +17,12 @@ back to the device and replace the computed ones (the attention
 transplant).  With ``trace(pipe, time_chunk_steps=K)`` the accumulators are
 snapshotted every K steps for per-step maps.  PyTorch runs eagerly, so the
 ``lax.scan`` of ``daam_tpu`` is a Python loop and the accumulators are
-updated in place.  A batch of prompts takes one ``torch.Generator`` per
-prompt (``daam_tpu``'s stacked keys), so a prompt's noise does not depend
-on the batch it rides in; the images pass the ``safety_checker`` slot
-before the trace records them, as in ``daam_tpu``.
+updated in place; on the card, outside the ``save_heads`` and
+``load_heads`` runs, each step's UNet evaluation is replayed from a CUDA
+graph (:mod:`.unet_graph`).  A batch of prompts takes one
+``torch.Generator`` per prompt (``daam_tpu``'s stacked keys), so a prompt's
+noise does not depend on the batch it rides in; the images pass the
+``safety_checker`` slot before the trace records them, as in ``daam_tpu``.
 """
 
 from dataclasses import dataclass
@@ -35,6 +37,7 @@ from ..profiling import span
 from ..tokenization import default_tokenizer
 from ..utils import randn_tensor
 from .schedulers import DDIMScheduler, get_scheduler
+from .unet_graph import UNetGraphs
 
 __all__ = ['StableDiffusionPipeline', 'PipelineOutput']
 
@@ -95,6 +98,9 @@ class StableDiffusionPipeline:
         self.safety_checker: Optional[Callable] = None
         # Trace integration (installed by daam_tpu_torch.trace; None = untraced).
         self._active_trace = None
+        # The denoising loop's UNet evaluations, replayed from CUDA graphs on
+        # the card (pipeline/unet_graph.py).
+        self.unet_graphs = UNetGraphs()
 
     @classmethod
     def from_pretrained(cls, model_name_or_path, device='cuda',
@@ -218,51 +224,54 @@ class StableDiffusionPipeline:
         snaps = [] if snapshot_steps else None
         prev = {n: a.clone() for n, a in accs.items()} if snaps is not None else None
 
-        for i in range(n_steps):
-            with span('step', step=i):
-                with span('scheduler'):
-                    latent_in = scheduler.scale_model_input(
-                        state, torch.cat([latents, latents], dim=0), i)
-                    t = state['timesteps'][i]
-                rep = None
-                if replay is not None:
-                    nbytes = sum(r[i].nbytes for r in replay.values())
-                    profiling.count('heads_h2d_bytes', nbytes)
-                    with span('heads.h2d', bytes=nbytes):
-                        rep = {n: r[i].to(self.device) for n, r in replay.items()}
-                with span('unet'):
-                    eps = self.unet(latent_in, t.expand(2 * B), context,
-                                    added_cond=added, capture=capture,
-                                    acc=accs if capture == 'acc' else None, replay=rep)
-                if save_heads:
-                    eps, probs = eps
-                    for n, a in (accs or {}).items():
-                        a += probs[n][B:].transpose(2, 3)  # CFG conditional half
-                    for n, p in probs.items():
-                        pending.setdefault(n, []).append(p.to(self.heads_dtype))
-                    if (i + 1) % chunk == 0 or i == n_steps - 1:
-                        nbytes = sum(len(ps) * ps[0].nbytes for ps in pending.values())
-                        profiling.count('heads_d2h_bytes', nbytes)
-                        with span('heads.d2h', bytes=nbytes):
-                            for n, ps in pending.items():
-                                saved.setdefault(n, []).append(torch.stack(ps).cpu())
-                        pending = {}
-                if snaps is not None and ((i + 1) % snapshot_steps == 0
-                                          or i == n_steps - 1):
-                    diff = {n: a - prev[n] for n, a in accs.items()}
-                    snaps.append({f: b.half().cpu() for f, b in self.finalize_acc(
-                        diff, capture_spec, B, latent_h, latent_w).items()})
-                    prev = {n: a.clone() for n, a in accs.items()}
-                with span('scheduler'):
-                    eps_u, eps_c = eps.chunk(2)
-                    eps = eps_u + guidance_scale * (eps_c - eps_u)
-                    latents, state = scheduler.step(state, i, eps, latents)
-                if callback is not None:
-                    with span('callback'):
-                        callback(i, t, latents)
-
-        blocks = (self.finalize_acc(accs, capture_spec, B, latent_h, latent_w)
-                  if accs else None)
+        with self.unet_graphs.request(self.unet, self.device, capture, replay) as unet:
+            for i in range(n_steps):
+                with span('step', step=i):
+                    with span('scheduler'):
+                        latent_in = scheduler.scale_model_input(
+                            state, torch.cat([latents, latents], dim=0), i)
+                        t = state['timesteps'][i]
+                    rep = None
+                    if replay is not None:
+                        nbytes = sum(r[i].nbytes for r in replay.values())
+                        profiling.count('heads_h2d_bytes', nbytes)
+                        with span('heads.h2d', bytes=nbytes):
+                            rep = {n: r[i].to(self.device) for n, r in replay.items()}
+                    with span('unet') as unet_span:
+                        eps = unet(latent_in, t.expand(2 * B), context,
+                                   added_cond=added, capture=capture,
+                                   acc=accs if capture == 'acc' else None, replay=rep)
+                        unet_span.set(graph=unet.graph)
+                    if save_heads:
+                        eps, probs = eps
+                        for n, a in (accs or {}).items():
+                            a += probs[n][B:].transpose(2, 3)  # CFG conditional half
+                        for n, p in probs.items():
+                            pending.setdefault(n, []).append(p.to(self.heads_dtype))
+                        if (i + 1) % chunk == 0 or i == n_steps - 1:
+                            nbytes = sum(len(ps) * ps[0].nbytes for ps in pending.values())
+                            profiling.count('heads_d2h_bytes', nbytes)
+                            with span('heads.d2h', bytes=nbytes):
+                                for n, ps in pending.items():
+                                    saved.setdefault(n, []).append(torch.stack(ps).cpu())
+                            pending = {}
+                    if snaps is not None and ((i + 1) % snapshot_steps == 0
+                                              or i == n_steps - 1):
+                        diff = {n: a - prev[n] for n, a in accs.items()}
+                        snaps.append({f: b.half().cpu() for f, b in self.finalize_acc(
+                            diff, capture_spec, B, latent_h, latent_w).items()})
+                        prev = {n: a.clone() for n, a in accs.items()}
+                    with span('scheduler'):
+                        eps_u, eps_c = eps.chunk(2)
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                        latents, state = scheduler.step(state, i, eps, latents)
+                    if callback is not None:
+                        with span('callback'):
+                            callback(i, t, latents)
+            # inside the lease: the accumulators may be a graph's, which the
+            # next request on the graph route takes over
+            blocks = (self.finalize_acc(accs, capture_spec, B, latent_h, latent_w)
+                      if accs else None)
         images = self._decode(latents)
         if save_heads:
             nbytes = sum(c.nbytes for chunks in saved.values() for c in chunks)

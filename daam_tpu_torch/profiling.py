@@ -14,8 +14,9 @@ start and end from :func:`time.time_ns` (CLOCK_REALTIME, the base of
 events lie on one clock), its id, the id of the span open around it on
 the same thread (its parent, 0 at the root), a request id and small
 numeric attributes (``bytes``, ``step``, ``batch``; the ``call``'s
-``v_prediction`` and heat-map ``grid``, the ``decode``'s ``tiled`` and
-``latent`` edge, the card route's ``overlay.encode``'s ``stripes``), given
+``v_prediction`` and heat-map ``grid``, the ``unet``'s ``graph`` (1 where
+the evaluation ran from a CUDA graph, 0 eager: a replay records no block
+spans inside it), the ``decode``'s ``tiled`` and ``latent`` edge, the card route's ``overlay.encode``'s ``stripes``), given
 when the span opens or, known only inside it, by its ``set``.  The request id is
 shared by every span of one ``trace(pipe)`` context, and outside one by
 every span of one pipeline call.  Records go into a bounded in-memory ring
@@ -28,7 +29,9 @@ empties the ring.  Spans are plain Python records, not
 (``heads_d2h_bytes`` and ``heads_h2d_bytes``, the bytes of saved attention
 probabilities handed to and from host memory), and :func:`counter_group`
 gives a dict that its owner increments in place (the kernels' launch
-counts, ``ops.kernels.launches``).  :func:`counters` reads them all.
+counts, ``ops.kernels.launches``; the UNet evaluations captured, replayed
+and run eager, ``pipeline.unet_graph.counts``).  :func:`counters` reads them
+all.
 
 :func:`profile_trace` records the host and the card for the enclosed block
 and writes a Chrome trace with the spans on a track of their own;

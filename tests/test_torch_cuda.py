@@ -487,3 +487,85 @@ def test_v2_1_large_request_states_its_route_on_card(cuda_device):
     assert len(call) == 1 and len(decode) == 1 and decode[0].parent == call[0].id
     assert call[0].attrs['v_prediction'] == 1 and call[0].attrs['grid'] == 96
     assert decode[0].attrs == {'tiled': 0, 'latent': 96}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('preset,dtype', [('tiny', torch.float32), ('tiny-xl', torch.bfloat16)])
+def test_unet_graph_replays_equal_eager_on_card(preset, dtype, cuda_device, monkeypatch):
+    """Traced requests of 4 steps whose UNet evaluations replay CUDA graphs
+    against the same requests run eager (the lease held by the test): every
+    evaluation's ``eps`` and accumulators, the images, the blocks and the
+    ``time_chunk_steps`` snapshots bit for bit, the launch counts equal;
+    ``unet_graph`` counts one capture, N - 2 replays and one eager
+    evaluation in the first request, N replays in the next, and that next
+    request leaves the first's blocks as they were."""
+    from daam_tpu_torch import StableDiffusionPipeline, trace
+    from daam_tpu_torch.pipeline import unet_graph
+
+    N = 4
+    pipe = StableDiffusionPipeline.from_pretrained(preset, device=cuda_device, dtype=dtype)
+    evals = []
+    call = unet_graph._Request.__call__
+
+    def recording(self, *args, **kwargs):
+        eps = call(self, *args, **kwargs)
+        evals.append((eps.clone(), {n: a.clone() for n, a in (kwargs['acc'] or {}).items()},
+                      self.graph))
+        return eps
+
+    monkeypatch.setattr(unet_graph._Request, '__call__', recording)
+
+    def request(prompt, time_chunk_steps=None, eager=False):
+        evals.clear()
+        launches, counts = dict(kernels.launches), dict(unet_graph.counts)
+        lease = pipe.unet_graphs._lease
+        if eager:
+            lease.acquire()
+        try:
+            with trace(pipe, time_chunk_steps=time_chunk_steps) as tc:
+                out = pipe(prompt, num_inference_steps=N, output_type='np',
+                           generator=torch.Generator(device=cuda_device).manual_seed(0))
+        finally:
+            if eager:
+                lease.release()
+        torch.cuda.synchronize()
+        return {'image': out.images[0], 'blocks': dict(tc.batch_heat_maps),
+                'snaps': [dict(b) for b in tc.time_blocks], 'evals': list(evals),
+                'launches': {k: n - launches[k] for k, n in kernels.launches.items()},
+                'counts': {k: n - counts[k] for k, n in unet_graph.counts.items()}}
+
+    def assert_equal(run, ref):
+        assert (run['image'] == ref['image']).all()
+        assert run['launches'] == ref['launches'] and ref['launches']['cross_attention_acc'] > 0
+        for f, block in ref['blocks'].items():
+            assert torch.equal(run['blocks'][f], block)
+        assert len(run['snaps']) == len(ref['snaps'])
+        for a, b in zip(run['snaps'], ref['snaps']):
+            assert all(torch.equal(a[f], b[f]) for f in b)
+        assert len(run['evals']) == len(ref['evals']) == N
+        for (eps, accs, _), (eps_ref, accs_ref, _) in zip(run['evals'], ref['evals']):
+            assert torch.equal(eps, eps_ref)
+            assert accs.keys() == accs_ref.keys() and len(accs) > 0
+            assert all(torch.equal(accs[n], accs_ref[n]) for n in accs)
+
+    first, second = 'A dog runs across the field .', 'A red cat sleeps on a bed .'
+    eager = {p: request(p, eager=True) for p in (first, second)}
+    for run in eager.values():
+        assert run['counts'] == {'captures': 0, 'replays': 0, 'eager': N}
+        assert [g for *_, g in run['evals']] == [0] * N
+    one = request(first)
+    assert one['counts'] == {'captures': 1, 'replays': N - 2, 'eager': 1}
+    assert [g for *_, g in one['evals']] == [0] + [1] * (N - 1)
+    assert_equal(one, eager[first])
+    two = request(second)
+    assert two['counts'] == {'captures': 0, 'replays': N, 'eager': 0}
+    assert [g for *_, g in two['evals']] == [1] * N
+    assert_equal(two, eager[second])
+    assert not any(torch.equal(two['blocks'][f], b) for f, b in one['blocks'].items())
+    for f, block in eager[first]['blocks'].items():  # the first request's blocks held
+        assert torch.equal(one['blocks'][f], block)
+    snaps = request(first, time_chunk_steps=2)
+    assert snaps['counts'] == {'captures': 0, 'replays': N, 'eager': 0}
+    assert_equal(snaps, request(first, time_chunk_steps=2, eager=True))
+    assert len(snaps['snaps']) == 2
+    assert len(pipe.unet_graphs.entries) == 1
