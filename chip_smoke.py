@@ -146,8 +146,9 @@ phase 6a, the pipelines' step timings, was retired for ``gpubench/``):
     layer), 512², checked as in phase 4: in fp32 with DDIM (what
     ``daam-torch --model v1`` runs), 10 traced steps with 15 × 10
     cross_attention_acc and 32 × 10 flash_attention launches on the 3xTF32
-    route, and the transplant as in phase 9 (16 × 10
-    cross_attention_probs on ``cross_attention_probs_tf32x3``); in bf16
+    route (12 × 10 of them, hd 160's, on ``flash_attention_tf32x3_mma``),
+    and the transplant as in phase 9 (16 × 10 cross_attention_probs on
+    ``cross_attention_probs_tf32x3``; 6 × 10 K2 on the mma route); in bf16
     with PNDM (SD 1.x's published scheduler), 10 steps that are 11 UNet
     evaluations: 15 × 11 and 32 × 11 launches on the bf16 routes, and its
     transplant over 11 evaluations.
@@ -367,9 +368,19 @@ def check(ok: bool, msg: str):
 def expected(kernels, dtype: str, **counts) -> dict:
     """Launch counts of a run in ``dtype``: each named kernel's total and
     its route's counter at the given count (the overlay kernels have no
-    route), every other counter 0."""
+    route; ``flash_attention_tf32x3_mma``, the fp32 K2 calls of those on
+    ``flash_attention_tf32x3_kernel``, as given), every other counter 0."""
     routed = {ROUTE[dtype][name]: n for name, n in counts.items() if name in ROUTE[dtype]}
     return {**dict.fromkeys(kernels.launches, 0), **counts, **routed}
+
+
+def v1_mma_per_eval(kernels, replay: bool = False) -> int:
+    """fp32 K2 launches of one v1 evaluation on mma.sync
+    (``flash_attention_tf32x3_kernel``: hd 160, outside
+    ``TF32X3_WGMMA_HEAD_DIMS``): 12 traced, 6 (the self-attentions alone) in
+    a save or load run (``replay``)."""
+    return sum(n for (_, _, _, lk), n, hd in V1_K2_SHAPES
+               if hd not in kernels.TF32X3_WGMMA_HEAD_DIMS and not (replay and lk == 77))
 
 
 def png_launches(out_dir) -> dict:
@@ -610,7 +621,9 @@ def parity(kernels, A):
                              tag(hd, shape), worst)
             # every launch took its dtype's route: bf16 the wgmma and mma
             # kernels, fp32 the 3xTF32 kernels
+            mma = sum(hd not in kernels.TF32X3_WGMMA_HEAD_DIMS for hd, _ in flash_cases)
             want = expected(kernels, dname, flash_attention=len(flash_cases),
+                            flash_attention_tf32x3_mma=mma if dname == 'fp32' else 0,
                             cross_attention_acc=2 * len(acc_cases),
                             cross_attention_probs=4 * len(probs_cases))
             got = {name: n - before[name] for name, n in kernels.launches.items()}
@@ -941,11 +954,12 @@ def _kernel_times(kernels, A, model, dtype):
 
 def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
                k5: int = K5_PER_EVAL, k2: int = K2_PER_EVAL_REPLAY,
-               other_prompt: bool = True, prompts=None, seeds=None) -> dict:
+               other_prompt: bool = True, prompts=None, seeds=None, mma: int = 0) -> dict:
     """A save_heads -> load_heads pair at full width, ``steps`` steps each
     (phases 5, 7, 9, 10, 12 and 13): the save run's counters (``k5``
     cross_attention_probs and ``k2`` flash_attention launches per UNet
-    evaluation on the ``dtype`` route, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
+    evaluation on the ``dtype`` route, ``mma`` of those on fp32 K2's
+    mma.sync kernel, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
     H, h·w, 77) bf16 for a batch of b prompts, finite, rows summing to 1
     within 1e-2; PNDM evaluates ``steps + 1`` times); the load run of the
     same prompts (``k2`` flash_attention per evaluation and nothing else),
@@ -973,7 +987,8 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
     prompt = batch if prompts else PROMPT
     image_s, tc_s, save_launches = run(prompt, save_heads=True, persist_heads=False)
     check(save_launches == expected(kernels, dtype, cross_attention_probs=k5 * evals,
-                                    flash_attention=k2 * evals),
+                                    flash_attention=k2 * evals,
+                                    flash_attention_tf32x3_mma=mma * evals),
           f'{label} save run launch counts {save_launches}')
     buf = tc_s.replay_buffer(evals)
     check(len(buf) == k5, f'{label}: {len(buf)} layers in the replay buffer')
@@ -994,7 +1009,8 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
           f'within 1e-2')
 
     image_l, tc_l, load_launches = run(prompt, load_heads=True)
-    check(load_launches == expected(kernels, dtype, flash_attention=k2 * evals),
+    check(load_launches == expected(kernels, dtype, flash_attention=k2 * evals,
+                                    flash_attention_tf32x3_mma=mma * evals),
           f'{label} load run launch counts {load_launches}')
     for i in range(len(batch)):
         map_s = tc_s.compute_global_heat_map(batch_idx=i).heat_maps
@@ -1167,11 +1183,16 @@ def v1_full_width(StableDiffusionPipeline, trace, kernels):
         launches = dict(kernels.launches)
         print(f'{label} launches: {launches}')
         check_traced(out, tc, 512, label)
+        # hd 160's K2 calls take fp32 K2's mma.sync kernel
+        mma = v1_mma_per_eval(kernels) if dtype == 'fp32' else 0
         check(launches == expected(kernels, dtype, cross_attention_acc=K1_PER_EVAL * evals,
-                                   flash_attention=K2_PER_EVAL * evals),
+                                   flash_attention=K2_PER_EVAL * evals,
+                                   flash_attention_tf32x3_mma=mma * evals),
               f'{label} launch counts {launches}')
         launches['cross_attention_probs'] = transplant(
-            pipe, trace, kernels, label, dtype, other_prompt=False)['cross_attention_probs']
+            pipe, trace, kernels, label, dtype, other_prompt=False,
+            mma=v1_mma_per_eval(kernels, replay=True) if dtype == 'fp32' else 0
+        )['cross_attention_probs']
         runs[dtype] = launches
         del pipe, tc, out
         gc.collect()

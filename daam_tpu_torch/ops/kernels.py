@@ -54,11 +54,16 @@ _INT_MAX = 2 ** 31 - 1
 #: ``flash_attention_tf32x3``, ``cross_attention_acc_tf32x3`` and
 #: ``cross_attention_probs_tf32x3`` those of the fp32 routes (all on the
 #: tensor cores); the launcher's own total counts them too.
+#: ``flash_attention_tf32x3_mma`` counts the fp32 ``flash_attention`` calls
+#: that run ``flash_attention_tf32x3_kernel`` (the head dims outside
+#: :data:`TF32X3_WGMMA_HEAD_DIMS`), which ``flash_attention_tf32x3`` counts
+#: too.
 #: ``overlay_resample`` and ``png_scanlines`` count the overlay kernels of
 #: ``csrc/overlay.cu``: one of each an overlay drawn on the card, and one
 #: ``png_scanlines`` an image written as it is.
 launches = profiling.counter_group('launches', (
     'flash_attention', 'flash_attention_wgmma', 'flash_attention_tf32x3',
+    'flash_attention_tf32x3_mma',
     'cross_attention_acc', 'cross_attention_acc_mma', 'cross_attention_acc_tf32x3',
     'cross_attention_probs', 'cross_attention_probs_mma', 'cross_attention_probs_tf32x3',
     'overlay_resample', 'png_scanlines'))
@@ -255,7 +260,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     ``flash_attention_tf32x3_wgmma_kernel`` (its thread 0 bulk-copies the
     split tiles into a ring of stages); at the others on
     ``flash_attention_tf32x3_kernel`` (mma.sync, cp.async loads).  Each call
-    counts once on ``launches['flash_attention_tf32x3']``.  TMA, cp.async
+    counts once on ``launches['flash_attention_tf32x3']``, and a call on
+    the mma.sync route once more on ``flash_attention_tf32x3_mma``.  TMA, cp.async
     and the split's loads all read in 16-byte pieces, so every view needs a
     16-byte-aligned base and b, l, h strides that are multiples of 16 bytes
     (:func:`tma_view_error`; any other view raises).
@@ -288,6 +294,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _raise_on(err, 'flash_attention')
     launches['flash_attention'] += 1
     launches['flash_attention_wgmma' if bf16 else 'flash_attention_tf32x3'] += 1
+    if not bf16 and n == 0:  # no split: the mma.sync route
+        launches['flash_attention_tf32x3_mma'] += 1
     return o
 
 

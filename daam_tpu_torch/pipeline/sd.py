@@ -390,6 +390,7 @@ class StableDiffusionPipeline:
         B = len(prompts)
         with profiling.request(fresh=False), \
                 span('call', batch=B, steps=num_inference_steps,
+                     evaluations=self.scheduler.num_scan_steps(num_inference_steps),
                      v_prediction=int(self.scheduler.prediction_type == 'v_prediction'),
                      grid=self.heat_map_grid):
             tr = self._active_trace

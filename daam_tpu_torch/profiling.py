@@ -14,6 +14,7 @@ start and end from :func:`time.time_ns` (CLOCK_REALTIME, the base of
 events lie on one clock), its id, the id of the span open around it on
 the same thread (its parent, 0 at the root), a request id and small
 numeric attributes (``bytes``, ``step``, ``batch``; the ``call``'s
+UNet ``evaluations`` (the sampler's: PNDM's one more than its steps),
 ``v_prediction`` and heat-map ``grid``, the ``unet``'s ``graph`` (1 where
 the evaluation ran from a CUDA graph, 0 eager: a replay records no block
 spans inside it), the ``decode``'s ``tiled`` and ``latent`` edge, the card route's ``overlay.encode``'s ``stripes``), given

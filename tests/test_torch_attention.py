@@ -266,12 +266,14 @@ def test_launch_counters_include_the_tensor_core_route():
     tensor-core routes and of the overlay kernels included."""
     for name in ('flash_attention_wgmma', 'cross_attention_acc_mma',
                  'cross_attention_probs_mma', 'flash_attention_tf32x3',
+                 'flash_attention_tf32x3_mma',
                  'cross_attention_acc_tf32x3', 'cross_attention_probs_tf32x3',
                  'overlay_resample', 'png_scanlines'):
         kernels.launches[name] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
                                      'flash_attention_tf32x3',
+                                     'flash_attention_tf32x3_mma',
                                      'cross_attention_acc',
                                      'cross_attention_acc_mma',
                                      'cross_attention_acc_tf32x3',

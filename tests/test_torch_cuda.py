@@ -73,6 +73,9 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
     for name in ('flash_attention', 'cross_attention_acc'):
         assert kernels.launches[name] == n[name] + 2
         assert kernels.launches[name + '_tf32x3'] == n[name + '_tf32x3'] + 2
+    # fp32 K2 outside the wgmma head dims runs flash_attention_tf32x3_kernel
+    mma = 2 * (hd not in kernels.TF32X3_WGMMA_HEAD_DIMS)
+    assert kernels.launches['flash_attention_tf32x3_mma'] == n['flash_attention_tf32x3_mma'] + mma
     assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma']
     assert kernels.launches['cross_attention_acc_mma'] == n['cross_attention_acc_mma']
     # the fp32 routes copy in 16-byte pieces: a base 4 bytes off 16 raises
@@ -94,6 +97,7 @@ def test_kernels_match_plain_on_card(hd, Lk, cuda_device):
     assert kernels.launches['flash_attention'] == n['flash_attention'] + 2
     assert kernels.launches['flash_attention_wgmma'] == n['flash_attention_wgmma'] + 2
     assert kernels.launches['flash_attention_tf32x3'] == n['flash_attention_tf32x3']
+    assert kernels.launches['flash_attention_tf32x3_mma'] == n['flash_attention_tf32x3_mma']
     with pytest.raises(ValueError, match='TMA'):
         padded = torch.zeros(B, Lq, H * hd + 8, device=cuda_device,
                              dtype=torch.bfloat16)[..., 1:H * hd + 1]
@@ -490,20 +494,36 @@ def test_v2_1_large_request_states_its_route_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('preset,dtype', [('tiny', torch.float32), ('tiny-xl', torch.bfloat16)])
-def test_unet_graph_replays_equal_eager_on_card(preset, dtype, cuda_device, monkeypatch):
-    """Traced requests of 4 steps whose UNet evaluations replay CUDA graphs
-    against the same requests run eager (the lease held by the test): every
-    evaluation's ``eps`` and accumulators, the images, the blocks and the
-    ``time_chunk_steps`` snapshots bit for bit, the launch counts equal;
-    ``unet_graph`` counts one capture, N - 2 replays and one eager
-    evaluation in the first request, N replays in the next, and that next
-    request leaves the first's blocks as they were."""
+@pytest.mark.parametrize('preset,dtype,scheduler', [('tiny', torch.float32, 'ddim'),
+                                                    ('tiny-xl', torch.bfloat16, 'ddim'),
+                                                    ('tiny-v1', torch.float32, 'pndm')])
+def test_unet_graph_replays_equal_eager_on_card(preset, dtype, scheduler, cuda_device,
+                                                monkeypatch):
+    """Traced requests of 4 steps (E UNet evaluations: 4, PNDM's 5) whose
+    evaluations replay CUDA graphs against the same requests run eager (the
+    lease held by the test): every evaluation's ``eps`` and accumulators,
+    the images, the blocks and the ``time_chunk_steps`` snapshots bit for
+    bit, the launch counts equal; ``unet_graph`` counts one capture, E - 2
+    replays and one eager evaluation in the first request, E replays in the
+    next, and that next request leaves the first's blocks as they were.
+    ``tiny-v1`` runs under PNDM, whose history the step carries between
+    replays, with its second level widened to 320 channels, so that the mid
+    block's hd 160 takes fp32 K2's mma.sync route
+    (``flash_attention_tf32x3_mma``) beside hd 16 on wgmma."""
+    from dataclasses import replace
+
     from daam_tpu_torch import StableDiffusionPipeline, trace
+    from daam_tpu_torch.models import configs
     from daam_tpu_torch.pipeline import unet_graph
 
     N = 4
-    pipe = StableDiffusionPipeline.from_pretrained(preset, device=cuda_device, dtype=dtype)
+    if preset == 'tiny-v1':
+        base = configs.MODEL_PRESETS[preset]
+        monkeypatch.setitem(configs.MODEL_PRESETS, preset, replace(
+            base, unet=replace(base.unet, block_out_channels=(32, 320))))
+    pipe = StableDiffusionPipeline.from_pretrained(preset, device=cuda_device, dtype=dtype,
+                                                   scheduler=scheduler)
+    E = pipe.scheduler.num_scan_steps(N)
     evals = []
     call = unet_graph._Request.__call__
 
@@ -542,7 +562,7 @@ def test_unet_graph_replays_equal_eager_on_card(preset, dtype, cuda_device, monk
         assert len(run['snaps']) == len(ref['snaps'])
         for a, b in zip(run['snaps'], ref['snaps']):
             assert all(torch.equal(a[f], b[f]) for f in b)
-        assert len(run['evals']) == len(ref['evals']) == N
+        assert len(run['evals']) == len(ref['evals']) == E
         for (eps, accs, _), (eps_ref, accs_ref, _) in zip(run['evals'], ref['evals']):
             assert torch.equal(eps, eps_ref)
             assert accs.keys() == accs_ref.keys() and len(accs) > 0
@@ -551,21 +571,23 @@ def test_unet_graph_replays_equal_eager_on_card(preset, dtype, cuda_device, monk
     first, second = 'A dog runs across the field .', 'A red cat sleeps on a bed .'
     eager = {p: request(p, eager=True) for p in (first, second)}
     for run in eager.values():
-        assert run['counts'] == {'captures': 0, 'replays': 0, 'eager': N}
-        assert [g for *_, g in run['evals']] == [0] * N
+        assert run['counts'] == {'captures': 0, 'replays': 0, 'eager': E}
+        assert [g for *_, g in run['evals']] == [0] * E
+    if preset == 'tiny-v1':  # the mid block's self- and cross-attention at hd 160
+        assert eager[first]['launches']['flash_attention_tf32x3_mma'] == 2 * E
     one = request(first)
-    assert one['counts'] == {'captures': 1, 'replays': N - 2, 'eager': 1}
-    assert [g for *_, g in one['evals']] == [0] + [1] * (N - 1)
+    assert one['counts'] == {'captures': 1, 'replays': E - 2, 'eager': 1}
+    assert [g for *_, g in one['evals']] == [0] + [1] * (E - 1)
     assert_equal(one, eager[first])
     two = request(second)
-    assert two['counts'] == {'captures': 0, 'replays': N, 'eager': 0}
-    assert [g for *_, g in two['evals']] == [1] * N
+    assert two['counts'] == {'captures': 0, 'replays': E, 'eager': 0}
+    assert [g for *_, g in two['evals']] == [1] * E
     assert_equal(two, eager[second])
     assert not any(torch.equal(two['blocks'][f], b) for f, b in one['blocks'].items())
     for f, block in eager[first]['blocks'].items():  # the first request's blocks held
         assert torch.equal(one['blocks'][f], block)
     snaps = request(first, time_chunk_steps=2)
-    assert snaps['counts'] == {'captures': 0, 'replays': N, 'eager': 0}
+    assert snaps['counts'] == {'captures': 0, 'replays': E, 'eager': 0}
     assert_equal(snaps, request(first, time_chunk_steps=2, eager=True))
-    assert len(snaps['snaps']) == 2
+    assert len(snaps['snaps']) == -(-E // 2)
     assert len(pipe.unet_graphs.entries) == 1

@@ -3,7 +3,9 @@ while spans are off, though the counters count; a traced call's tree of
 spans; the bytes of the heads copies; the overlay's stages; and, under
 ``torch.profiler`` alone, spans recorded on the profiler's clock."""
 
+import json
 from collections import deque
+from pathlib import Path
 
 import pytest
 import torch
@@ -84,7 +86,8 @@ def test_traced_call_tree(pipe, recording):
     assert [r.name for r in roots] == ['call']
     call = roots[0]
     # tiny's 16-px images take the 96² grid, as every size but 512 and 1024
-    assert call.attrs == {'batch': 1, 'steps': STEPS, 'v_prediction': 0, 'grid': 96}
+    assert call.attrs == {'batch': 1, 'steps': STEPS, 'evaluations': STEPS, 'v_prediction': 0,
+                          'grid': 96}
     kids = _children(records, call)
     assert [r.name for r in kids] == (['text_encode'] + ['step'] * STEPS
                                       + ['finalize_acc', 'decode', 'to_host'])
@@ -114,6 +117,84 @@ def test_call_states_prediction_and_grid(pipe, recording):
     calls = [r for r in profiling.spans() if r.name == 'call']
     assert [(r.attrs['v_prediction'], r.attrs['grid']) for r in calls] == [(1, 96), (0, 96)]
     assert tc.latent_hw == 96 ** 2
+
+
+@pytest.mark.parametrize('scheduler,evaluations', [('pndm', 31), ('ddim', 30)])
+def test_call_states_its_evaluations(scheduler, evaluations, recording):
+    """The ``call`` span states the UNet evaluations of the request's
+    sampler: at 30 steps PNDM's 31 (its second timestep evaluated twice),
+    DDIM's 30, as many as the ``unet`` spans under it."""
+    v1 = StableDiffusionPipeline.from_pretrained('tiny-v1', device='cpu', scheduler=scheduler)
+    v1('a dog runs', num_inference_steps=30, generator=torch.Generator().manual_seed(0),
+       output_type='np')
+    records = profiling.spans()
+    calls = [r for r in records if r.name == 'call']
+    assert len(calls) == 1
+    assert calls[0].attrs['steps'] == 30 and calls[0].attrs['evaluations'] == evaluations
+    assert sum(r.name == 'unet' for r in records) == evaluations
+
+
+GPUBENCH = Path(__file__).resolve().parents[1] / 'gpubench'
+
+
+def _config(name):
+    return json.loads((GPUBENCH / 'configs' / f'{name}.json').read_text())
+
+
+def _mma_reader():
+    from gpubench.core import spec
+
+    return spec.load_module(GPUBENCH / 'metrics' / 'kernels.k2_mma_roofline.py')
+
+
+@pytest.mark.parametrize('config,roles', [('sd15-512-fp32', {'self': 6, 'uncond': 5, 'cross': 1}),
+                                          ('sd21-base-512-fp32', {})])
+def test_k2_mma_roofline_counts_the_mma_route(config, roles):
+    """``core/counters.py``'s calls of one traced evaluation that take fp32
+    K2's mma.sync route, hd outside ``TF32X3_WGMMA_HEAD_DIMS``: SD 1.5's hd
+    160 in the self-attention and the captured cross-attention's
+    unconditional half of 2 down blocks and 3 up blocks, and both attentions
+    of the mid block (whose cross-attention is not captured), 12; none in SD
+    2.1 (hd 64 throughout).  These are the calls that
+    ``kernels.k2_mma_roofline`` bounds."""
+    from gpubench.core import counters
+
+    cfg = _config(config)
+    reader = _mma_reader()
+    calls = [c for c in counters.attention_calls(cfg, 1, 'acc')
+             if c['kernel'] == 'k2' and c['hd'] not in kernels.TF32X3_WGMMA_HEAD_DIMS]
+    assert len(calls) == sum(roles.values()) == len(reader.mma_calls(cfg, 1, 'acc'))
+    assert len(calls) == (12 if roles else 0)
+    assert all(c['hd'] == 160 for c in calls)
+    assert {r: sum(c['role'] == r for c in calls) for r in roles} == roles
+
+
+class _Profile:
+    def __init__(self, seconds, launches):
+        self.seconds, self.launches = seconds, launches
+
+    def device_s(self, names):
+        assert names == ('flash_attention_tf32x3_kernel',)
+        return self.seconds, self.launches
+
+
+def test_k2_mma_roofline_reads_its_kernel_alone():
+    """The share is the calls' least time over all of PNDM's 31
+    evaluations over the device time of ``flash_attention_tf32x3_kernel``;
+    nothing without a profile, and nothing (no error) where no call takes
+    the route."""
+    from gpubench.core import counters
+
+    reader = _mma_reader()
+    cfg = _config('sd15-512-fp32')
+    bound = 31 * sum(counters.attention_bound_s(c, 'float32')
+                     for c in reader.mma_calls(cfg, 1, 'acc'))
+    data = {'cfg': cfg, 'steps': 30, 'profile_runs': [('plain', 1)],
+            'profile': _Profile(4 * bound, 31 * 12)}
+    assert reader.read(data) == pytest.approx(25.0)
+    assert reader.read(dict(data, profile=None)) is None
+    sd21 = _config('sd21-base-512-fp32')
+    assert reader.read(dict(data, cfg=sd21, profile=_Profile(0.0, 0))) is None
 
 
 @pytest.mark.parametrize('spans_on', [True, False])

@@ -54,25 +54,27 @@ def cfg():
         return json.load(f)
 
 
-@pytest.fixture(scope='module')
-def runs(cfg):
-    """The program's traced request and the reference's run that follows it."""
+def traced_request(cfg, prompts, seeds, weights_seed):
+    """One traced request of ``prompts`` (a generator each) through the
+    program built from ``cfg`` as the benchmark builds it, and the
+    reference's run that follows its latents, with the reference's
+    accumulators under ``acc``."""
     steps, guidance = cfg['run']['steps'], cfg['run']['guidance_scale']
     runner.program_precision(cfg, 'cpu')
-    pipe = runner.build_program(cfg, WEIGHTS_SEED, 'cpu')
+    pipe = runner.build_program(cfg, weights_seed, 'cpu')
     latents = []
     with trace(pipe) as tc:
-        out = pipe(PROMPTS, num_inference_steps=steps,
-                   generator=[torch.Generator().manual_seed(s) for s in SEEDS],
+        out = pipe(prompts, num_inference_steps=steps,
+                   generator=[torch.Generator().manual_seed(s) for s in seeds],
                    guidance_scale=guidance, output_type='np', callback_steps=1,
                    callback=lambda i, t, x: latents.append(x.clone()))
-        maps = [tc.compute_global_heat_map(batch_idx=b) for b in range(len(PROMPTS))]
+        maps = [tc.compute_global_heat_map(batch_idx=b) for b in range(len(prompts))]
         blocks = {f: tc.batch_heat_maps[f].clone() for f in tc.batch_heat_maps}
         spec = tc.capture_spec(pipe)
     prog = {'pipe': pipe, 'latents': latents, 'images': np.stack(out.images),
             'maps': maps, 'blocks': blocks, 'spec': spec}
 
-    ref = Reference(cfg, weights.state_dicts(cfg, WEIGHTS_SEED, 'cpu'), 'cpu')
+    ref = Reference(cfg, weights.state_dicts(cfg, weights_seed, 'cpu'), 'cpu')
     accs = []
 
     class Kept(ref_pipeline.Capture):
@@ -82,8 +84,14 @@ def runs(cfg):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ref_pipeline, 'Capture', Kept)
-        r = ref.run(PROMPTS, SEEDS, steps, guidance, forced=latents)
+        r = ref.run(prompts, seeds, steps, guidance, forced=latents)
     return prog, ref, dict(r, acc=accs[-1])
+
+
+@pytest.fixture(scope='module')
+def runs(cfg):
+    """The program's traced request and the reference's run that follows it."""
+    return traced_request(cfg, PROMPTS, SEEDS, WEIGHTS_SEED)
 
 
 def test_configuration_is_v_prediction_on_the_96_grid(cfg, runs):
