@@ -25,15 +25,16 @@ Phases, each of which raises (exit code != 0) when a check fails, in the
 order they run (1, 1b, 2, 3, 8, 8b, 6b, 4, 5, 9, 10, 7, 11, 12, 13, 14, 15;
 phase 6a, the pipelines' step timings, was retired for ``gpubench/``):
 
-1. Build ``daam_tpu_torch/csrc/attention.cu`` (and ``overlay.cu``) with
-   nvcc for sm_90a; print
+1. Build ``daam_tpu_torch/csrc/attention.cu`` (and ``overlay.cu`` and
+   ``geglu.cu``) with nvcc for sm_90a; print
    each kernel's registers and spills, and fail if a kernel
    (``flash_attention_wgmma_kernel``, ``cross_attention_mma_kernel``,
    ``flash_attention_tf32x3_wgmma_kernel`` and ``split_kv_tf32x3_kernel``
    at the head dims of ``TF32X3_WGMMA_HEAD_DIMS``,
    ``flash_attention_tf32x3_kernel`` at the others,
    ``cross_attention_tf32x3_kernel``; the cross-attention ones with the acc
-   and both P epilogues) is missing or spills.
+   and both P epilogues; ``geglu_kernel`` in bf16 and fp32, 16 bytes or
+   one element a step) is missing or spills.
 1b. The native BPE (``daam_tpu_torch/native/bpe.cpp``), built with g++
    under ``build/daam_tpu_torch/bpe/``: ``default_tokenizer()`` must be the
    ``NativeBpeTokenizer`` and give the Python BPE's tokens, padded ids and
@@ -104,7 +105,10 @@ phase 6a, the pipelines' step timings, was retired for ``gpubench/``):
    (``cross_attention_acc``) or fp32 P written (``cross_attention_probs``,
    as the save run writes it).  ``flash_attention`` is also timed against
    ``torch.nn.functional.scaled_dot_product_attention`` on the same q, k
-   and v, a yardstick the port never calls.
+   and v, a yardstick the port never calls.  Then K8, ``kernels.geglu``
+   (``geglu_times``), at v2-1-base's and xl-base-1.0's feed-forward shapes
+   in both dtypes: equal to the former chain bit for bit, one device kernel
+   a call, its event and device time, the chain's, and its byte bound.
 7. SDXL at full width: ``xl-base-1.0`` (random weights from seed 0; UNet
    320/640/1280, CLIP-L and OpenCLIP-bigG), bf16, 1024², 10 traced DDIM
    steps through ``trace(pipe)``: the image must be (1024, 1024, 3) and
@@ -281,6 +285,14 @@ K5_PER_EVAL, K2_PER_EVAL_REPLAY = 16, 16
 SDXL_K1_PER_EVAL, SDXL_K2_PER_EVAL = 60, 140
 SDXL_K5_PER_EVAL, SDXL_K2_PER_EVAL_REPLAY = 70, 70
 SDXL_REPLAY_STEPS = 2  # its save and load runs: ~0.5 GB of bf16 P a step
+# geglu launches per UNet evaluation, one a transformer block's feed-forward
+# in every run: 16 in SD 2.x and SD 1.x, 70 in SDXL
+FF_PER_EVAL, SDXL_FF_PER_EVAL = 16, 70
+#: (rows, w) of each feed-forward gate of one UNet evaluation (CFG rows, h
+#: and gate w wide) with its count, of the paths the GEGLU times cover
+GEGLU_SHAPES = {'v2-1-base': [((8192, 1280), 5), ((2048, 2560), 5), ((512, 5120), 5),
+                              ((128, 5120), 1)],
+                'xl-base-1.0': [((8192, 2560), 10), ((2048, 5120), 60)]}
 SDXL_K2_SHAPES = [((2, 10, 4096, 4096), 10), ((2, 20, 1024, 1024), 60),
                   ((1, 10, 4096, 77), 10), ((1, 20, 1024, 77), 50),
                   ((2, 20, 1024, 77), 10)]
@@ -339,10 +351,12 @@ COCO_CAPTIONS = [{'id': 1, 'caption': 'A dog sleeps on a porch'},
                  {'id': 7, 'caption': 'A dog swims in a lake'},
                  {'id': 8, 'caption': 'A small dog wears a hat'}]
 #: phase 15: the goldens made with daam_tpu (tests/make_torch_goldens.py),
-#: and the K1 and K2 launches of each one's traced run
+#: and the K1, K2 and geglu launches of each one's traced run
 GOLDENS = 'tests/fixtures/torch_goldens'
-GOLDEN_LAUNCHES = {'v2-1-base': (K1_PER_EVAL * STEPS, K2_PER_EVAL * STEPS),
-                   'xl-base-1.0': (SDXL_K1_PER_EVAL * 2, SDXL_K2_PER_EVAL * 2)}
+GOLDEN_LAUNCHES = {'v2-1-base': (K1_PER_EVAL * STEPS, K2_PER_EVAL * STEPS,
+                                 FF_PER_EVAL * STEPS),
+                   'xl-base-1.0': (SDXL_K1_PER_EVAL * 2, SDXL_K2_PER_EVAL * 2,
+                                   SDXL_FF_PER_EVAL * 2)}
 DTYPES = ('bf16', 'fp32')
 #: The launch counter of each kernel's route, by dtype.
 ROUTE = {'bf16': {'flash_attention': 'flash_attention_wgmma',
@@ -367,8 +381,9 @@ def check(ok: bool, msg: str):
 
 def expected(kernels, dtype: str, **counts) -> dict:
     """Launch counts of a run in ``dtype``: each named kernel's total and
-    its route's counter at the given count (the overlay kernels have no
-    route; ``flash_attention_tf32x3_mma``, the fp32 K2 calls of those on
+    its route's counter at the given count (the overlay kernels and
+    ``geglu``, one a feed-forward of each UNet evaluation, have no route;
+    ``flash_attention_tf32x3_mma``, the fp32 K2 calls of those on
     ``flash_attention_tf32x3_kernel``, as given), every other counter 0."""
     routed = {ROUTE[dtype][name]: n for name, n in counts.items() if name in ROUTE[dtype]}
     return {**dict.fromkeys(kernels.launches, 0), **counts, **routed}
@@ -952,17 +967,72 @@ def _kernel_times(kernels, A, model, dtype):
     return totals
 
 
+def geglu_times(kernels, model, dtype='bf16'):
+    """Phase 6b's K8: ``kernels.geglu`` at every feed-forward shape of
+    ``model``'s path in ``dtype`` against its plain version (the former
+    chain ``h * F.gelu(gate.float()).to(h.dtype)``), which it must equal bit
+    for bit, in one device kernel a call.  Each side cycles through enough
+    copies of its input that every call reads it from device memory, not
+    from the 50 MB L2, as the pipeline's first read of a projection output
+    larger than L2 does.  Prints the event time, the device time, the plain
+    chain's time and the bound (the (rows, 2w) input read once and the (rows,
+    w) output written once, over 3.35 TB/s) of each shape and their totals
+    per UNet evaluation."""
+    import itertools
+
+    import torch
+    from daam_tpu_torch.ops.geglu import geglu_plain
+
+    tdtype = torch.bfloat16 if dtype == 'bf16' else torch.float32
+    size = 2 if dtype == 'bf16' else 4
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    rows_out, calls = [], []
+    for (rows, w), per_eval in GEGLU_SHAPES[model]:
+        copies = max(2, -(-200 * 2 ** 20 // (rows * 2 * w * size)))
+        xs = [torch.randn(rows, 2 * w, device='cuda', generator=gen).to(tdtype)
+              for _ in range(copies)]
+        for x in xs:
+            check(torch.equal(kernels.geglu(x), geglu_plain(x)),
+                  f'geglu {dtype} {(rows, w)}: the kernel is not the chain bit for bit')
+        ring = itertools.cycle(xs)
+        kern = lambda ring=ring: kernels.geglu(next(ring))  # noqa: E731
+        plain = lambda ring=ring: geglu_plain(next(ring))  # noqa: E731
+        # plain, kernel, kernel, plain: the card's clocks drift in a run
+        p1, k1, k2, p2 = (event_ms(f) for f in (plain, kern, kern, plain))
+        label = f'geglu {dtype} {(rows, w)}'
+        calls.append((label, kern))
+        bound_ms = 3 * rows * w * size / (HBM_TB_S * 1e12) * 1e3
+        rows_out.append((label, (rows, w), per_eval, (k1 + k2) / 2, (p1 + p2) / 2, bound_ms))
+    dev = device_times(calls)
+    tot = {'ms': 0.0, 'device_ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
+    for label, shape, per_eval, ms, plain_ms, bound_ms in rows_out:
+        d_ms, n_kernels = dev[label]
+        check(n_kernels == 1, f'{label}: {n_kernels} device kernels a call')
+        for key, val in (('ms', ms), ('device_ms', d_ms), ('plain_ms', plain_ms),
+                         ('bound_ms', bound_ms)):
+            tot[key] += val * per_eval
+        print(f'time {model} geglu {dtype} rows,w={shape} x{per_eval}/eval '
+              f'event={ms:.4f} ms device={d_ms:.4f} ms plain={plain_ms:.4f} ms '
+              f'bound={bound_ms:.5f} ms (bytes), {100 * bound_ms / d_ms:.1f}% of the '
+              f'device time')
+    print(f'time {model} geglu {dtype} per UNet evaluation: event={tot["ms"]:.4f} ms '
+          f'device={tot["device_ms"]:.4f} ms plain={tot["plain_ms"]:.4f} ms '
+          f'bound={tot["bound_ms"]:.5f} ms')
+
+
 def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
                k5: int = K5_PER_EVAL, k2: int = K2_PER_EVAL_REPLAY,
-               other_prompt: bool = True, prompts=None, seeds=None, mma: int = 0) -> dict:
+               other_prompt: bool = True, prompts=None, seeds=None, mma: int = 0,
+               ff: int = FF_PER_EVAL) -> dict:
     """A save_heads -> load_heads pair at full width, ``steps`` steps each
     (phases 5, 7, 9, 10, 12 and 13): the save run's counters (``k5``
     cross_attention_probs and ``k2`` flash_attention launches per UNet
     evaluation on the ``dtype`` route, ``mma`` of those on fp32 K2's
-    mma.sync kernel, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
+    mma.sync kernel, ``ff`` geglu, nothing else) and its buffer (``k5`` layers of (evaluations, 2b,
     H, h·w, 77) bf16 for a batch of b prompts, finite, rows summing to 1
     within 1e-2; PNDM evaluates ``steps + 1`` times); the load run of the
-    same prompts (``k2`` flash_attention per evaluation and nothing else),
+    same prompts (``k2`` flash_attention and ``ff`` geglu per evaluation and
+    nothing else),
     whose per-token heat maps must match the save run's at Spearman ≥ 0.999,
     prompt by prompt; with ``other_prompt``, a load run of a second prompt,
     whose image must differ from a fresh run of it.  ``prompts`` and
@@ -988,7 +1058,8 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
     image_s, tc_s, save_launches = run(prompt, save_heads=True, persist_heads=False)
     check(save_launches == expected(kernels, dtype, cross_attention_probs=k5 * evals,
                                     flash_attention=k2 * evals,
-                                    flash_attention_tf32x3_mma=mma * evals),
+                                    flash_attention_tf32x3_mma=mma * evals,
+                                    geglu=ff * evals),
           f'{label} save run launch counts {save_launches}')
     buf = tc_s.replay_buffer(evals)
     check(len(buf) == k5, f'{label}: {len(buf)} layers in the replay buffer')
@@ -1010,7 +1081,8 @@ def transplant(pipe, trace, kernels, label: str, dtype: str, steps: int = STEPS,
 
     image_l, tc_l, load_launches = run(prompt, load_heads=True)
     check(load_launches == expected(kernels, dtype, flash_attention=k2 * evals,
-                                    flash_attention_tf32x3_mma=mma * evals),
+                                    flash_attention_tf32x3_mma=mma * evals,
+                                    geglu=ff * evals),
           f'{label} load run launch counts {load_launches}')
     for i in range(len(batch)):
         map_s = tc_s.compute_global_heat_map(batch_idx=i).heat_maps
@@ -1068,7 +1140,8 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A):
     check_traced(out, tc, 1024, 'xl-base-1.0')
     check(decodes == [SDXL_TILES], f'tiled VAE decode: decoder calls {decodes}')
     check(launches == expected(kernels, 'bf16', cross_attention_acc=SDXL_K1_PER_EVAL * STEPS,
-                               flash_attention=SDXL_K2_PER_EVAL * STEPS),
+                               flash_attention=SDXL_K2_PER_EVAL * STEPS,
+                               geglu=SDXL_FF_PER_EVAL * STEPS),
           f'xl-base-1.0 launch counts {launches}')
     one_step_maps(pipe, trace, kernels, A, 'bf16', 0.99)
     launches['cross_attention_probs'] = sdxl_transplant(pipe, trace, kernels, 'bf16')
@@ -1087,7 +1160,8 @@ def sdxl_full_width(StableDiffusionPipeline, trace, kernels, A):
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     check(launches_fp32 == expected(kernels, 'fp32', cross_attention_acc=SDXL_K1_PER_EVAL,
-                                    flash_attention=SDXL_K2_PER_EVAL),
+                                    flash_attention=SDXL_K2_PER_EVAL,
+                                    geglu=SDXL_FF_PER_EVAL),
           f'xl-base-1.0 fp32 step launch counts {launches_fp32}')
     launches_fp32['cross_attention_probs'] = sdxl_transplant(pipe, trace, kernels, 'fp32')
     del pipe
@@ -1102,7 +1176,8 @@ def sdxl_transplant(pipe, trace, kernels, dtype: str) -> int:
     cross_attention_probs launches."""
     save = transplant(pipe, trace, kernels, f'xl-base-1.0 {dtype}', dtype,
                       steps=SDXL_REPLAY_STEPS, k5=SDXL_K5_PER_EVAL,
-                      k2=SDXL_K2_PER_EVAL_REPLAY, other_prompt=False)
+                      k2=SDXL_K2_PER_EVAL_REPLAY, other_prompt=False,
+                      ff=SDXL_FF_PER_EVAL)
     return save['cross_attention_probs']
 
 
@@ -1146,7 +1221,8 @@ def fp32_main_path(StableDiffusionPipeline, trace, kernels) -> dict:
     print(f'fp32 main path launches: {launches}')
     check_traced(out, tc, 512, 'v2-1-base fp32')
     check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
-                               flash_attention=K2_PER_EVAL * STEPS),
+                               flash_attention=K2_PER_EVAL * STEPS,
+                               geglu=FF_PER_EVAL * STEPS),
           f'fp32 launch counts {launches}')
     launches['cross_attention_probs'] = transplant(
         pipe, trace, kernels, 'v2-1-base fp32', 'fp32',
@@ -1187,7 +1263,8 @@ def v1_full_width(StableDiffusionPipeline, trace, kernels):
         mma = v1_mma_per_eval(kernels) if dtype == 'fp32' else 0
         check(launches == expected(kernels, dtype, cross_attention_acc=K1_PER_EVAL * evals,
                                    flash_attention=K2_PER_EVAL * evals,
-                                   flash_attention_tf32x3_mma=mma * evals),
+                                   flash_attention_tf32x3_mma=mma * evals,
+                                   geglu=FF_PER_EVAL * evals),
               f'{label} launch counts {launches}')
         launches['cross_attention_probs'] = transplant(
             pipe, trace, kernels, label, dtype, other_prompt=False,
@@ -1401,7 +1478,7 @@ def checkpoint_and_evaluation(StableDiffusionPipeline, trace, kernels):
               f'{cli_s:.3f} s; launches {launches}')
         check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
                                    flash_attention=K2_PER_EVAL * STEPS,
-                                   **png_launches(out_dir)),
+                                   geglu=FF_PER_EVAL * STEPS, **png_launches(out_dir)),
               f'--from-path launch counts {launches}')
         cli_exp = GenerationExperiment.load(out_dir)
         prompt = PROMPT.replace('.', ' .')
@@ -1703,6 +1780,7 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
             check(launches == expected(kernels, 'fp32',
                                        cross_attention_acc=K1_PER_EVAL * STEPS * calls,
                                        flash_attention=K2_PER_EVAL * STEPS * calls,
+                                       geglu=FF_PER_EVAL * STEPS * calls,
                                        **png_launches(out)),
                   f'regenerate --batch-size {b} launch counts {launches}')
             runs[b] = {f'e{i}': GenerationExperiment.load(os.path.join(out, f'e{i}'))
@@ -1738,7 +1816,7 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
               and all(m == ['dog.heat_map.png'] for m in maps.values()),
               '--word dog keeps prompts holding the lemma once, and its map alone')
         check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * 2,
-                                   flash_attention=K2_PER_EVAL * 2,
+                                   flash_attention=K2_PER_EVAL * 2, geglu=FF_PER_EVAL * 2,
                                    **png_launches(coco_out)),
               f'--action coco launch counts {launches}')
 
@@ -1786,7 +1864,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
               'every request answered')
         check(list(handler.batcher.served) == [BATCH], 'the requests coalesced into one call')
         check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
-                                   flash_attention=K2_PER_EVAL * STEPS),
+                                   flash_attention=K2_PER_EVAL * STEPS,
+                                   geglu=FF_PER_EVAL * STEPS),
               f'server launch counts {launches}')
         for prompt in BATCH_PROMPTS:
             image, heat_map = served[prompt]
@@ -1811,7 +1890,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
         check('transplanted attention' in html, 'the counterfactual page')
         check(launches == expected(kernels, 'fp32',
                                    cross_attention_probs=K5_PER_EVAL * STEPS,
-                                   flash_attention=2 * K2_PER_EVAL_REPLAY * STEPS),
+                                   flash_attention=2 * K2_PER_EVAL_REPLAY * STEPS,
+                                   geglu=2 * FF_PER_EVAL * STEPS),
               f'counterfactual launch counts {launches}')
         # 8-bit images: the saved run's and the transplant's from the page,
         # a fresh run of the new prompt (the same bits run to run).  With
@@ -1840,7 +1920,8 @@ def batched_generation(StableDiffusionPipeline, trace, kernels):
         server_b1 = 1 / (time.perf_counter() - t0)
         launches = dict(kernels.launches)
         check(launches == expected(kernels, 'fp32', cross_attention_acc=K1_PER_EVAL * STEPS,
-                                   flash_attention=K2_PER_EVAL * STEPS),
+                                   flash_attention=K2_PER_EVAL * STEPS,
+                                   geglu=FF_PER_EVAL * STEPS),
               f'batch-1 server launch counts {launches}')
     finally:
         stop(handler, server, thread)
@@ -1899,7 +1980,8 @@ def v2l_full_width(StableDiffusionPipeline, trace, kernels):
               f'{label}: per-token maps {tuple(maps.shape)}')
         check(decodes == [(1, 4, 96, 96)], f'{label}: untiled VAE decode {decodes}')
         check(launches == expected(kernels, dtype, cross_attention_acc=K1_PER_EVAL * STEPS,
-                                   flash_attention=K2_PER_EVAL * STEPS),
+                                   flash_attention=K2_PER_EVAL * STEPS,
+                                   geglu=FF_PER_EVAL * STEPS),
               f'{label} launch counts {launches}')
         torch.cuda.reset_peak_memory_stats()
         with HostPeak() as host:
@@ -2007,7 +2089,8 @@ def data_parallel(StableDiffusionPipeline, trace, kernels):
               f'{secs:.3f} s; launches {launches}')
         check(launches == expected(kernels, 'fp32',
                                    cross_attention_acc=K1_PER_EVAL * STEPS * len(prompts),
-                                   flash_attention=K2_PER_EVAL * STEPS * len(prompts)),
+                                   flash_attention=K2_PER_EVAL * STEPS * len(prompts),
+                                   geglu=FF_PER_EVAL * STEPS * len(prompts)),
               f'generate_batch launch counts {launches}')
         for i, prompt in enumerate(prompts):
             with trace(pipe) as tc:
@@ -2069,7 +2152,7 @@ def golden_parity(trace, kernels) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     counts = {}
     try:
-        for preset, (k1, k2) in GOLDEN_LAUNCHES.items():
+        for preset, (k1, k2, ff) in GOLDEN_LAUNCHES.items():
             with np.load(os.path.join(root, GOLDENS, f'{preset}.npz')) as g:
                 golden = {k: g[k] for k in g.files}
             config = get_pipeline_config(preset)
@@ -2119,7 +2202,7 @@ def golden_parity(trace, kernels) -> dict:
                   f'{preset} image against the golden')
             maps_close(maps, golden['heat_maps'], f'{preset} golden')
             check(launches == expected(kernels, 'fp32', cross_attention_acc=k1,
-                                       flash_attention=k2),
+                                       flash_attention=k2, geglu=ff),
                   f'{preset} golden launch counts {launches}')
             del pipe, tc, out
             gc.collect()
@@ -2384,6 +2467,10 @@ def main(argv=None):
         for model in PATH_SHAPES:
             for dtype in DTYPES:
                 kernel_times(kernels, A, model, dtype)
+        if hasattr(kernels, 'geglu'):  # not in older checkouts
+            for model in GEGLU_SHAPES:
+                for dtype in DTYPES:
+                    geglu_times(kernels, model, dtype)
         print(smi)
         return
     if args.flash_fp32:
@@ -2399,7 +2486,8 @@ def main(argv=None):
                           ('flash_attention_tf32x3_wgmma_kernel', n_wt),
                           ('split_kv_tf32x3_kernel', n_wt),
                           ('flash_attention_tf32x3_kernel', n_hd - n_wt),
-                          ('cross_attention_tf32x3_kernel', 3 * n_hd)):
+                          ('cross_attention_tf32x3_kernel', 3 * n_hd),
+                          ('geglu_kernel', 4)):
         tensor_core = [n for n in report if family in n]
         check(len(tensor_core) == count,
               f'ptxas reports {len(tensor_core)} kernels {family}, not {count}')
@@ -2428,6 +2516,9 @@ def main(argv=None):
     # 6b. the kernels alone at both paths' shapes
     totals = {(model, dtype): kernel_times(kernels, A, model, dtype)
               for model in PATH_SHAPES for dtype in DTYPES}
+    for model in GEGLU_SHAPES:
+        for dtype in DTYPES:
+            geglu_times(kernels, model, dtype)
 
     # 4. the slice at full width
     pipe = StableDiffusionPipeline.from_pretrained('v2-1-base', device='cuda',
@@ -2438,7 +2529,8 @@ def main(argv=None):
     print(f'main path launches: {launches}')
     check_traced(out, tc, 512, 'v2-1-base bf16')
     check(launches == expected(kernels, 'bf16', cross_attention_acc=K1_PER_EVAL * STEPS,
-                               flash_attention=K2_PER_EVAL * STEPS),
+                               flash_attention=K2_PER_EVAL * STEPS,
+                               geglu=FF_PER_EVAL * STEPS),
           f'launch counts {launches}')
 
     # 5. the transplant at full width

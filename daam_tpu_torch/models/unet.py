@@ -9,6 +9,8 @@ Counterpart of ``daam_tpu/models/unet.py``, grown from the torch modules that
 * Every ``attn1`` and ``attn2`` runs through :mod:`daam_tpu_torch.ops.attention`
   on ``(B, L, H, hd)`` views of the projection outputs (no relayout copy);
   on a CUDA tensor that is the hand-written kernels of ``csrc/attention.cu``.
+  Every feed-forward's gate runs through :mod:`daam_tpu_torch.ops.geglu`: on
+  a CUDA tensor one pass of ``csrc/geglu.cu``.
 * Tracing is an argument, as in ``daam_tpu``: with ``capture='acc'`` each
   cross-attention layer named in ``acc`` adds the conditional CFG half's Pᵀ
   into its fp32 accumulator ``(B, H, 77, h·w)``, in place; with
@@ -36,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import cross_attention, flash_attention
+from ..ops.geglu import geglu
 from ..profiling import span
 from .configs import UNetConfig
 
@@ -135,7 +138,8 @@ class Attention(nn.Module):
 
 class FeedForward(nn.Module):
     """diffusers GEGLU feed-forward (``ff.net.0.proj`` / ``ff.net.2``); the
-    gate's gelu is the exact erf form, evaluated in fp32."""
+    gate's gelu is the exact erf form, evaluated in fp32
+    (:func:`~daam_tpu_torch.ops.geglu.geglu`)."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -145,8 +149,7 @@ class FeedForward(nn.Module):
                                   nn.Linear(4 * dim, dim)])
 
     def forward(self, x):
-        h, gate = self.net[0].proj(x).chunk(2, dim=-1)
-        return self.net[2](h * F.gelu(gate.float()).to(h.dtype))
+        return self.net[2](geglu(self.net[0].proj(x)))
 
 
 class BasicTransformerBlock(nn.Module):

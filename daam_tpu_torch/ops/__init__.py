@@ -1,1 +1,2 @@
-"""Attention ops and the hand-written CUDA kernels behind them."""
+"""Attention ops, the feed-forward's GEGLU gate, and the hand-written CUDA
+kernels behind them."""

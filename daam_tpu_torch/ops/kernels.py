@@ -1,5 +1,5 @@
-"""Build and launch the hand-written CUDA kernels of ``csrc/attention.cu``
-and ``csrc/overlay.cu``.
+"""Build and launch the hand-written CUDA kernels of ``csrc/attention.cu``,
+``csrc/overlay.cu`` and ``csrc/geglu.cu``.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, at first use, under
@@ -13,7 +13,7 @@ with ``torch.empty``, launches on PyTorch's current stream without
 synchronizing, raises if the launch reported a CUDA error, and then adds one
 to its count in :data:`launches` (the proof that a run went through the
 kernel).  The plain PyTorch versions of the same functions live in
-:mod:`daam_tpu_torch.ops.attention`.
+:mod:`daam_tpu_torch.ops.attention` and :mod:`daam_tpu_torch.ops.geglu`.
 """
 
 import ctypes
@@ -30,7 +30,7 @@ import torch
 from .. import profiling
 
 __all__ = ['flash_attention', 'cross_attention_acc', 'cross_attention_probs',
-           'overlay_resample', 'png_scanlines', 'launches', 'reset_launches',
+           'overlay_resample', 'png_scanlines', 'geglu', 'launches', 'reset_launches',
            'load_library', 'tma_view_error', 'cross_route_error', 'HEAD_DIMS',
            'TF32X3_WGMMA_HEAD_DIMS']
 
@@ -60,13 +60,15 @@ _INT_MAX = 2 ** 31 - 1
 #: too.
 #: ``overlay_resample`` and ``png_scanlines`` count the overlay kernels of
 #: ``csrc/overlay.cu``: one of each an overlay drawn on the card, and one
-#: ``png_scanlines`` an image written as it is.
+#: ``png_scanlines`` an image written as it is.  ``geglu`` counts the
+#: feed-forward gates of ``csrc/geglu.cu``: one a transformer block's
+#: feed-forward on the card.
 launches = profiling.counter_group('launches', (
     'flash_attention', 'flash_attention_wgmma', 'flash_attention_tf32x3',
     'flash_attention_tf32x3_mma',
     'cross_attention_acc', 'cross_attention_acc_mma', 'cross_attention_acc_tf32x3',
     'cross_attention_probs', 'cross_attention_probs_mma', 'cross_attention_probs_tf32x3',
-    'overlay_resample', 'png_scanlines'))
+    'overlay_resample', 'png_scanlines', 'geglu'))
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the first :func:`load_library` spent building and loading.
@@ -141,6 +143,8 @@ def load_library() -> ctypes.CDLL:
     lib.daam_overlay_resample.restype = i
     lib.daam_png_scanlines.argtypes = [i, ptr, ptr, ptr] + [i] * 4 + [ptr, ptr]
     lib.daam_png_scanlines.restype = i
+    lib.daam_geglu.argtypes = [i, i, ptr, ptr, i, i, ptr]
+    lib.daam_geglu.restype = i
     lib.daam_error_string.argtypes = [i]
     lib.daam_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -446,4 +450,34 @@ def png_scanlines(image: torch.Tensor, resampled: Optional[torch.Tensor] = None,
         torch.cuda.current_stream(image.device).cuda_stream)
     _raise_on(err, 'png_scanlines')
     launches['png_scanlines'] += 1
+    return out
+
+
+def geglu(x: torch.Tensor) -> torch.Tensor:
+    """``h * gelu(gate)`` of a feed-forward's projection output on the card,
+    in one pass (``geglu_kernel``).
+
+    ``x``: contiguous bf16 or fp32 (..., 2w), ``h`` its first w columns and
+    the gate the last w.  Returns contiguous (..., w) in ``x``'s dtype,
+    equal to :func:`daam_tpu_torch.ops.geglu.geglu_plain`: the exact-erf GELU
+    in fp32 rounded to the dtype, then the product rounded to it.  Rows
+    move as 16-byte chunks where w and the bases allow, else one element at
+    a time; every width runs the kernel.
+    """
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f'x: dtype {x.dtype} not supported')
+    if not x.is_contiguous():
+        raise ValueError(f'x must be contiguous, strides {x.stride()}')
+    if x.dim() < 1 or x.shape[-1] % 2 or x.numel() == 0 or x.numel() > _INT_MAX:
+        raise ValueError(f'x must be a non-empty (..., 2w) tensor of at most 2^31 - 1 '
+                         f'elements, got shape {tuple(x.shape)}')
+    if not x.is_cuda:
+        raise ValueError(f'x must be a CUDA tensor, got {x.device}')
+    w = x.shape[-1] // 2
+    out = torch.empty(*x.shape[:-1], w, dtype=x.dtype, device=x.device)
+    err = load_library().daam_geglu(x.device.index, _DTYPE_CODES[x.dtype], x.data_ptr(),
+                                    out.data_ptr(), x.numel() // (2 * w), w,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, 'geglu')
+    launches['geglu'] += 1
     return out

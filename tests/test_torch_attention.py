@@ -263,12 +263,13 @@ def test_library_path_tracks_headers(tmp_path, monkeypatch):
 
 def test_launch_counters_include_the_tensor_core_route():
     """reset_launches zeroes every counter, those of the bf16 and the fp32
-    tensor-core routes and of the overlay kernels included."""
+    tensor-core routes, of the overlay kernels and of the GEGLU kernel
+    included."""
     for name in ('flash_attention_wgmma', 'cross_attention_acc_mma',
                  'cross_attention_probs_mma', 'flash_attention_tf32x3',
                  'flash_attention_tf32x3_mma',
                  'cross_attention_acc_tf32x3', 'cross_attention_probs_tf32x3',
-                 'overlay_resample', 'png_scanlines'):
+                 'overlay_resample', 'png_scanlines', 'geglu'):
         kernels.launches[name] += 3
     kernels.reset_launches()
     assert set(kernels.launches) == {'flash_attention', 'flash_attention_wgmma',
@@ -280,7 +281,7 @@ def test_launch_counters_include_the_tensor_core_route():
                                      'cross_attention_probs',
                                      'cross_attention_probs_mma',
                                      'cross_attention_probs_tf32x3',
-                                     'overlay_resample', 'png_scanlines'}
+                                     'overlay_resample', 'png_scanlines', 'geglu'}
     assert not any(kernels.launches.values())
 
 

@@ -514,6 +514,7 @@ def test_unet_graph_replays_equal_eager_on_card(preset, dtype, scheduler, cuda_d
 
     from daam_tpu_torch import StableDiffusionPipeline, trace
     from daam_tpu_torch.models import configs
+    from daam_tpu_torch.models.unet import FeedForward
     from daam_tpu_torch.pipeline import unet_graph
 
     N = 4
@@ -570,8 +571,12 @@ def test_unet_graph_replays_equal_eager_on_card(preset, dtype, scheduler, cuda_d
 
     first, second = 'A dog runs across the field .', 'A red cat sleeps on a bed .'
     eager = {p: request(p, eager=True) for p in (first, second)}
+    feed_forwards = sum(isinstance(m, FeedForward) for m in pipe.unet.modules())
     for run in eager.values():
         assert run['counts'] == {'captures': 0, 'replays': 0, 'eager': E}
+        # one GEGLU kernel a transformer block's feed-forward an evaluation;
+        # the replays below add what their capture recorded (assert_equal)
+        assert run['launches']['geglu'] == feed_forwards * E > 0
         assert [g for *_, g in run['evals']] == [0] * E
     if preset == 'tiny-v1':  # the mid block's self- and cross-attention at hd 160
         assert eager[first]['launches']['flash_attention_tf32x3_mma'] == 2 * E
@@ -591,3 +596,59 @@ def test_unet_graph_replays_equal_eager_on_card(preset, dtype, scheduler, cuda_d
     assert_equal(snaps, request(first, time_chunk_steps=2, eager=True))
     assert len(snaps['snaps']) == -(-E // 2)
     assert len(pipe.unet_graphs.entries) == 1
+
+
+# (rows, w) of the feed-forward's gate: SDXL's at 64² and 32² (CFG rows
+# 8,192 and 2,048), SD 2.1-512's three levels, and ragged ones (w not a
+# multiple of a 16-byte chunk: one element a step)
+GEGLU_SHAPES = [(8192, 2560), (2048, 5120), (8192, 1280), (2048, 2560), (512, 5120),
+                (37, 52), (1000, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', GEGLU_SHAPES, ids=lambda s: 'x'.join(map(str, s)))
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_geglu_kernel_equals_the_chain_on_card(dtype, shape, cuda_device):
+    """``kernels.geglu`` against the feed-forward's former line, ``h *
+    F.gelu(gate.float()).to(h.dtype)`` on the card: bit for bit (the same
+    float GELU, term for term, and the same two roundings), and again from a
+    base off 16 bytes, which takes the kernel one element at a time; one
+    launch counted a call."""
+    from daam_tpu_torch.ops.geglu import geglu_plain
+
+    rows, w = shape
+    g = torch.Generator(device=cuda_device).manual_seed(rows + w)
+    x = torch.randn(rows, 2 * w, device=cuda_device, generator=g)
+    x[:, w:] *= 2.5  # gates out to the GELU's flat negative tail
+    x = x.to(dtype)
+    n = kernels.launches['geglu']
+    out = kernels.geglu(x)
+    assert out.dtype == dtype and out.shape == (rows, w) and out.is_contiguous()
+    assert torch.equal(out, geglu_plain(x))
+    off = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)[1:].view_as(x)
+    off.copy_(x)
+    assert off.data_ptr() % 16
+    assert torch.equal(kernels.geglu(off), out)
+    assert kernels.launches['geglu'] == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_feed_forward_takes_the_geglu_kernel_on_card(dtype, cuda_device):
+    """An SDXL-shaped ``FeedForward`` (dim 640 at 64², CFG batch 2) gives
+    the same output through the kernel as through the former chain, and
+    counts one ``geglu`` launch a call."""
+    import torch.nn.functional as F
+
+    from daam_tpu_torch.models.unet import FeedForward
+
+    torch.manual_seed(0)
+    ff = FeedForward(640).to(cuda_device, dtype)
+    x = torch.randn(2, 4096, 640, device=cuda_device).to(dtype)
+    n = kernels.launches['geglu']
+    with torch.no_grad():
+        out = ff(x)
+        assert kernels.launches['geglu'] == n + 1
+        h, gate = ff.net[0].proj(x).chunk(2, dim=-1)
+        want = ff.net[2](h * F.gelu(gate.float()).to(h.dtype))
+    assert torch.equal(out, want)

@@ -385,3 +385,56 @@ def test_png_rows_of_an_image_are_pillows_emulated(run_overlay, kind, H, W):
         raw = run_overlay(img, None, filtered=False)
         assert not raw[:, 0].any()
         np.testing.assert_array_equal(raw[:, 1:].reshape(img.shape), img)
+
+
+# ---------------------------------------------------------------- GEGLU
+#
+# geglu_kernel (csrc/geglu.cu): h * gelu(gate) of the feed-forward's
+# (rows, 2w) projection output in one pass.  run_case holds each output
+# element to the chain's own expression with std::erf in float, bit for
+# bit, and the elements around the output to their sentinel; here the
+# output is held against PyTorch's CPU chain (``ops.geglu.geglu_plain``).
+
+def _ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` at the magnitudes ``x`` (float64, > 0)."""
+    mantissa = 7 if dtype == torch.bfloat16 else 23
+    return torch.pow(2.0, torch.floor(torch.log2(x.clamp_min(1e-30))) - mantissa)
+
+
+# (dtype, rows, w, offset): the 16-byte route with 37 rows (more chunks
+# than a block's threads: a second step of the walk) and 300 (several
+# blocks); widths that are not a multiple of a 16-byte chunk and a base off
+# 16 bytes, which take the kernel one element at a time; a width of 3
+GEGLU_CASES = [('bf16', 37, 64, 0), ('bf16', 300, 128, 0), ('bf16', 37, 52, 0),
+               ('bf16', 37, 64, 3), ('bf16', 5, 3, 0), ('f32', 37, 64, 0),
+               ('f32', 300, 64, 0), ('f32', 37, 50, 0), ('f32', 37, 64, 1)]
+
+
+@pytest.mark.parametrize('case', GEGLU_CASES, ids=lambda c: '-'.join(map(str, c)))
+def test_geglu_kernel_emulated(run_case, tmp_path, case):
+    """The kernel equals the std::erf expression bit for bit (run_case) and
+    the CPU chain within one ulp of the output dtype at s = |h|·max(|g|, 1),
+    plus 5e-7·s: PyTorch's CPU GELU is a vectorized polynomial within
+    3.6e-7·max(|g|, 1) of the exact GELU (measured over [-12, 12]), glibc's
+    erff within an ulp of erf, so in fp32 the two chains part by a few ulps
+    where the card's chain and the kernel share their bits."""
+    from daam_tpu_torch.ops.geglu import geglu_plain
+
+    dtype_name, rows, w, offset = case
+    dtype = torch.bfloat16 if dtype_name == 'bf16' else torch.float32
+    rng = np.random.RandomState(rows * 1000 + w + offset)
+    x = rng.randn(rows, 2 * w).astype(np.float32)
+    x[:, w:] *= 2.5  # gates out to the GELU's flat negative tail
+    x[0, w:w + 3] = (-12.0, 0.0, 12.0)[:w]
+    x = torch.from_numpy(x).to(dtype)
+    src, dst = tmp_path / 'in.bin', tmp_path / 'out.bin'
+    (x.view(torch.int16) if dtype == torch.bfloat16 else x).numpy().tofile(src)
+    out = run_case('geglu', dtype_name, rows, w, offset, src, dst)
+    assert ' 0 ok' in out and out.count(' ok') == 2, out
+    raw = np.fromfile(dst, np.int16 if dtype == torch.bfloat16 else np.float32)
+    got = torch.from_numpy(raw).view(dtype).reshape(rows, w)
+    want = geglu_plain(x)
+    h, g = x[:, :w].double().abs(), x[:, w:].double().abs().clamp_min(1)
+    scale = h * g
+    err = (got.double() - want.double()).abs()
+    assert (err <= _ulp(scale, dtype) + 5e-7 * scale).all(), err.max()

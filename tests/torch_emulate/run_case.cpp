@@ -28,6 +28,13 @@
 //       (256, 3), the fp32 map (h, w), the uint8 image (H, W, 3)); writes the
 //       (H, 1 + 3W) scanlines to `out`, which the test holds against the host
 //       route and Pillow
+//   run_case geglu f32|bf16 rows w offset in out
+//       geglu.cu's geglu_kernel on the (rows, 2w) elements of the file `in`
+//       (raw float32 or bfloat16), input and output each placed `offset`
+//       elements past a 16-byte boundary; holds every output element to the
+//       same expression with std::erf in float, bit for bit, and the
+//       elements around the output to their sentinel; writes the (rows, w)
+//       output to `out`, which the test holds against PyTorch's CPU chain
 //
 // layout: head_major or packed.  Prints one line per check and exits 1 if
 // any fails.
@@ -39,6 +46,7 @@
 #include "warp.h"
 #include "attention.cu"
 #include "overlay.cu"
+#include "geglu.cu"
 
 namespace {
 
@@ -240,9 +248,72 @@ void run_probs(const Shape& s, int pdtype, bool cond_only, std::mt19937& rng) {
   expect(kept, "elements the call must not write", 0);
 }
 
+template <typename E>
+uint32_t bits_of(E x) {
+  if constexpr (std::is_same_v<E, float>) return __float_as_uint(x);
+  else return x.v;
+}
+
+// h * gelu(gate) as the chain computes it, with std::erf in float.
+float geglu_reference(float h, float g, bool bf16) {
+  float a = g * 0.5f * (1.f + std::erf(g * 0.70710678118654752440f));
+  if (bf16) a = bf16_round(a);
+  const float out = h * a;
+  return bf16 ? bf16_round(out) : out;
+}
+
+template <typename E>
+int run_geglu(int rows, int w, int offset, const char* in, const char* out_path) {
+  constexpr bool bf16 = !std::is_same_v<E, float>;
+  const size_t n_in = (size_t)rows * 2 * w, n_out = (size_t)rows * w;
+  const int pad = 16 / sizeof(E);  // sentinels past the output's end
+  // 16-byte-aligned storage, the operands `offset` elements into it
+  std::vector<uint4> x_mem((n_in + offset) * sizeof(E) / 16 + 1),
+      o_mem((n_out + offset + pad) * sizeof(E) / 16 + 1);
+  E* x = reinterpret_cast<E*>(x_mem.data()) + offset;
+  E* o = reinterpret_cast<E*>(o_mem.data());
+  E sentinel;
+  if constexpr (bf16) sentinel = __float2bfloat16(12345.f);
+  else sentinel = 12345.f;
+  std::fill(o, o + n_out + offset + pad, sentinel);
+  FILE* f = fopen(in, "rb");
+  const bool read = f && fread(x, sizeof(E), n_in, f) == n_in;
+  if (f) fclose(f);
+  if (!read) {
+    fprintf(stderr, "geglu: cannot read %s\n", in);
+    return 2;
+  }
+  if (launch_error(daam_geglu(0, bf16, x, o + offset, rows, w, nullptr))) return 1;
+  long bad = 0;
+  for (int r = 0; r < rows; ++r)
+    for (int c = 0; c < w; ++c) {
+      const float h = to_float(x[(size_t)r * 2 * w + c]), g = to_float(x[(size_t)r * 2 * w + w + c]);
+      bad += __float_as_uint(geglu_reference(h, g, bf16)) !=
+             __float_as_uint(to_float(o[offset + (size_t)r * w + c]));
+    }
+  bool kept = true;
+  for (int i = 0; i < offset; ++i) kept &= bits_of(o[i]) == bits_of(sentinel);
+  for (int i = 0; i < pad; ++i) kept &= bits_of(o[offset + n_out + i]) == bits_of(sentinel);
+  printf("geglu (%s) elements off the std::erf expression: %ld %s\n", bf16 ? "bf16" : "fp32",
+         bad, bad ? "FAIL" : "ok");
+  expect(kept, "elements the call must not write", 0);
+  failures += bad != 0;
+  f = fopen(out_path, "wb");
+  const bool wrote = f && fwrite(o + offset, sizeof(E), n_out, f) == n_out;
+  if (f) fclose(f);
+  if (!wrote) return 2;
+  return failures ? 1 : 0;
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
+  if (argc == 8 && std::string(argv[1]) == "geglu") {
+    const int rows = atoi(argv[3]), w = atoi(argv[4]), offset = atoi(argv[5]);
+    return std::string(argv[2]) == "bf16"
+        ? run_geglu<__nv_bfloat16>(rows, w, offset, argv[6], argv[7])
+        : run_geglu<float>(rows, w, offset, argv[6], argv[7]);
+  }
   if (argc == 5 && std::string(argv[1]) == "smem") {
     printf("%lld\n", ma_smem_bytes(atoi(argv[2]), atoi(argv[3]), atoi(argv[4])));
     return 0;
